@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive pycolmap_torch's bundle adjuster on one CUDA card and check it.
+"""Drive pycolmap_torch on one CUDA card and check it: the bundle adjuster
+and the feature front end (SIFT extraction, descriptor matching).
 
 Run from the repository root on a host with an H100 (or another sm_90a
 card) and the CUDA toolkit:
@@ -8,21 +9,33 @@ card) and the CUDA toolkit:
 
 Phases (each raises on failure; the script then exits nonzero):
 
-1. build the five bundle-adjustment kernels from ``pycolmap_torch/sfm/csrc``
-   with nvcc (all sources in parallel) and print the build time and the
-   card's name and power limit;
-2. hold each kernel to its plain PyTorch version on the card, at the bench
-   shapes and at an irregular shape (three cameras, several buckets, widths
-   that are no multiple of 128, mask holes, points behind cameras, partly
-   fixed intrinsics, all three losses, all 11 camera models), and time both
-   with CUDA events;
+1. build every kernel of the port (``pycolmap_torch/*/csrc``) with nvcc,
+   all sources in parallel, and print the build time and the card's name
+   and power limit;
+2. hold each bundle-adjustment kernel to its plain PyTorch version on the
+   card, at the bench shapes and at an irregular shape (three cameras,
+   several buckets, widths that are no multiple of 128, mask holes, points
+   behind cameras, partly fixed intrinsics, all three losses, all 11 camera
+   models), and time both with CUDA events;
 3. solve a 32-image / 8192-point problem on the card and on the CPU (plain
    versions), 6 LM steps each, and compare the results;
 4. run the bench's resident solve (128 images, 100k points, ~600k
    observations; bench.py run_ba's sequence) through the kernels, with the
    launch counters zeroed just before the timed solves and read just after;
 5. profile one more bench solve with torch.profiler: device time per
-   kernel and the device's busy share.
+   kernel and the device's busy share;
+6. hold the window sampler and the top-2 matcher to their plain versions
+   (float64) on the card: the sampler at octave 0's orientation and
+   descriptor inputs of a 960x1280 extract and at an irregular shape, top-2
+   at 8192 x 8192 and at a ragged batch; time kernel, plain version, bound
+   and one PyTorch call that computes the same function;
+7. extract SIFT at 240x320 on the card and on the CPU (plain versions) and
+   compare the keypoint sets;
+8. the front end at bench.py run_sift's size (960x1280 uint8, default
+   options): ms per image single and in batches of 4, keypoints per image,
+   a cross-checked match against a 5-px shift, batched matching of 4 pairs;
+   the launch counters are zeroed just before and read just after;
+9. profile one full-width extract with torch.profiler.
 
 The last lines are one JSON object describing every kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -43,9 +56,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 try:
+    from pycolmap_torch import _cuda_build
+    from pycolmap_torch.features import match_kernels as mk
+    from pycolmap_torch.features import matcher as fm
+    from pycolmap_torch.features import window_sampler as ws
+    from pycolmap_torch.features.sift import Sift
     from pycolmap_torch.ops.camera_models import solver_num_params
     from pycolmap_torch.parallel.synthetic import make_synthetic_bundle
-    from pycolmap_torch.sfm import _cuda
     from pycolmap_torch.sfm import ba_kernels as bk
     from pycolmap_torch.sfm import cg_kernel as ck
     from pycolmap_torch.sfm.bundle_adjustment import BundleAdjustmentOptions
@@ -81,13 +98,24 @@ KERNEL_INFO = {
                 "pycolmap_tpu/sfm/cg_kernel.py:1122"),
     "matvec": ("pycolmap_torch/sfm/csrc/schur.cu",
                "pycolmap_tpu/sfm/cg_kernel.py:220"),
+    "window_sampler": ("pycolmap_torch/features/csrc/window_sampler.cu",
+                       "pycolmap_tpu/features/window_sampler.py:127"),
+    "top2": ("pycolmap_torch/features/csrc/top2.cu",
+             "pycolmap_tpu/features/pallas_kernels.py:87"),
 }
 # tolerance on max |kernel - plain| / max(1, max |plain|) per output, the
 # plain version evaluated in float64 (the CPU parity tests' tolerances).
 # The kernels compute in f32; the camera-row sums of prepare and matvec are
 # float atomics whose order varies run to run.
 TOL = {"resjac": 1e-5, "cost": 1e-5, "finish": 1e-5, "prepare": 3e-5,
-       "matvec": 2e-5}
+       "matvec": 2e-5,
+       # the reference's sampler tolerance (tests/test_window_sampler.py)
+       "window_sampler": 2e-5,
+       # unit-vector similarities; indices must agree where the top-2
+       # margin exceeds TOP2_MARGIN
+       "top2": 1e-6}
+TOP2_MARGIN = 1e-5
+SIFT_H, SIFT_W = 960, 1280  # bench.py run_sift's images
 
 
 def log(msg):
@@ -506,6 +534,373 @@ def profile_solve(solver):
             f"{e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the feature kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def make_u8(seed, H=SIFT_H, W=SIFT_W):
+    """bench.py run_sift's image: 8-px blocks of noise plus pixel noise."""
+    r = np.random.default_rng(seed)
+    base = r.normal(0.5, 0.15, (H // 8, W // 8))
+    img = np.kron(base, np.ones((8, 8))) + r.normal(0, 0.05, (H, W))
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def capture_sampler_inputs(img):
+    """The sampler's inputs of octave 0 in one card extract of img: the
+    orientation launch, then the descriptor launch."""
+    calls = []
+    kernel = ws.sample_windows_kernel
+
+    def record(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    ws.sample_windows_kernel = record
+    try:
+        Sift().extract(img)
+    finally:
+        ws.sample_windows_kernel = kernel
+    return {"orientation": calls[0], "descriptor": calls[1]}
+
+
+def irregular_sampler_inputs(dev, seed=7):
+    """3 channels (pairs 0-1 and 1-2), K = 37 (no multiple of 8), windows
+    at the volume's four borders, samples left of / above their window and
+    -2.0 rows."""
+    g = torch.Generator().manual_seed(seed)
+    vol = ws.pad_volume(torch.randn(3, 200, 384, generator=g)).to(dev)
+    K, win_y, win_x = 37, 48, 256
+    LHp, Wp = vol.shape[1:]
+    ch0 = (torch.arange(K) % 2).to(torch.int32)
+    y0 = torch.tensor([0, LHp - win_y], dtype=torch.int32)[torch.arange(K) % 2]
+    x0 = torch.tensor([0, Wp - win_x], dtype=torch.int32)[(torch.arange(K) // 2) % 2]
+    wy = torch.rand(K, 256, generator=g) * (win_y + 5) - 3
+    wx = torch.rand(K, 256, generator=g) * (win_x + 5) - 3
+    wy[-3:] = -2.0
+    wx[-3:] = -2.0
+    return tuple(t.to(dev) for t in (vol, ch0, y0, x0, wy, wx)) + (win_y, win_x)
+
+
+def sampler_bound(vol, ch0, y0, x0, wy, wx, win_y, win_x):
+    """Bytes: coordinates and origins in, samples out, and the volume
+    pixels this data's taps touch (inside window and volume), each once."""
+    NC, LHp, Wp = vol.shape
+    K = wy.shape[0]
+    iy, ix = torch.floor(wy).long(), torch.floor(wx).long()
+    flat = []
+    for ty in (0, 1):
+        for tx in (0, 1):
+            ry, rx = iy + ty, ix + tx
+            gy, gx = y0.long()[:, None] + ry, x0.long()[:, None] + rx
+            ok = ((ry >= 0) & (ry < win_y) & (rx >= 0) & (rx < win_x)
+                  & (gy >= 0) & (gy < LHp) & (gx >= 0) & (gx < Wp))
+            for c in (0, 1):
+                idx = (ch0.long()[:, None] + c) * LHp * Wp + gy * Wp + gx
+                flat.append(idx[ok])
+    touched = int(torch.unique(torch.cat(flat)).numel())
+    nbytes = K * 256 * 2 * 4 + K * 3 * 4 + K * 2 * 256 * 4 + touched * 4
+    ops = K * 256 * 30  # weights, 8 taps, 8 FMAs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, touched_px=touched)
+
+
+def check_sampler(tag, args, results=None):
+    vol, ch0, y0, x0, wy, wx, win_y, win_x = args
+    out = ws.sample_windows_kernel(*args)
+    ref = ws.sample_windows_plain(vol.double(), ch0, y0, x0, wy.double(),
+                                  wx.double(), win_y, win_x)
+    torch.cuda.synchronize()
+    err = scaled_err(out, ref)
+    if not err[1] <= TOL["window_sampler"]:
+        raise AssertionError(f"[{tag}] window_sampler: scaled error "
+                             f"{err[1]:.3e} > {TOL['window_sampler']:.0e}")
+    log(f"phase 6 sampler {tag}: K {wy.shape[0]}, window {win_y}x{win_x}, "
+        f"volume {tuple(vol.shape)}; max abs err {err[0]:.3e}")
+    if results is None:
+        return err
+    # yardstick: grid_sample of the channel pair at the same samples
+    # (every SIFT keypoint samples channels 0-1)
+    LHp, Wp = vol.shape[1:]
+    ys = y0[:, None].float() + wy
+    xs = x0[:, None].float() + wx
+    grid = torch.stack([2 * xs / (Wp - 1) - 1, 2 * ys / (LHp - 1) - 1], -1)[None]
+    pair = vol[None, 0:2]
+    results[tag] = dict(
+        max_abs_err=err[0], scaled_err=err[1],
+        ms=time_gpu(lambda: ws.sample_windows_kernel(*args)),
+        plain_ms=time_gpu(lambda: ws.sample_windows_plain(*args), 5),
+        library_ms=time_gpu(lambda: torch.nn.functional.grid_sample(
+            pair, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)),
+        **sampler_bound(*args),
+    )
+    r = results[tag]
+    log(f"phase 6 sampler {tag}: kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.3f} ms, grid_sample {r['library_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+        f"{r['bytes'] / 1e6:.2f} MB, {r['touched_px']} volume px touched)")
+    return err
+
+
+def unit_rows(g, *shape):
+    return torch.nn.functional.normalize(torch.randn(*shape, generator=g), dim=-1)
+
+
+def check_top2(tag, d1, d2, n1, n2, results=None):
+    """Kernel vs plain (float64) over the rows < n1 of every pair."""
+    kb, ks, ki = mk.top2_batch(d1, d2, n2)
+    pb, ps, pi = mk.top2_plain(d1.double(), d2.double(), n2)
+    torch.cuda.synchronize()
+    rows = torch.arange(d1.shape[1], device=d1.device)[None] < n1[:, None]
+    err_b = scaled_err(kb[rows], pb[rows])
+    err_s = scaled_err(ks[rows], ps[rows])
+    err = (max(err_b[0], err_s[0]), max(err_b[1], err_s[1]))
+    clear = rows & ((pb - ps) > TOP2_MARGIN)
+    bad_idx = int((ki.long() != pi.long())[clear].sum())
+    if not (err[1] <= TOL["top2"] and bad_idx == 0):
+        raise AssertionError(f"[{tag}] top2: similarity error {err[1]:.3e} "
+                             f"(tol {TOL['top2']:.0e}), {bad_idx} indices "
+                             f"differ where the margin exceeds {TOP2_MARGIN}")
+    log(f"phase 6 top2 {tag}: B {d1.shape[0]}, N1 {d1.shape[1]}, N2 "
+        f"{d2.shape[1]}, n1 {n1.tolist()}, n2 {n2.tolist()}; max abs err "
+        f"{err[0]:.3e}, index checks on {int(clear.sum())} rows")
+    if results is None:
+        return err
+    D = d1.shape[2]
+    pairs = list(zip(n1.tolist(), n2.tolist()))
+    ops = sum(2 * a * b * D for a, b in pairs)
+    nbytes = sum((a + b) * D * 4 + a * 12 for a, b in pairs)
+    t_ops = ops / F32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    # yardstick: two PyTorch calls, the full product and topk over it
+    results[tag] = dict(
+        max_abs_err=err[0], scaled_err=err[1],
+        ms=time_gpu(lambda: mk.top2_batch(d1, d2, n2)),
+        plain_ms=time_gpu(lambda: mk.top2_plain(d1, d2, n2), 5),
+        library_ms=time_gpu(lambda: torch.topk(
+            torch.matmul(d1, d2.transpose(1, 2)), 2, dim=2)),
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        gflop=ops / 1e9,
+    )
+    r = results[tag]
+    log(f"phase 6 top2 {tag}: kernel {r['ms']:.4f} ms "
+        f"({r['gflop'] / r['ms']:.2f} TFLOP/s), plain {r['plain_ms']:.3f} ms, "
+        f"matmul+topk {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})")
+    return err
+
+
+def feature_kernels():
+    dev = torch.device("cuda")
+    results = {}
+    captured = capture_sampler_inputs(make_u8(100))
+    for tag in ("orientation", "descriptor"):
+        check_sampler(tag, captured[tag], results)
+    del captured
+    check_sampler("irregular", irregular_sampler_inputs(dev))
+
+    g = torch.Generator().manual_seed(3)
+    d1 = unit_rows(g, 1, 8192, 128).to(dev)
+    d2 = unit_rows(g, 1, 8192, 128).to(dev)
+    d2[0, 100:110] = d2[0, 0:10]  # exact duplicates: ties
+    full = torch.tensor([8192], device=dev)
+    check_top2("8192x8192", d1, d2, full, full.int(), results)
+    del d1, d2
+    # ragged batch: 3 pairs padded to 1000 rows and columns
+    n1 = torch.tensor([300, 1000, 77], device=dev)
+    n2 = torch.tensor([1000, 77, 300], device=dev, dtype=torch.int32)
+    r1 = unit_rows(g, 3, 1000, 128).to(dev)
+    r2 = unit_rows(g, 3, 1000, 128).to(dev)
+    r1 = r1 * (torch.arange(1000, device=dev)[None, :, None] < n1[:, None, None])
+    check_top2("ragged", r1, r2, n1, n2)
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: SIFT and matching end to end
+# ---------------------------------------------------------------------------
+
+
+def _wrap(a):
+    return np.abs(np.angle(np.exp(1j * np.asarray(a, np.float64))))
+
+
+def compare_features(ref, got, tag):
+    """The CPU parity tests' keypoint-set criterion: >= 97% of ref's
+    keypoints have a pair in got within 0.01 px and 1e-3 in scale (the
+    nearest in orientation), and paired descriptors differ by at most one
+    uint8 step (1/512)."""
+    (kr, dr), (kg, dg) = ref, got
+    pair = -np.ones(len(kr), int)
+    for n, k in enumerate(kr):
+        c = np.nonzero((np.hypot(kg[:, 0] - k[0], kg[:, 1] - k[1]) < 0.01)
+                       & (np.abs(kg[:, 2] - k[2]) < 1e-3))[0]
+        if len(c):
+            pair[n] = c[np.argmin(_wrap(kg[c, 3] - k[3]))]
+    ok = pair >= 0
+    frac = float(ok.mean()) if len(ok) else 0.0
+    d_err = float(np.abs(dg[pair[ok]] - dr[ok]).max()) if ok.any() else math.inf
+    a_err = float(_wrap(kg[pair[ok], 3] - kr[ok, 3]).max()) if ok.any() else math.inf
+    log(f"{tag}: {len(kr)} vs {len(kg)} keypoints, {100 * frac:.2f}% paired, "
+        f"max descriptor diff {d_err:.5f}, max angle diff {a_err:.2e} rad")
+    if not (len(kr) > 50 and frac >= 0.97 and d_err <= 1 / 512 + 1e-7
+            and a_err < 1e-3):
+        raise AssertionError(f"{tag}: keypoint sets disagree")
+
+
+def sift_parity():
+    img = make_u8(11, 240, 320)
+    cpu = Sift(device="cpu").extract(img)
+    card = Sift().extract(img)
+    compare_features(cpu, card, "phase 7 SIFT 240x320 card vs CPU")
+
+
+def shift_check(k1, k2, m, tag):
+    dx = k2[m[:, 1], 0] - k1[m[:, 0], 0]
+    good = float((np.abs(dx - 5) < 1.5).mean()) if len(m) else 0.0
+    log(f"{tag}: {len(m)} matches of {len(k1)}/{len(k2)} keypoints, "
+        f"{100 * good:.2f}% at dx = 5 +- 1.5 px")
+    if not (len(m) > 0.3 * min(len(k1), len(k2)) and good > 0.85):
+        raise AssertionError(f"{tag}: shifted-pair matches fail the check")
+
+
+def _buckets(feats):
+    return len({(max(256, 1 << (len(a) - 1).bit_length()),
+                 max(256, 1 << (len(b) - 1).bit_length())) for a, b in feats})
+
+
+def front_end():
+    """bench.py run_sift's methodology on the port, then matching. Every
+    launch count is zeroed just before the timed work and read after."""
+    s = Sift()
+    imgs = [make_u8(i) for i in range(8)]
+    shifted = [np.roll(im, 5, axis=1) for im in imgs[:4]]
+    s.extract(imgs[0])  # warm
+    s.extract_batch(imgs[0:4])
+
+    ws.reset_counts()
+    mk.reset_counts()
+    extracts = 0
+
+    def single(idxs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in idxs:
+            s.extract(imgs[i])
+        return (time.perf_counter() - t0) / len(idxs)
+
+    single_ms = min(single([1, 2, 3, 4, 5, 6]),
+                    single([7, 2, 4, 6, 1, 3])) * 1e3
+    extracts += 12
+
+    def batch(ims):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = s.extract_batch(ims)
+        return (time.perf_counter() - t0) / len(ims), out
+
+    b1, feats = batch(imgs[4:8])
+    b2, _ = batch([imgs[2], imgs[5], imgs[1], imgs[7]])
+    batch_ms = min(b1, b2) * 1e3
+    extracts += 8
+    kps = [len(k) for k, _ in feats]
+    base = s.extract_batch(imgs[:4])
+    moved = s.extract_batch(shifted)
+    extracts += 8
+
+    # one cross-checked pair, timed twice
+    (k1, d1), (k2, d2) = base[0], moved[0]
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        m = fm.match_descriptors(d1, d2)
+        times.append(time.perf_counter() - t0)
+    match_ms = min(times) * 1e3
+    singles = 2
+    # four pairs in one batched call, timed twice
+    pairs = [(d_a, d_b) for (_, d_a), (_, d_b) in zip(base, moved)]
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        mb = fm.match_descriptors_batch(pairs)
+        times.append(time.perf_counter() - t0)
+    batch_match_ms = min(times) / len(pairs) * 1e3
+    batch_calls = 2
+    launches = {"window_sampler": ws.LAUNCHES["window_sampler"],
+                "top2": mk.LAUNCHES["top2"]}
+    plain_on_cuda = ws.PLAIN_ON_CUDA["window_sampler"] + mk.PLAIN_ON_CUDA["top2"]
+
+    expect = {"window_sampler": 8 * extracts,
+              "top2": 2 * singles + 2 * _buckets(pairs) * batch_calls}
+    log(f"phase 8 SIFT {SIFT_H}x{SIFT_W}: single {single_ms:.3f} ms/image "
+        f"(best of two passes over 6), batch of 4 {batch_ms:.3f} ms/image; "
+        f"keypoints per image {kps} (mean {np.mean(kps):.1f})")
+    log(f"phase 8 matching: one cross-checked pair {match_ms:.3f} ms "
+        f"({len(d1)} x {len(d2)} descriptors), batch of 4 pairs "
+        f"{batch_match_ms:.3f} ms/pair")
+    log(f"phase 8 launches: {launches} over {extracts} extracts, "
+        f"{singles} single matches and {batch_calls} batch calls; expected "
+        f"{expect}")
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+    if plain_on_cuda:
+        raise AssertionError("plain versions ran on CUDA tensors")
+
+    shift_check(k1, k2, m, "phase 8 shifted pair (card)")
+    for i, mm in enumerate(mb):
+        shift_check(base[i][0], moved[i][0], mm, f"phase 8 batch pair {i}")
+    if not np.array_equal(mb[0], m):
+        raise AssertionError("batched and single matching disagree")
+    cpu = fm.match_descriptors(d1, d2, device="cpu")
+    a = {tuple(r) for r in m.tolist()}
+    b = {tuple(r) for r in cpu.tolist()}
+    jac = len(a & b) / max(len(a | b), 1)
+    log(f"phase 8 card vs CPU matches of the shifted pair: {len(a)} vs "
+        f"{len(b)}, Jaccard {jac:.4f} (tol 0.99)")
+    if jac < 0.99:
+        raise AssertionError("card and CPU match sets disagree")
+    return launches, dict(single_ms=single_ms, batch_ms=batch_ms,
+                          keypoints=float(np.mean(kps)), match_ms=match_ms,
+                          batch_match_ms=batch_match_ms)
+
+
+def profile_extract():
+    """torch.profiler over one full-width extract: device time per kernel
+    and the device's busy share of its wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    s = Sift()
+    img = make_u8(9)
+    s.extract(img)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s.extract(img)
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    busy = sum(dev_us(e) for e in rows) * 1e-6
+    log(f"phase 9 profile: one {SIFT_H}x{SIFT_W} extract in "
+        f"{wall * 1e3:.2f} ms wall; device busy {busy * 1e3:.2f} ms "
+        f"({100 * busy / wall:.1f}%), {sum(e.count for e in rows)} device ops")
+    for e in sorted(rows, key=dev_us, reverse=True)[:15]:
+        log(f"phase 9 profile:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:5d}  "
+            f"{e.key[:90]}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -520,11 +915,12 @@ def main():
 
     # --- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
-    _cuda.libs()
-    log(f"phase 1: kernels built and loaded in "
+    _cuda_build.libs()
+    nvcc_s = _cuda_build.build_seconds
+    log(f"phase 1: {len(_cuda_build.SOURCES)} sources built and loaded in "
         f"{time.perf_counter() - t0:.1f} s (nvcc wall "
-        f"{_cuda.build_seconds if _cuda.build_seconds is None else round(_cuda.build_seconds, 1)} s)")
-    regs = [ln.strip() for ln in _cuda.build_log.splitlines()
+        f"{nvcc_s if nvcc_s is None else round(nvcc_s, 1)} s)")
+    regs = [ln.strip() for ln in _cuda_build.build_log.splitlines()
             if "registers" in ln]
     log(f"phase 1: ptxas reports {len(regs)} kernels; max "
         f"{max((int(ln.split('Used ')[1].split()[0]) for ln in regs), default=0)}"
@@ -561,6 +957,14 @@ def main():
     # --- phase 5: where the time goes --------------------------------------
     profile_solve(solver)
     del solver
+    torch.cuda.empty_cache()
+
+    # --- phases 6-9: the feature front end ----------------------------------
+    feat = feature_kernels()
+    sift_parity()
+    feat_launches, e2e = front_end()
+    profile_extract()
+    log(f"front end summary: {json.dumps(e2e)}")
 
     kernels = []
     for name in ck.KERNELS:
@@ -572,6 +976,19 @@ def main():
             max_abs_err=r["max_abs_err"], max_scaled_err=r["scaled_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
+            library_note="no single PyTorch call computes this function",
+        ))
+    # the sampler's row is its descriptor launch (the larger of the two per
+    # octave); the orientation launch is logged in phase 6
+    for name, tag in (("window_sampler", "descriptor"), ("top2", "8192x8192")):
+        src, rep = KERNEL_INFO[name]
+        r = feat[tag]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=rep, shape=tag,
+            launches=feat_launches[name],
+            max_abs_err=r["max_abs_err"], max_scaled_err=r["scaled_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -2,8 +2,9 @@
 
 The package mirrors the ``pycolmap_tpu`` tree file for file, so each module
 names its reference twin. Plain tensor code is PyTorch; every Pallas kernel
-of the reference becomes a CUDA C++ kernel for Hopper (``sfm/csrc``), with a
-plain PyTorch version beside it that serves CPU tensors.
+of the reference becomes a CUDA C++ kernel for Hopper (``*/csrc``, built by
+``_cuda_build.py``), with a plain PyTorch version beside it that serves CPU
+tensors.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 Called with no device on a host without CUDA they raise: there is no silent

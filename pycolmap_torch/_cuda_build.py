@@ -1,0 +1,145 @@
+"""Build and load every CUDA kernel of the port.
+
+Each ``.cu`` source under a ``csrc/`` directory of the package (``SOURCES``)
+compiles with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+interface, loaded with ``ctypes``. All sources build in parallel, one
+``nvcc`` each, at first use, into ``build/pycolmap_torch/<hash>/`` beside
+the package; the hash covers every source, header and flag, so an edit to
+any of them rebuilds all. Nothing is built or imported when this module is
+imported: the CPU tests import every module and such a host has no
+``nvcc``.
+
+The launcher modules (``sfm/_cuda.py``, ``features/_cuda.py``) hold the C
+signatures and call :func:`launch`. Every C launcher takes PyTorch's current
+stream as its last argument, allocates nothing, and returns
+``cudaGetLastError()`` after the launch; a nonzero code raises here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE = Path(__file__).resolve().parent
+# package-relative paths; every source exports kernel_error_string(int)
+SOURCES = (
+    "sfm/csrc/resjac.cu",
+    "sfm/csrc/cost.cu",
+    "sfm/csrc/schur.cu",
+    "features/csrc/window_sampler.cu",
+    "features/csrc/top2.cu",
+)
+HEADERS = ("sfm/csrc/ba_device.cuh",)
+_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+_FLAGS = (_ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+          "-Xptxas", "-v")
+BUILD_ROOT = PACKAGE.parent / "build" / "pycolmap_torch"
+
+_lock = threading.Lock()
+_libs: dict | None = None
+build_log = ""  # compiler output of the last build (ptxas register counts)
+build_seconds = None  # wall time of the last build, None if loaded from disk
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a host "
+                       "with the CUDA toolkit")
+
+
+def _source_key() -> str:
+    h = hashlib.blake2b(digest_size=12)
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((PACKAGE / name).read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    return h.hexdigest()
+
+
+def _lib_name(source: str) -> str:
+    return f"{Path(source).stem}.so"
+
+
+def _build(out_dir: Path) -> None:
+    """Compile every source in parallel (one nvcc each) into out_dir."""
+    global build_log, build_seconds
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for name in SOURCES:
+        src = PACKAGE / name
+        tmp = out_dir / f"{_lib_name(name)}.tmp{os.getpid()}"
+        cmd = [nvcc, *_FLAGS, "-I", str(src.parent), "-o", str(tmp), str(src)]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for name, tmp, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, out_dir / _lib_name(name))
+    build_log = "\n".join(logs)
+    build_seconds = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
+
+
+def libs() -> dict:
+    """The loaded kernel libraries by source path, building them first if
+    needed."""
+    global _libs
+    with _lock:
+        if _libs is None:
+            out_dir = BUILD_ROOT / _source_key()
+            if not all((out_dir / _lib_name(n)).exists() for n in SOURCES):
+                _build(out_dir)
+            loaded = {}
+            for name in SOURCES:
+                lib = ctypes.CDLL(str(out_dir / _lib_name(name)))
+                lib.kernel_error_string.argtypes = [ctypes.c_int]
+                lib.kernel_error_string.restype = ctypes.c_char_p
+                loaded[name] = lib
+            _libs = loaded
+        return _libs
+
+
+def launch(source: str, fn: str, argtypes, *args) -> None:
+    """Call the C launcher `fn` of `source` on the current stream.
+    argtypes: its ctypes signature, the trailing stream pointer included."""
+    lib = libs()[source]
+    f = getattr(lib, fn)
+    if f.argtypes is None:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    code = f(*args, torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        msg = lib.kernel_error_string(code).decode()
+        raise RuntimeError(f"{fn} failed: CUDA error {code} ({msg})")
+
+
+def ptr(t: torch.Tensor, dtype=torch.float32) -> int:
+    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(
+            f"kernel operand must be a contiguous CUDA {dtype} tensor, got "
+            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+    return t.data_ptr()
+
+
+def i32(t: torch.Tensor) -> int:
+    return ptr(t, torch.int32)

@@ -1,8 +1,8 @@
 """Carry state from the reference package into the port.
 
-The reference's ``BundleProblem`` and ``BundleAdjustmentOptions`` cross as
-plain data (numpy arrays, dicts), never as reference objects, so this
-module imports nothing of ``pycolmap_tpu``. Parity tests build one problem,
+The reference's ``BundleProblem`` and its options (BA, SIFT extraction,
+SIFT matching) cross as plain data (numpy arrays, dicts), never as
+reference objects, so this module imports nothing of ``pycolmap_tpu``. Parity tests build one problem,
 hand its fields to both packages, and compare the results.
 """
 
@@ -13,14 +13,18 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from pycolmap_torch.features.matcher import SiftMatchingOptions
+from pycolmap_torch.features.sift import SiftExtractionOptions
 from pycolmap_torch.sfm.bundle_adjustment import (
     BundleAdjustmentOptions,
     BundleProblem,
 )
 
 _INT_FIELDS = ("obs_image_idx", "obs_camera_idx", "obs_point_idx")
-# reference options with no counterpart in the port (the JAX mesh selector)
+# reference options with no counterpart in the port: the JAX mesh selector
+# (BA) and the reference's thread and GPU selectors (features)
 _DROPPED_OPTIONS = ("devices",)
+_DROPPED_FEATURE_OPTIONS = ("num_threads", "use_gpu", "gpu_index")
 
 
 def bundle_problem_from_numpy(arrays: Mapping, model_id) -> BundleProblem:
@@ -53,3 +57,21 @@ def ba_options_from_dict(values: Mapping) -> BundleAdjustmentOptions:
         if k not in _DROPPED_OPTIONS
     })
     return opts
+
+
+def _feature_options(cls, values: Mapping):
+    opts = cls()
+    opts.mergedict({k: v for k, v in values.items()
+                    if k not in _DROPPED_FEATURE_OPTIONS})
+    return opts
+
+
+def sift_options_from_dict(values: Mapping) -> SiftExtractionOptions:
+    """The port's extraction options from the reference options'
+    ``todict()``; ``normalization`` maps onto the port's enum by value."""
+    return _feature_options(SiftExtractionOptions, values)
+
+
+def matching_options_from_dict(values: Mapping) -> SiftMatchingOptions:
+    """The port's matching options from the reference options' ``todict()``."""
+    return _feature_options(SiftMatchingOptions, values)

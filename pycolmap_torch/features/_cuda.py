@@ -1,0 +1,33 @@
+"""Bind the feature-stage CUDA kernels (``features/csrc``).
+
+The sources are built with the port's other kernels by
+``pycolmap_torch/_cuda_build.py`` (nvcc into ctypes libraries, at first use).
+This module holds their C signatures and one launcher per kernel; the
+callers (``window_sampler.py``, ``match_kernels.py``) check shapes and
+allocate every output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+from pycolmap_torch._cuda_build import i32, launch, ptr
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SAMPLE_WINDOWS = [_P, _I, _I, _I] + [_P] * 5 + [_I, _I, _I, _P, _P]
+_TOP2 = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+
+
+def sample_windows(vol, ch0, y0, x0, wy, wx, win_y, win_x, out):
+    NC, LHp, Wp = vol.shape
+    launch("features/csrc/window_sampler.cu", "sift_sample_windows", _SAMPLE_WINDOWS,
+           ptr(vol), NC, LHp, Wp, i32(ch0), i32(y0), i32(x0), ptr(wy),
+           ptr(wx), ch0.shape[0], int(win_y), int(win_x), ptr(out))
+
+
+def top2(d1, d2, n2, best, second, idx):
+    B, N1, D = d1.shape
+    launch("features/csrc/top2.cu", "match_top2", _TOP2,
+           ptr(d1), ptr(d2), i32(n2), B, N1, d2.shape[1], D, ptr(best),
+           ptr(second), i32(idx))

@@ -1,35 +1,17 @@
-"""Build and bind the bundle-adjustment CUDA kernels (``sfm/csrc``).
+"""Bind the bundle-adjustment CUDA kernels (``sfm/csrc``).
 
-Each ``.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes``. All sources build
-in parallel, at first use, into ``build/pycolmap_torch/<hash>/`` beside the
-package (keyed by a hash of the sources and flags, so an edit rebuilds).
-Nothing is built or imported when this module is imported: the CPU tests
-import every module and this host has no ``nvcc``.
-
-Every launcher takes PyTorch's current stream, allocates nothing, and
-returns ``cudaGetLastError()`` after the launch; a nonzero code raises here.
+The sources are built with the port's other kernels by
+``pycolmap_torch/_cuda_build.py`` (nvcc into ctypes libraries, at first use).
+This module holds their C signatures and one launcher per kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
-import torch
-
-_CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("resjac.cu", "cost.cu", "schur.cu")
-_HEADERS = ("ba_device.cuh",)
-_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-_FLAGS = (_ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-          "-Xptxas", "-v")
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pycolmap_torch"
+from pycolmap_torch._cuda_build import i32 as _i32
+from pycolmap_torch._cuda_build import launch
+from pycolmap_torch._cuda_build import ptr as _ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,100 +31,9 @@ _SIGNATURES = {
     },
 }
 
-_lock = threading.Lock()
-_libs: dict | None = None
-build_log = ""  # compiler output of the last build (ptxas register counts)
-build_seconds = None  # wall time of the last build, None if loaded from disk
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build on a host "
-                       "with the CUDA toolkit")
-
-
-def _source_key() -> str:
-    h = hashlib.blake2b(digest_size=12)
-    for name in _SOURCES + _HEADERS:
-        h.update(name.encode())
-        h.update((_CSRC / name).read_bytes())
-    h.update(" ".join(_FLAGS).encode())
-    return h.hexdigest()
-
-
-def _build(out_dir: Path) -> None:
-    """Compile every source in parallel (one nvcc each) into out_dir."""
-    global build_log, build_seconds
-    import time
-
-    nvcc = _nvcc()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    procs = []
-    for name in _SOURCES:
-        tmp = out_dir / f"{Path(name).stem}.so.tmp{os.getpid()}"
-        cmd = [nvcc, *_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(_CSRC / name)]
-        procs.append((name, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs, failed = [], []
-    for name, tmp, proc in procs:
-        out, _ = proc.communicate()
-        logs.append(f"== {name}\n{out}")
-        if proc.returncode != 0:
-            failed.append(name)
-        else:
-            os.replace(tmp, out_dir / f"{Path(name).stem}.so")
-    build_log = "\n".join(logs)
-    build_seconds = time.perf_counter() - t0
-    if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
-
-
-def libs() -> dict:
-    """The loaded kernel libraries, building them first if needed."""
-    global _libs
-    with _lock:
-        if _libs is None:
-            out_dir = BUILD_ROOT / _source_key()
-            if not all((out_dir / f"{Path(n).stem}.so").exists() for n in _SOURCES):
-                _build(out_dir)
-            loaded = {}
-            for name in _SOURCES:
-                lib = ctypes.CDLL(str(out_dir / f"{Path(name).stem}.so"))
-                for fn, argtypes in _SIGNATURES[name].items():
-                    getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
-                lib.ba_error_string.argtypes = [ctypes.c_int]
-                lib.ba_error_string.restype = ctypes.c_char_p
-                loaded[name] = lib
-            _libs = loaded
-        return _libs
-
 
 def _call(source: str, fn: str, *args) -> None:
-    lib = libs()[source]
-    stream = torch.cuda.current_stream().cuda_stream
-    code = getattr(lib, fn)(*args, stream)
-    if code != 0:
-        msg = lib.ba_error_string(code).decode()
-        raise RuntimeError(f"{fn} failed: CUDA error {code} ({msg})")
-
-
-def _ptr(t: torch.Tensor, dtype=torch.float32) -> int:
-    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(
-            f"kernel operand must be a contiguous CUDA {dtype} tensor, got "
-            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
-        )
-    return t.data_ptr()
-
-
-def _i32(t):
-    return _ptr(t, torch.int32)
+    launch(f"sfm/csrc/{source}", fn, _SIGNATURES[source][fn], *args)
 
 
 # ---------------------------------------------------------------------------

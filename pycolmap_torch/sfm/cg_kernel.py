@@ -2,7 +2,7 @@
 
 Port of ``pycolmap_tpu/sfm/cg_kernel.py``. Each wrapper keeps the return
 contract of its reference twin and, per bucket, either launches the CUDA
-kernel (``sfm/csrc``, built and bound by ``sfm/_cuda.py``) for CUDA tensors
+kernel (``sfm/csrc``, bound by ``sfm/_cuda.py``) for CUDA tensors
 or runs the plain PyTorch version beside it for CPU tensors. There is no
 fallback: a CUDA tensor goes to the kernel or the launch raises.
 

@@ -299,7 +299,7 @@ __device__ __forceinline__ void flush_cam_row(float* acc, int row, int stride, f
 
 // cudaGetErrorString for the Python wrappers; each library defines it once.
 #define BA_DEFINE_ERROR_STRING                              \
-  extern "C" const char* ba_error_string(int code) {        \
+  extern "C" const char* kernel_error_string(int code) {    \
     return cudaGetErrorString((cudaError_t)code);           \
   }
 

@@ -207,15 +207,15 @@ def test_cpu_wrappers_launch_no_kernel():
 
 
 def test_kernel_operands_must_be_cuda():
-    from pycolmap_torch.sfm import _cuda
+    from pycolmap_torch import _cuda_build
 
     with pytest.raises(ValueError, match="CUDA"):
-        _cuda._ptr(torch.zeros(3))
+        _cuda_build.ptr(torch.zeros(3))
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     """No toolkit, no kernels: the build raises instead of falling back."""
-    from pycolmap_torch.sfm import _cuda
+    from pycolmap_torch import _cuda_build as _cuda
 
     monkeypatch.setattr(_cuda, "BUILD_ROOT", tmp_path)
     monkeypatch.setattr(_cuda, "_libs", None)

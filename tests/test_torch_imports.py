@@ -1,0 +1,34 @@
+"""The port stands alone: no module of pycolmap_torch/, and not
+chip_smoke.py, imports jax, jaxlib or the reference package, at any depth
+of the file (function-level imports included)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "pycolmap_tpu")
+FILES = sorted((ROOT / "pycolmap_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_reference_imports(path):
+    bad = [m for m in _imports(path)
+           if m and m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_port_is_scanned():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert "pycolmap_torch/features/sift.py" in names
+    assert "pycolmap_torch/sfm/cg_kernel.py" in names
+    assert len(FILES) > 20
