@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Drive pycolmap_torch on one CUDA card and check it: the bundle adjuster
-and the feature front end (SIFT extraction, descriptor matching).
+"""Drive pycolmap_torch on one CUDA card and check it: the bundle adjuster,
+the feature front end (SIFT extraction, descriptor matching) and the
+known-pose entry points (global BA of a model, triangulation of a model
+with known poses).
 
 Run from the repository root on a host with an H100 (or another sm_90a
 card) and the CUDA toolkit:
@@ -18,10 +20,11 @@ Phases (each raises on failure; the script then exits nonzero):
    behind cameras, partly fixed intrinsics, all three losses, all 11 camera
    models), and time both with CUDA events;
 3. solve a 32-image / 8192-point problem on the card and on the CPU (plain
-   versions), 6 LM steps each, and compare the results;
+   versions), 6 LM steps each with f32 CG matvecs, and compare the results;
 4. run the bench's resident solve (128 images, 100k points, ~600k
    observations; bench.py run_ba's sequence) through the kernels, with the
-   launch counters zeroed just before the timed solves and read just after;
+   launch counters zeroed just before the timed solves and read just after,
+   once with the card's default bf16 CG matvec and once with the f32 one;
 5. profile one more bench solve with torch.profiler: device time per
    kernel and the device's busy share;
 6. hold the window sampler and the top-2 matcher to their plain versions
@@ -35,7 +38,17 @@ Phases (each raises on failure; the script then exits nonzero):
    options): ms per image single and in batches of 4, keypoints per image,
    a cross-checked match against a 5-px shift, batched matching of 4 pairs;
    the launch counters are zeroed just before and read just after;
-9. profile one full-width extract with torch.profiler.
+9. profile one full-width extract with torch.profiler;
+10. hold the bf16 CG matvec to its plain version (float64 on the same bf16
+    values) at the bench shape, with J captured from the main path, and at
+    irregular shapes (NP 3, 5, 8, 12, three cameras, ragged P); time it;
+11. ``bundle_adjustment(reconstruction)`` at full width: the bench's
+    128-image / 100k-point problem as a Reconstruction, written and read
+    back as a COLMAP binary model, adjusted on the card with default
+    options; then a 32-image model on the card and on the CPU, both with
+    the bf16 matvec, compared;
+12. ``triangulate_points`` on the card: a 128-image sequential database of
+    100k points seen by about 6 images each, ground-truth poses.
 
 The last lines are one JSON object describing every kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -47,6 +60,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -62,9 +76,18 @@ try:
     from pycolmap_torch.features import window_sampler as ws
     from pycolmap_torch.features.sift import Sift
     from pycolmap_torch.ops.camera_models import solver_num_params
+    from pycolmap_torch.geometry import Rigid3d, Rotation3d
     from pycolmap_torch.parallel.synthetic import make_synthetic_bundle
+    from pycolmap_torch.pipeline import sfm as psfm
+    from pycolmap_torch.scene import (
+        Camera, Database, DatabaseTransaction, Image, Reconstruction, Track,
+        TrackElement,
+    )
     from pycolmap_torch.sfm import ba_kernels as bk
     from pycolmap_torch.sfm import cg_kernel as ck
+    from pycolmap_torch.estimators import (
+        TwoViewGeometry, TwoViewGeometryConfiguration,
+    )
     from pycolmap_torch.sfm.bundle_adjustment import BundleAdjustmentOptions
     from pycolmap_torch.sfm.resident import ResidentBundleSolver
 except ImportError as e:  # run outside the repository
@@ -98,6 +121,8 @@ KERNEL_INFO = {
                 "pycolmap_tpu/sfm/cg_kernel.py:1122"),
     "matvec": ("pycolmap_torch/sfm/csrc/schur.cu",
                "pycolmap_tpu/sfm/cg_kernel.py:220"),
+    "matvec16": ("pycolmap_torch/sfm/csrc/schur.cu",
+                 "pycolmap_tpu/sfm/cg_kernel.py:403"),
     "window_sampler": ("pycolmap_torch/features/csrc/window_sampler.cu",
                        "pycolmap_tpu/features/window_sampler.py:127"),
     "top2": ("pycolmap_torch/features/csrc/top2.cu",
@@ -109,6 +134,8 @@ KERNEL_INFO = {
 # float atomics whose order varies run to run.
 TOL = {"resjac": 1e-5, "cost": 1e-5, "finish": 1e-5, "prepare": 3e-5,
        "matvec": 2e-5,
+       # the f32 matvec's: both sides multiply the same bf16 values
+       "matvec16": 2e-5,
        # the reference's sampler tolerance (tests/test_window_sampler.py)
        "window_sampler": 2e-5,
        # unit-vector similarities; indices must agree where the top-2
@@ -116,6 +143,10 @@ TOL = {"resjac": 1e-5, "cost": 1e-5, "finish": 1e-5, "prepare": 3e-5,
        "top2": 1e-6}
 TOP2_MARGIN = 1e-5
 SIFT_H, SIFT_W = 960, 1280  # bench.py run_sift's images
+# the kernels phase 2 chains as in an LM step (the bf16 matvec: phase 10)
+F32_KERNELS = ("resjac", "cost", "finish", "prepare", "matvec")
+# phase 12's database: the bench's image and point counts
+TRI_IMAGES, TRI_POINTS = 128, 100_000
 
 
 def log(msg):
@@ -278,7 +309,7 @@ def check_case(case, tag, results=None):
         return [o[0] for o in out] + [sum(o[1] for o in out)]
 
     errs = {}
-    for name in ck.KERNELS:
+    for name in F32_KERNELS:
         worst = (0.0, 0.0)
         for got, ref in zip(kernel_out[name], plain(name, torch.float64)):
             e = scaled_err(got.reshape(-1), ref.reshape(-1))
@@ -302,7 +333,7 @@ def check_case(case, tag, results=None):
                 b_l, pts, J_k, Vinv_l, g_l, x_pose, x_intr, case.new_quat,
                 case.new_trans, case.new_intr, m, lt, ls),
         }
-        for name in ck.KERNELS:
+        for name in F32_KERNELS:
             plain32 = max(
                 scaled_err(got.reshape(-1), ref.reshape(-1))[1]
                 for got, ref in zip(plain(name, torch.float32),
@@ -428,11 +459,14 @@ def options(iters):
 
 
 def medium_parity():
+    """Phase 3: the f32 kernels' solve, card vs CPU (phase 11 compares the
+    bf16 setting through the entry point)."""
     problem = make_synthetic_bundle(32, 8192, 6, refine_intrinsics=True)
     out = {}
     for dev in ("cuda", "cpu"):
         solver = ResidentBundleSolver(problem, options(MEDIUM_LM_ITERS),
-                                      cg_iters=CG_ITERS, device=dev)
+                                      cg_iters=CG_ITERS, device=dev,
+                                      cg_bf16=False)
         t0 = time.perf_counter()
         s = solver.solve()
         if dev == "cuda":
@@ -450,15 +484,18 @@ def medium_parity():
         raise AssertionError("medium solve did not lower the cost")
 
 
-def bench_solve():
+def bench_solve(cg_bf16):
+    """bench.py run_ba's sequence with the given CG matvec setting."""
+    tag = "bf16" if cg_bf16 else "f32"
     problem = make_synthetic_bundle(**BENCH)
     torch.cuda.reset_peak_memory_stats()
     solver = ResidentBundleSolver(problem, options(LM_ITERS),
-                                  cg_iters=CG_ITERS, device="cuda")
+                                  cg_iters=CG_ITERS, device="cuda",
+                                  cg_bf16=cg_bf16)
     t0 = time.perf_counter()
     warm = solver.solve()
     torch.cuda.synchronize()
-    log(f"bench warm solve: {warm} in {time.perf_counter() - t0:.3f} s")
+    log(f"bench {tag} warm solve: {warm} in {time.perf_counter() - t0:.3f} s")
     solver.solve(max_iterations=1)
 
     def timed(iters, eps):
@@ -482,28 +519,34 @@ def bench_solve():
     marginal = (iters - 1) / (dt - dt1) if iters > 1 and dt > dt1 else None
     lm_steps = sum(r[1].num_iterations for r in runs + ones)
     per_step = {k: v / lm_steps for k, v in launches.items()}
-    log(f"bench solve: {summary}; {iters / dt:.2f} LM it/s whole-solve, "
-        f"marginal {marginal if marginal is None else round(marginal, 2)} "
-        f"it/s; 1-iteration solve {dt1 * 1e3:.2f} ms")
-    log(f"bench: cg iterations {res.cg_iterations} over {iters} LM steps, "
-        f"host syncs {res.host_syncs}; peak device memory "
+    log(f"bench {tag} solve: {summary}; {iters / dt:.2f} LM it/s "
+        f"whole-solve, marginal "
+        f"{marginal if marginal is None else round(marginal, 2)} it/s; "
+        f"1-iteration solve {dt1 * 1e3:.2f} ms")
+    log(f"bench {tag}: cg iterations {res.cg_iterations} over {iters} LM "
+        f"steps, host syncs {res.host_syncs}; peak device memory "
         f"{peak / 2**30:.3f} GiB")
-    log(f"bench launches over {lm_steps} LM steps of 4 solves: {launches}; "
-        f"per LM step {json.dumps({k: round(v, 3) for k, v in per_step.items()})}")
+    log(f"bench {tag} launches over {lm_steps} LM steps of 4 solves: "
+        f"{launches}; per LM step "
+        f"{json.dumps({k: round(v, 3) for k, v in per_step.items()})}")
     for r in runs + ones:
         s = r[1]
         if not (math.isfinite(s.initial_cost) and math.isfinite(s.final_cost)):
             raise AssertionError(f"non-finite cost: {s}")
     if not warm.final_cost < warm.initial_cost:
         raise AssertionError(f"bench cost did not fall: {warm}")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    unused = "matvec" if cg_bf16 else "matvec16"
+    missing = [k for k, v in launches.items() if v <= 0 and k != unused]
+    if missing or launches[unused]:
+        raise AssertionError(f"{tag}: kernels never launched on the main "
+                             f"path: {missing}; {unused} launched "
+                             f"{launches[unused]} times")
     if any(plain_on_cuda.values()):
         raise AssertionError(f"plain versions ran on CUDA tensors: "
                              f"{plain_on_cuda}")
-    return launches, per_step, solver
+    rate = dict(whole=iters / dt, marginal=marginal, cg=res.cg_iterations,
+                lm=iters)
+    return launches, per_step, solver, rate
 
 
 def profile_solve(solver):
@@ -901,6 +944,328 @@ def profile_extract():
             f"{e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the bf16 CG matvec against its plain version
+# ---------------------------------------------------------------------------
+
+
+def capture_matvec16_inputs():
+    """The operands of the first bf16 CG matvec of one LM step of the bench
+    solve (the main path, through a recording wrapper)."""
+    calls = []
+    wrapper = ck.schur_matvec16
+
+    def record(*args):
+        if not calls:
+            calls.append(args)
+        return wrapper(*args)
+
+    ck.schur_matvec16 = record
+    try:
+        solver = ResidentBundleSolver(make_synthetic_bundle(**BENCH),
+                                      options(1), cg_iters=CG_ITERS,
+                                      device="cuda")
+        solver.solve()
+    finally:
+        ck.schur_matvec16 = wrapper
+    return calls[0]
+
+
+def matvec16_bound(buckets, J16_l, I, C):
+    """Bytes: J16 (2 B a value), the index grids, Vinv, x in and S x out,
+    each once; operations: the f32 matvec's count on this data's
+    observations."""
+    NP = J16_l[0].shape[0] - 9
+    nk = 6 + NP
+    nbytes = 2 * (I * 6 + C * NP) * 4
+    ops = 0
+    for b, J16 in zip(buckets, J16_l):
+        T, P = b.mask.shape
+        nbytes += J16.numel() * 2 + 2 * T * P * 4 + 6 * P * 4
+        ops += float(b.mask.sum()) * (8 * nk + 24) + 20 * P
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes)
+
+
+def check_matvec16(tag, buckets, J16_l, Vinv_l, x_pose, x_intr, I, C,
+                   results=None):
+    """Kernel vs matvec16_plain in float64 on the same bf16 values."""
+    NP = J16_l[0].shape[0] - 9
+    got = ck.schur_matvec16(buckets, J16_l, Vinv_l, x_pose, x_intr, I, C)
+
+    def plain(dt):
+        mp = torch.zeros((I, 6), device=x_pose.device, dtype=dt)
+        mi = torch.zeros((C, NP), device=x_pose.device, dtype=dt)
+        for b, J16, V in zip(buckets, J16_l, Vinv_l):
+            op, oi = ck.matvec16_plain(b, J16, V.to(dt), x_pose.to(dt),
+                                       x_intr[:, :NP].to(dt), I, C)
+            mp, mi = mp + op, mi + oi
+        return mp, mi
+
+    errs = [scaled_err(g.reshape(-1), r.reshape(-1))
+            for g, r in zip(got, plain(torch.float64))]
+    err = (max(e[0] for e in errs), max(e[1] for e in errs))
+    torch.cuda.synchronize()
+    if not err[1] <= TOL["matvec16"]:
+        raise AssertionError(f"[{tag}] matvec16: kernel vs plain scaled "
+                             f"error {err[1]:.3e} > {TOL['matvec16']:.0e}")
+    shapes = [tuple(b.mask.shape) for b in buckets]
+    log(f"phase 10 matvec16 {tag}: NP {NP}, I {I}, C {C}, buckets [T, P] "
+        f"{shapes}; scaled err {err[1]:.2e} (max abs {err[0]:.3e})")
+    if results is None:
+        return err
+    results[tag] = dict(
+        max_abs_err=err[0], scaled_err=err[1],
+        ms=time_gpu(lambda: ck.schur_matvec16(buckets, J16_l, Vinv_l, x_pose,
+                                              x_intr, I, C)),
+        plain_ms=time_gpu(lambda: plain(torch.float32), 5),
+        **matvec16_bound(buckets, J16_l, I, C),
+    )
+    r = results[tag]
+    log(f"phase 10 matvec16 {tag}: kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)")
+    return err
+
+
+def bf16_matvec():
+    dev = torch.device("cuda")
+    results = {}
+    check_matvec16("bench", *capture_matvec16_inputs(), results=results)
+    torch.cuda.empty_cache()
+    # NP 3, 5, 8, 12 (SIMPLE_PINHOLE, RADIAL, OPENCV, FULL_OPENCV), three
+    # cameras, buckets of widths that are no multiple of 128
+    for model_id in (0, 3, 4, 6):
+        case = irregular_cases(model_id, 0, dev, seed=20 + model_id)
+        res_l, J_l = ck.res_and_jac(case.buckets, case.pts, case.quat,
+                                    case.trans, case.intr, case.intr_free,
+                                    model_id, 0, 1.0)
+        Vinv_l = ck.schur_prepare(case.buckets, J_l, res_l, case.lam,
+                                  case.I, case.C)[0]
+        check_matvec16(f"irregular model {model_id}", case.buckets,
+                       [ck.pack_j_bf16(J) for J in J_l], Vinv_l, case.x_pose,
+                       case.x_intr, case.I, case.C)
+    return results["bench"]
+
+
+# ---------------------------------------------------------------------------
+# phase 11: bundle_adjustment(reconstruction)
+# ---------------------------------------------------------------------------
+
+
+def reconstruction_from_bundle(problem):
+    """A Reconstruction of the port's scene classes holding a synthetic
+    bundle's initial state: one camera, image i's keypoints are its
+    observations, point j's track the observations of j."""
+    intr = problem.intrinsics[0].double().numpy()
+    quat = problem.cam_quat.double().numpy()  # wxyz
+    trans = problem.cam_trans.double().numpy()
+    obs_img = problem.obs_image_idx.numpy()
+    obs_pt = problem.obs_point_idx.numpy()
+    xy = problem.obs_xy.double().numpy()
+    rec = Reconstruction()
+    rec.add_camera(Camera(1, "SIMPLE_RADIAL", int(2 * intr[1]),
+                          int(2 * intr[2]), intr[:4]))
+    kp_idx = np.zeros(len(obs_img), np.int64)
+    for i in range(problem.num_images):
+        sel = np.nonzero(obs_img == i)[0]
+        kp_idx[sel] = np.arange(len(sel))
+        img = Image(name=f"image{i:04d}.jpg", camera_id=1, id=i + 1,
+                    keypoints_xy=xy[sel])
+        img.cam_from_world = Rigid3d(Rotation3d(quat[i, [1, 2, 3, 0]]),
+                                     trans[i])
+        img.registered = True
+        rec.add_image(img)
+    order = np.argsort(obs_pt, kind="stable")
+    bounds = np.searchsorted(obs_pt[order], np.arange(problem.num_points + 1))
+    points = problem.points.double().numpy()
+    for j in range(problem.num_points):
+        ms = order[bounds[j]:bounds[j + 1]]
+        rec.add_point3D(points[j], Track([
+            TrackElement(int(obs_img[m]) + 1, int(kp_idx[m])) for m in ms]))
+    return rec
+
+
+def model_bundle_adjustment(tmp):
+    """The entry point at full width: read, adjust, write."""
+    t0 = time.perf_counter()
+    rec = reconstruction_from_bundle(make_synthetic_bundle(**BENCH))
+    t1 = time.perf_counter()
+    rec.write_binary(tmp / "bench_in")
+    t2 = time.perf_counter()
+    rec = Reconstruction(tmp / "bench_in")
+    t3 = time.perf_counter()
+    err0 = rec.compute_mean_reprojection_error()
+    n_obs = rec.compute_num_observations()
+    split = {}
+    ck.reset_counts()
+    t4 = time.perf_counter()
+    summary = psfm.bundle_adjustment(rec, timings=split)
+    t5 = time.perf_counter()
+    launches = dict(ck.LAUNCHES)
+    err1 = rec.compute_mean_reprojection_error()
+    rec.write_binary(tmp / "bench_out")
+    t6 = time.perf_counter()
+    log(f"phase 11 model: {rec.num_reg_images} images, {rec.num_points3D} "
+        f"points, {n_obs} observations; built in {t1 - t0:.2f} s, written "
+        f"in {t2 - t1:.2f} s")
+    log(f"phase 11 bundle_adjustment: {summary}; mean reprojection error "
+        f"{err0:.4f} -> {err1:.4f} px; launches {launches}")
+    log(f"phase 11 wall: read {t3 - t2:.3f} s, entry point {t5 - t4:.3f} s "
+        f"(problem build {split['build']:.3f} s, solve {split['solve']:.3f} "
+        f"s, write back {split['write_back']:.3f} s), model write "
+        f"{t6 - t5:.3f} s")
+    if not (summary.final_cost < summary.initial_cost and err1 < err0):
+        raise AssertionError("phase 11: cost or reprojection error did not "
+                             "fall")
+    missing = [k for k, v in launches.items() if v <= 0 and k != "matvec"]
+    if missing or launches["matvec"]:
+        raise AssertionError(f"phase 11: kernels never launched {missing}; "
+                             f"f32 matvec launched {launches['matvec']}")
+    return dict(read_s=t3 - t2, entry_s=t5 - t4, lm=summary.num_iterations,
+                err0=err0, err1=err1, **split)
+
+
+def model_ba_parity(tmp, kwargs=(("cuda", {}),
+                                 ("cpu", dict(device="cpu", cg_bf16=True)))):
+    """32 images: the card (bf16, its default) vs the CPU with the bf16
+    setting through the plain versions."""
+    reconstruction_from_bundle(
+        make_synthetic_bundle(32, 8192, 6, refine_intrinsics=True)
+    ).write_binary(tmp / "medium")
+    opts = options(MEDIUM_LM_ITERS)
+    got = {}
+    for dev, kw in kwargs:
+        r = Reconstruction(tmp / "medium")
+        got[dev] = (psfm.bundle_adjustment(r, opts, **kw), r)
+    (sg, rg), (sc, rc) = got["cuda"], got["cpu"]
+    rel = abs(sg.final_cost - sc.final_cost) / max(abs(sc.final_cost), 1e-20)
+    d_trans = max(float(np.abs(rg.images[i].cam_from_world.translation
+                               - rc.images[i].cam_from_world.translation).max())
+                  for i in rg.images)
+    log(f"phase 11 medium 32/8192 bf16: card {sg}, CPU {sc}; final cost rel "
+        f"diff {rel:.3e} (tol 1e-3), translation max abs diff {d_trans:.3e} "
+        f"(tol 1e-3)")
+    if not (rel <= 1e-3 and d_trans <= 1e-3 and sg.final_cost < sg.initial_cost):
+        raise AssertionError("phase 11: card and CPU bf16 solves disagree")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: triangulate_points
+# ---------------------------------------------------------------------------
+
+
+def write_sequential_database(path, num_images, num_points, pixel_noise=0.4,
+                              seed=0):
+    """tests/test_incremental_mapping.py make_synthetic_database's
+    mode="sequential" with the port's Database: a forward-moving trajectory
+    over an extended scene, ground-truth keypoints plus noise in a random
+    order, verified pairs of every two images that share >= 30 points.
+    The camera steps 1.0 instead of 0.3, so that a point is seen by about
+    6 images; descriptors are not written (triangulation does not read
+    them). Returns the ground-truth model (poses and keypoints, no points)
+    and each image's keypoint -> true point ids."""
+    rng = np.random.default_rng(seed)
+    cam = Camera.create(1, "SIMPLE_PINHOLE", 600.0, 640, 480)
+    step = 1.0
+    span = num_images * step + 5.0
+    points = np.stack([rng.uniform(-1.0, span, num_points),
+                       rng.uniform(-2.0, 2.0, num_points),
+                       rng.uniform(4.0, 7.0, num_points)], axis=1)
+    gt = Reconstruction()
+    gt.add_camera(cam)
+    kp_pid = []
+    for i in range(num_images):
+        yaw = 0.08 * np.sin(0.3 * i)
+        c, s = np.cos(yaw), np.sin(yaw)
+        R_wc = np.array([[c, 0, -s], [0, 1, 0], [s, 0, c]])
+        center = np.array([i * step, 0.1 * np.sin(0.5 * i), 0.0])
+        pose = Rigid3d(Rotation3d(R_wc), -R_wc @ center)
+        p_cam = pose * points
+        xy = cam.img_from_cam(p_cam[:, :2] / p_cam[:, 2:])
+        vis = ((p_cam[:, 2] > 0.2) & (xy[:, 0] >= 0) & (xy[:, 0] < cam.width)
+               & (xy[:, 1] >= 0) & (xy[:, 1] < cam.height))
+        ids = np.nonzero(vis)[0]
+        ids = ids[rng.permutation(len(ids))]
+        kp_pid.append(ids)
+        img = Image(name=f"img{i:03d}.jpg", camera_id=1, id=i + 1,
+                    keypoints_xy=xy[ids] + rng.normal(0, pixel_noise,
+                                                      (len(ids), 2)))
+        img.cam_from_world = pose
+        img.registered = True
+        gt.add_image(img)
+    db = Database(path)
+    with DatabaseTransaction(db):
+        db.write_camera(cam, use_camera_id=True)
+        for i in range(num_images):
+            img = gt.images[i + 1]
+            db.write_image(img, use_image_id=True)
+            db.write_keypoints(img.image_id,
+                               img.points2D_xy.astype(np.float32))
+        for i in range(num_images):
+            for j in range(i + 1, num_images):
+                common, ii, jj = np.intersect1d(kp_pid[i], kp_pid[j],
+                                                return_indices=True)
+                if len(common) < 30:
+                    continue
+                g = TwoViewGeometry()
+                g.config = int(TwoViewGeometryConfiguration.CALIBRATED)
+                g.inlier_matches = np.stack([ii, jj], axis=1).astype(np.uint32)
+                rel = (gt.images[j + 1].cam_from_world
+                       * gt.images[i + 1].cam_from_world.inverse())
+                g.E = rel.essential_matrix()
+                g.cam2_from_cam1 = rel
+                db.write_two_view_geometry(i + 1, j + 1, g)
+    n_pairs = db.num_verified_image_pairs
+    db.close()
+    return gt, kp_pid, n_pairs
+
+
+def known_pose_triangulation(tmp):
+    t0 = time.perf_counter()
+    rec, kp_pid, n_pairs = write_sequential_database(
+        tmp / "tri.db", TRI_IMAGES, TRI_POINTS)
+    views = np.bincount(np.concatenate(kp_pid), minlength=TRI_POINTS)
+    n_true = int((views >= 2).sum())
+    t1 = time.perf_counter()
+    split = {}
+    ck.reset_counts()
+    out = psfm.triangulate_points(rec, tmp / "tri.db", tmp, tmp / "tri_out",
+                                  timings=split)
+    t2 = time.perf_counter()
+    # each triangulated point's true point: the majority of its track's
+    found, pure = set(), 0
+    for pt in out.points3D.values():
+        ids = [int(kp_pid[e.image_id - 1][e.point2D_idx])
+               for e in pt.track.elements]
+        vals, counts = np.unique(ids, return_counts=True)
+        found.add(int(vals[np.argmax(counts)]))
+        pure += len(vals) == 1
+    share = len(found) / max(n_true, 1)
+    err = out.compute_mean_reprojection_error()
+    track = out.compute_mean_track_length()
+    log(f"phase 12 database: {TRI_IMAGES} images, {TRI_POINTS} points "
+        f"({n_true} seen by >= 2 images, {views[views > 0].mean():.2f} views "
+        f"each), {n_pairs} verified pairs; written in {t1 - t0:.2f} s")
+    log(f"phase 12 triangulate_points: {out.num_points3D} points, mean track "
+        f"{track:.2f}, {100 * share:.2f}% of the true points triangulated, "
+        f"{pure} tracks of one true point, mean reprojection error "
+        f"{err:.4f} px; BA launches {dict(ck.LAUNCHES)}")
+    total = t2 - t1
+    log(f"phase 12 wall: {total:.3f} s: "
+        + ", ".join(f"{k} {v:.3f} s ({100 * v / total:.1f}%)"
+                    for k, v in split.items()))
+    out.check()
+    if not (share >= 0.8 and err < 1.5):
+        raise AssertionError(f"phase 12: {100 * share:.2f}% triangulated "
+                             f"(need 80%), error {err:.4f} px (need < 1.5)")
+    return dict(total_s=total, share=share, err=err, points=out.num_points3D,
+                **split)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -951,8 +1316,13 @@ def main():
     # --- phase 3: card vs CPU ----------------------------------------------
     medium_parity()
 
-    # --- phase 4: the bench's resident solve --------------------------------
-    launches, per_step, solver = bench_solve()
+    # --- phase 4: the bench's resident solve, bf16 (default) and f32 -------
+    launches, per_step, solver, rate16 = bench_solve(cg_bf16=True)
+    launches32, per_step32, solver32, rate32 = bench_solve(cg_bf16=False)
+    del solver32
+    log(f"phase 4 LM it/s whole-solve / marginal: bf16 "
+        f"{rate16['whole']:.2f} / {rate16['marginal']}, f32 "
+        f"{rate32['whole']:.2f} / {rate32['marginal']}")
 
     # --- phase 5: where the time goes --------------------------------------
     profile_solve(solver)
@@ -966,13 +1336,27 @@ def main():
     profile_extract()
     log(f"front end summary: {json.dumps(e2e)}")
 
+    # --- phases 10-12: the bf16 matvec and the known-pose entry points -----
+    results["matvec16"] = bf16_matvec()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        known_pose = dict(bundle_adjustment=model_bundle_adjustment(Path(tmp)))
+        model_ba_parity(Path(tmp))
+        known_pose["triangulate_points"] = known_pose_triangulation(Path(tmp))
+    log(f"known-pose summary: {json.dumps(known_pose)}")
+
     kernels = []
     for name in ck.KERNELS:
         src, rep = KERNEL_INFO[name]
         r = results[name]
+        # the f32 matvec runs in the f32-setting bench solve; every other
+        # BA kernel's count is the default (bf16) solve's
+        ln, ps = ((launches32, per_step32) if name == "matvec"
+                  else (launches, per_step))
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
-            launches=launches[name], launches_per_lm_step=per_step[name],
+            launches=ln[name], launches_per_lm_step=ps[name],
+            run="bench f32 CG" if name == "matvec" else "bench bf16 CG",
             max_abs_err=r["max_abs_err"], max_scaled_err=r["scaled_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,

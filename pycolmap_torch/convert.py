@@ -1,9 +1,10 @@
 """Carry state from the reference package into the port.
 
 The reference's ``BundleProblem`` and its options (BA, SIFT extraction,
-SIFT matching) cross as plain data (numpy arrays, dicts), never as
-reference objects, so this module imports nothing of ``pycolmap_tpu``. Parity tests build one problem,
-hand its fields to both packages, and compare the results.
+SIFT matching, the incremental pipeline) cross as plain data (numpy
+arrays, dicts), never as reference objects, so this module imports nothing
+of ``pycolmap_tpu``. Parity tests build one problem, hand its fields to
+both packages, and compare the results.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from pycolmap_torch.features.matcher import SiftMatchingOptions
 from pycolmap_torch.features.sift import SiftExtractionOptions
+from pycolmap_torch.pipeline.sfm import IncrementalPipelineOptions
 from pycolmap_torch.sfm.bundle_adjustment import (
     BundleAdjustmentOptions,
     BundleProblem,
@@ -75,3 +77,13 @@ def sift_options_from_dict(values: Mapping) -> SiftExtractionOptions:
 def matching_options_from_dict(values: Mapping) -> SiftMatchingOptions:
     """The port's matching options from the reference options' ``todict()``."""
     return _feature_options(SiftMatchingOptions, values)
+
+
+def pipeline_options_from_dict(values: Mapping) -> IncrementalPipelineOptions:
+    """The port's pipeline options from the reference
+    ``IncrementalPipelineOptions.todict()``, nested mapper and
+    triangulation options included; enums map by value."""
+    opts = IncrementalPipelineOptions()
+    opts.mergedict({k: v for k, v in values.items()
+                    if k not in _DROPPED_OPTIONS})
+    return opts

@@ -70,6 +70,16 @@ def model_id_from_name(name):
     return CAMERA_MODEL_BY_NAME[name].model_id
 
 
+def model_name_from_id(model_id):
+    return CAMERA_MODEL_BY_ID[int(model_id)].name
+
+
+def num_params_for_model(model) -> int:
+    if isinstance(model, str):
+        return CAMERA_MODEL_BY_NAME[model].num_params
+    return CAMERA_MODEL_BY_ID[int(model)].num_params
+
+
 def mixed_sel_index(models: tuple) -> int:
     """Column index of the per-camera model-id selector plane of a
     mixed-model bundle (model_id given as a tuple of ids)."""

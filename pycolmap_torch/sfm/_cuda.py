@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import ctypes
 
+import torch
+
 from pycolmap_torch._cuda_build import i32 as _i32
 from pycolmap_torch._cuda_build import launch
 from pycolmap_torch._cuda_build import ptr as _ptr
@@ -28,6 +30,7 @@ _SIGNATURES = {
     "schur.cu": {
         "ba_prepare": [_I] + [_P] * 5 + [_I] * 4 + [_P] * 5,
         "ba_matvec": [_I] + [_P] * 6 + [_I] * 4 + [_P] * 3,
+        "ba_matvec16": [_I] + [_P] * 6 + [_I] * 4 + [_P] * 3,
     },
 }
 
@@ -81,3 +84,11 @@ def matvec(NP, J, img_idx, cam_idx, vinv, xpose, xintr, I, C, out_pose,
     _call("schur.cu", "ba_matvec", NP, _ptr(J), _i32(img_idx), _i32(cam_idx),
           _ptr(vinv), _ptr(xpose), _ptr(xintr), T, P, I, C, _ptr(out_pose),
           _ptr(out_intr))
+
+
+def matvec16(NP, J16, img_idx, cam_idx, vinv, xpose, xintr, I, C, out_pose,
+             out_intr):
+    T, P = img_idx.shape
+    _call("schur.cu", "ba_matvec16", NP, _ptr(J16, torch.bfloat16),
+          _i32(img_idx), _i32(cam_idx), _ptr(vinv), _ptr(xpose), _ptr(xintr),
+          T, P, I, C, _ptr(out_pose), _ptr(out_intr))

@@ -15,6 +15,11 @@ The LM loop is a Python loop with the reference's semantics (λ₀ = 1e-4,
 eta-forcing PCG). Where the reference's ``while_loop`` tests a condition on
 the device, this loop reads it on the host: once per CG iteration and once
 per LM step. ``_lm_solve_bucketed`` counts those syncs.
+
+The CG matvec reads J either in f32 or packed to bf16 once per LM step
+(``cg_bf16``). The default follows the device, as the reference's does
+(``PYCOLMAP_TPU_BA_CG_BF16``, default on, takes effect on its accelerator
+path only): bf16 on the card, f32 on the CPU.
 """
 
 from __future__ import annotations
@@ -356,15 +361,26 @@ class LMResult(NamedTuple):
     cg_iterations: int  # matvecs over the whole solve
 
 
+def cg_bf16_default(device, cg_bf16=None) -> bool:
+    """The CG matvec's J type: ``cg_bf16`` if given, else bf16 on the card
+    and f32 on the CPU (the reference's defaults on its accelerator and its
+    CPU)."""
+    if cg_bf16 is None:
+        return torch.device(device).type == "cuda"
+    return bool(cg_bf16)
+
+
 def _lm_solve_bucketed(
     buckets, quat0, trans0, intr0, pose_free, intr_free, model_id,
-    loss_type, loss_scale, cg_iters, max_iterations, eta=0.1,
+    loss_type, loss_scale, cg_iters, max_iterations, eta=0.1, cg_bf16=False,
 ):
     """LM over device-resident buckets; every tensor on one device.
 
     quat0 [I, 4], trans0 [I, 3], intr0 / intr_free [C, >= NP] (sliced to
     the model's NP), pose_free [I, 6]. The bucket ``points`` fields are the
-    starting point positions. Returns an :class:`LMResult`.
+    starting point positions. cg_bf16: run every CG matvec from J packed to
+    bf16 (the reference's ba_kernels.py:1064-1102). Returns an
+    :class:`LMResult`.
     """
     from pycolmap_torch.sfm import cg_kernel as ck
 
@@ -423,10 +439,16 @@ def _lm_solve_bucketed(
         rhs_intr = rhs_intr * intr_free
         damp_pose, damp_intr, precond = precond_factory(lam, udp, udi,
                                                         S_blocks)
+        if cg_bf16:  # one pack per LM step; the CG loop re-reads it
+            J16_l = [ck.pack_j_bf16(J) for J in J_l]
 
         def matvec(x_pose, x_intr):
-            mp, mi = ck.schur_matvec(buckets, J_l, Vinv_l, x_pose, x_intr,
-                                     I, C)
+            if cg_bf16:
+                mp, mi = ck.schur_matvec16(buckets, J16_l, Vinv_l, x_pose,
+                                           x_intr, I, C)
+            else:
+                mp, mi = ck.schur_matvec(buckets, J_l, Vinv_l, x_pose,
+                                         x_intr, I, C)
             return ((damp_pose * x_pose + mp) * pose_free,
                     (damp_intr * x_intr + mi) * intr_free)
 
@@ -500,12 +522,14 @@ def _lm_solve_bucketed(
 
 
 def solve_bundle_fast(problem: BundleProblem, options, cg_iters: int = 30,
-                      device=None):
+                      device=None, cg_bf16=None):
     """Bucketed solver; same contract as bundle_adjustment.solve_bundle.
 
     Runs one solve of a :class:`~pycolmap_torch.sfm.resident.
     ResidentBundleSolver` and fetches the result. ``device``: None = the
-    card (raises on a host without CUDA), or ``"cpu"``.
+    card (raises on a host without CUDA), or ``"cpu"``. ``cg_bf16``: the CG
+    matvec's J type, None = the device's default (:func:`cg_bf16_default`);
+    False is the reference's ``PYCOLMAP_TPU_BA_CG_BF16=0``.
     """
     from pycolmap_torch import resolve_device
     from pycolmap_torch.sfm.resident import ResidentBundleSolver
@@ -514,6 +538,6 @@ def solve_bundle_fast(problem: BundleProblem, options, cg_iters: int = 30,
     if problem.num_obs == 0 or float(_np(problem.obs_mask).sum()) == 0:
         return problem, BASummary(0.0, 0.0, 0, 0)
     solver = ResidentBundleSolver(problem, options, cg_iters=cg_iters,
-                                  device=device)
+                                  device=device, cg_bf16=cg_bf16)
     summary = solver.solve()
     return solver.fetch_problem(), summary

@@ -134,13 +134,15 @@ def _robust_cost(sq_norm, loss_type: int, scale: float):
 
 
 def solve_bundle(problem: BundleProblem, options: BundleAdjustmentOptions,
-                 cg_iters: int = 30, device=None):
+                 cg_iters: int = 30, device=None, cg_bf16=None):
     """Run LM to convergence. Returns (new BundleProblem, BASummary).
 
     Dispatches to the bucketed solver (sfm/ba_kernels.py). ``device``:
     None = the card (raises on a host without CUDA), or ``"cpu"`` for the
-    plain PyTorch versions of the kernels.
+    plain PyTorch versions of the kernels. ``cg_bf16``: the CG matvec's J
+    type, None = bf16 on the card, f32 on the CPU.
     """
     from pycolmap_torch.sfm.ba_kernels import solve_bundle_fast
 
-    return solve_bundle_fast(problem, options, cg_iters=cg_iters, device=device)
+    return solve_bundle_fast(problem, options, cg_iters=cg_iters,
+                             device=device, cg_bf16=cg_bf16)

@@ -1,4 +1,4 @@
-"""The five bundle-adjustment kernels of the LM step, with their wrappers.
+"""The bundle-adjustment kernels of the LM step, with their wrappers.
 
 Port of ``pycolmap_tpu/sfm/cg_kernel.py``. Each wrapper keeps the return
 contract of its reference twin and, per bucket, either launches the CUDA
@@ -13,9 +13,14 @@ fallback: a CUDA tensor goes to the kernel or the launch raises.
 | backsub_and_cost   | cost.cu finish_kernel| finish_bucket (:821)             |
 | schur_prepare      | schur.cu prepare     | schur_prepare_bucket (:1088)     |
 | schur_matvec       | schur.cu matvec      | cg_matvec_bucket (:183)          |
+| schur_matvec16     | schur.cu matvec16    | cg_matvec16_bucket (:352)        |
 
 Inside, parameter tables stay ``[I, 7]`` (quat | trans) and ``[C, NP]``;
 the reference's 128-lane transposed tables are a TPU layout.
+
+``schur_matvec16`` reads J packed to bf16 by ``pack_j_bf16`` (the
+reference's layout and rounding), once per LM step; prepare, finish and the
+cost keep reading the f32 J, as in the reference.
 
 ``LAUNCHES`` counts kernel launches per kernel; ``PLAIN_ON_CUDA`` counts
 calls of a plain version on CUDA tensors (only ``chip_smoke.py``'s
@@ -31,7 +36,7 @@ from pycolmap_torch.sfm import _cuda
 from pycolmap_torch.sfm import ba_kernels as bk
 from pycolmap_torch.sfm.bundle_adjustment import _robust_cost, _robust_weight
 
-KERNELS = ("resjac", "cost", "finish", "prepare", "matvec")
+KERNELS = ("resjac", "cost", "finish", "prepare", "matvec", "matvec16")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)
 BLOCK = 256  # BA_BLOCK in csrc/ba_device.cuh: one cost partial per block
@@ -167,6 +172,10 @@ def prepare_plain(b, J, res, lam, I, C):
 def matvec_plain(b, J, Vinv, x_pose, x_intr, I, C):
     """One bucket's J_c^T (I - J_p V^-1 J_p^T) J_c x: ([I, 6], [C, NP])."""
     _plain_call("matvec", J)
+    return _matvec(b, J, Vinv, x_pose, x_intr, I, C)
+
+
+def _matvec(b, J, Vinv, x_pose, x_intr, I, C):
     nk = J.shape[1] - 3
     xc = torch.cat([
         torch.stack(bk._gather_table(x_pose, b.img_idx)),
@@ -178,6 +187,26 @@ def matvec_plain(b, J, Vinv, x_pose, x_intr, I, C):
     d = a_obs - bk._j_apply_pt(J[:, nk:nk + 3], z_p)
     return (bk._scatter_cam(bk._jt_apply(J[:, :6], d), b.img_idx, I),
             bk._scatter_cam(bk._jt_apply(J[:, 6:nk], d), b.cam_idx, C))
+
+
+def pack_j_bf16(J):
+    """[2, nj, T, P] f32 -> [nj, 2T, P] bf16 (rows 0..T-1 = residual row 0);
+    round to nearest even, as the reference's ``astype(jnp.bfloat16)``."""
+    _, nj, T, P = J.shape
+    return J.transpose(0, 1).reshape(nj, 2 * T, P).to(torch.bfloat16)
+
+
+def unpack_j_bf16(J16, dtype=torch.float32):
+    """[nj, 2T, P] bf16 -> [2, nj, T, P] in dtype (exact)."""
+    nj, T2, P = J16.shape
+    return J16.reshape(nj, 2, T2 // 2, P).transpose(0, 1).to(dtype)
+
+
+def matvec16_plain(b, J16, Vinv, x_pose, x_intr, I, C):
+    """matvec_plain on the unpacked bf16 J, in the dtype of Vinv."""
+    _plain_call("matvec16", J16)
+    return _matvec(b, unpack_j_bf16(J16, Vinv.dtype), Vinv, x_pose, x_intr,
+                   I, C)
 
 
 # ---------------------------------------------------------------------------
@@ -297,11 +326,9 @@ def schur_prepare(buckets, J_l, res_l, lam, I, C):
             acc_c[:, NP:], acc_i[:, 12:33])
 
 
-def schur_matvec(buckets, J_l, Vinv_l, x_pose, x_intr, I, C):
-    """Implicit S x over all buckets (no damping or free masking: the
-    caller owns those). x_pose [I, 6]; x_intr [C, NP]. Returns
-    (out_pose [I, 6], out_intr [C, NP])."""
-    NP = J_l[0].shape[1] - 9
+def _matvec_buckets(name, launch, plain, NP, buckets, J_l, Vinv_l, x_pose,
+                    x_intr, I, C):
+    """Sum one matvec kernel (or its plain version) over all buckets."""
     dev = J_l[0].device
     x_pose = x_pose.contiguous()
     x_intr = x_intr[:, :NP].contiguous()
@@ -309,12 +336,28 @@ def schur_matvec(buckets, J_l, Vinv_l, x_pose, x_intr, I, C):
     out_intr = torch.zeros((C, NP), device=dev)
     for b, J, Vinv in zip(buckets, J_l, Vinv_l):
         if _is_cuda(J):
-            LAUNCHES["matvec"] += 1
-            _cuda.matvec(NP, J, b.img_idx, b.cam_idx, Vinv, x_pose, x_intr,
-                         I, C, out_pose, out_intr)
+            LAUNCHES[name] += 1
+            launch(NP, J.contiguous(), b.img_idx, b.cam_idx, Vinv, x_pose,
+                   x_intr, I, C, out_pose, out_intr)
         else:
-            op, oi = matvec_plain(b, J, Vinv, x_pose, x_intr, I, C)
+            op, oi = plain(b, J, Vinv, x_pose, x_intr, I, C)
             out_pose = out_pose + op
             out_intr = out_intr + oi
     return out_pose, out_intr
 
+
+def schur_matvec(buckets, J_l, Vinv_l, x_pose, x_intr, I, C):
+    """Implicit S x over all buckets (no damping or free masking: the
+    caller owns those). x_pose [I, 6]; x_intr [C, NP]. Returns
+    (out_pose [I, 6], out_intr [C, NP])."""
+    return _matvec_buckets("matvec", _cuda.matvec, matvec_plain,
+                           J_l[0].shape[1] - 9, buckets, J_l, Vinv_l, x_pose,
+                           x_intr, I, C)
+
+
+def schur_matvec16(buckets, J16_l, Vinv_l, x_pose, x_intr, I, C):
+    """Implicit S x over all buckets from bf16-packed J (see pack_j_bf16);
+    otherwise as schur_matvec."""
+    return _matvec_buckets("matvec16", _cuda.matvec16, matvec16_plain,
+                           J16_l[0].shape[0] - 9, buckets, J16_l, Vinv_l,
+                           x_pose, x_intr, I, C)

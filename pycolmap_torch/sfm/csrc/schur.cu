@@ -1,8 +1,9 @@
-// Schur-complement LM preparation and the implicit reduced-camera matvec.
+// Schur-complement LM preparation and the implicit reduced-camera matvec,
+// from an f32 J and from a bf16-packed J.
 //
 // Replaces: pycolmap_tpu/sfm/cg_kernel.py schur_prepare_bucket (:1088; body
-// _make_prepare_kernel :971) and cg_matvec_bucket (:183; body _make_kernel
-// :127).
+// _make_prepare_kernel :971), cg_matvec_bucket (:183; body _make_kernel
+// :127) and cg_matvec16_bucket (:352; body _make_matvec16_kernel :231).
 //
 // prepare, per point column: the lambda-damped 3x3 point block V = J_p^T J_p
 // and its closed-form inverse, g_pt = J_p^T r, and, scattered per image and
@@ -28,6 +29,18 @@
 // contributions in registers, then the warp reduces before one lane adds
 // (flush_cam_row). Float atomics make the camera sums order-dependent: the
 // results vary run to run in the last bits.
+//
+// matvec16 computes the same S x as matvec from J packed to bf16 in the
+// reference's pack_j_bf16 layout [9+NP, 2T, P]: plane k holds column k,
+// rows 0..T-1 for residual x and T..2T-1 for residual y, so neighbouring
+// threads still read neighbouring p. Each bf16 is widened to f32 exactly
+// (its 16 bits are the high half of the f32) and everything accumulates in
+// f32, as the reference's body does (J_ref[:].astype(jnp.float32)). Bound:
+// bytes, and half the f32 kernel's J stream: 2 (9+NP) 2T P bytes of J16
+// (54.5 MB at the bench shape), the two index grids (8.4 MB) and Vinv
+// (3.1 MB), ~66 MB or ~0.020 ms at 3.35 TB/s. Design: the f32 kernel's,
+// one thread per point column with the same scatters; like it, this first
+// version reads J twice.
 #include "ba_device.cuh"
 
 constexpr int kImgRows = 33;  // 6 rhs | 6 diag(U) | 21 packed 6x6 block
@@ -255,6 +268,107 @@ matvec_kernel(const float* __restrict__ J, const int* __restrict__ img_idx,
   }
 }
 
+// bf16 -> f32, exact: a bf16 is the high half of an f32
+__device__ __forceinline__ float bf16f(unsigned short b) {
+  return __uint_as_float((unsigned)b << 16);
+}
+
+template <int NP, bool SMEM>
+__global__ void __launch_bounds__(BA_BLOCK)
+matvec16_kernel(const unsigned short* __restrict__ J16, const int* __restrict__ img_idx,
+                const int* __restrict__ cam_idx, const float* __restrict__ vinv,
+                const float* __restrict__ xpose, const float* __restrict__ xintr, int T,
+                int P, int I, int C, float* __restrict__ out_pose,
+                float* __restrict__ out_intr) {
+  constexpr int NK = 6 + NP;
+  constexpr int NJ = 9 + NP;
+  extern __shared__ float smem[];
+  float* apose = SMEM ? smem : out_pose;
+  float* aintr = SMEM ? smem + I * 6 : out_intr;
+  const int n_img = I * 6, n_cam = C * NP;
+  if (SMEM) {
+    for (int i = threadIdx.x; i < n_img + n_cam; i += BA_BLOCK) smem[i] = 0.f;
+    __syncthreads();
+  }
+  const size_t TP = (size_t)T * P;
+  const size_t plane = 2 * TP;  // one column of J16: [2T, P]
+
+  for (int base = blockIdx.x * BA_BLOCK; base < P; base += gridDim.x * BA_BLOCK) {
+    const int p = base + threadIdx.x;
+    int prow = -1;
+    float pend[NP];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) pend[j] = 0.f;
+    if (p < P) {
+      // --- y = J_p^T J_c x summed over the track; z = Vinv y --------------
+      float y[3] = {0.f, 0.f, 0.f};
+      for (int t = 0; t < T; ++t) {
+        const size_t o = (size_t)t * P + p;
+        const int ii = img_idx[o], ci = cam_idx[o];
+        float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+        for (int k = 0; k < NK; ++k) {
+          const float xk = k < 6 ? __ldg(xpose + ii * 6 + k) : __ldg(xintr + ci * NP + k - 6);
+          a0 += bf16f(J16[k * plane + o]) * xk;
+          a1 += bf16f(J16[k * plane + TP + o]) * xk;
+        }
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          y[a] += bf16f(J16[(NK + a) * plane + o]) * a0 +
+                  bf16f(J16[(NK + a) * plane + TP + o]) * a1;
+      }
+      const float va = vinv[p], vb = vinv[P + p], vc = vinv[2 * P + p];
+      const float vd = vinv[3 * P + p], ve = vinv[4 * P + p], vf = vinv[5 * P + p];
+      const float z[3] = {va * y[0] + vb * y[1] + vc * y[2], vb * y[0] + vd * y[1] + ve * y[2],
+                          vc * y[0] + ve * y[1] + vf * y[2]};
+
+      // --- d = a - J_p z; scatter J_c^T d -----------------------------------
+      for (int t = 0; t < T; ++t) {
+        const size_t o = (size_t)t * P + p;
+        float j0[NJ], j1[NJ];
+        bool nz = false;
+#pragma unroll
+        for (int k = 0; k < NJ; ++k) {
+          j0[k] = bf16f(J16[k * plane + o]);
+          j1[k] = bf16f(J16[k * plane + TP + o]);
+          nz |= (j0[k] != 0.f) | (j1[k] != 0.f);
+        }
+        if (!nz) continue;
+        const int ii = img_idx[o], ci = cam_idx[o];
+        float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+        for (int k = 0; k < NK; ++k) {
+          const float xk = k < 6 ? __ldg(xpose + ii * 6 + k) : __ldg(xintr + ci * NP + k - 6);
+          a0 += j0[k] * xk;
+          a1 += j1[k] * xk;
+        }
+        const float d0 = a0 - (j0[NK] * z[0] + j0[NK + 1] * z[1] + j0[NK + 2] * z[2]);
+        const float d1 = a1 - (j1[NK] * z[0] + j1[NK + 1] * z[1] + j1[NK + 2] * z[2]);
+        float vals[6];
+#pragma unroll
+        for (int k = 0; k < 6; ++k) vals[k] = j0[k] * d0 + j1[k] * d1;
+        scatter_row<6>(apose, ii, 6, vals);
+        if (ci != prow) {
+          if (prow >= 0) scatter_row<NP>(aintr, prow, NP, pend);
+          prow = ci;
+#pragma unroll
+          for (int j = 0; j < NP; ++j) pend[j] = 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < NP; ++j) pend[j] += j0[6 + j] * d0 + j1[6 + j] * d1;
+      }
+    }
+    flush_cam_row<NP>(aintr, prow, NP, pend);
+  }
+  if (SMEM) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_img; i += BA_BLOCK)
+      if (smem[i] != 0.f) atomicAdd(out_pose + i, smem[i]);
+    for (int i = threadIdx.x; i < n_cam; i += BA_BLOCK)
+      if (smem[n_img + i] != 0.f) atomicAdd(out_intr + i, smem[n_img + i]);
+  }
+}
+
 // Grid of the scatter kernels: a few blocks per SM walk the columns, so the
 // per-block flush of the accumulators stays small next to the column work.
 static int scatter_blocks(int P) {
@@ -302,6 +416,19 @@ static int matvec_np(const float* J, const int* img_idx, const int* cam_idx, con
                      xintr, T, P, I, C, out_pose, out_intr);
 }
 
+template <int NP>
+static int matvec16_np(const unsigned short* J16, const int* img_idx, const int* cam_idx,
+                       const float* vinv, const float* xpose, const float* xintr, int T, int P,
+                       int I, int C, float* out_pose, float* out_intr, cudaStream_t s) {
+  const size_t bytes = (size_t)(I * 6 + C * NP) * sizeof(float);
+  const int blocks = scatter_blocks(P);
+  if (bytes <= BA_MAX_SMEM_BYTES)
+    return launch_smem(matvec16_kernel<NP, true>, blocks, bytes, s, J16, img_idx, cam_idx, vinv,
+                       xpose, xintr, T, P, I, C, out_pose, out_intr);
+  return launch_smem(matvec16_kernel<NP, false>, blocks, 0, s, J16, img_idx, cam_idx, vinv,
+                     xpose, xintr, T, P, I, C, out_pose, out_intr);
+}
+
 #define BA_FOR_EACH_NP(X) X(3) X(4) X(5) X(8) X(12)
 
 BA_DEFINE_ERROR_STRING
@@ -335,6 +462,25 @@ extern "C" int ba_matvec(int np, const float* J, const int* img_idx, const int* 
   case N:                                                                               \
     return matvec_np<N>(J, img_idx, cam_idx, vinv, xpose, xintr, T, P, I, C, out_pose, \
                         out_intr, s);
+    BA_FOR_EACH_NP(X)
+#undef X
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// J16 [9+NP, 2T, P] bf16 (passed as its raw 16-bit words); otherwise as
+// ba_matvec.
+extern "C" int ba_matvec16(int np, const unsigned short* J16, const int* img_idx,
+                           const int* cam_idx, const float* vinv, const float* xpose,
+                           const float* xintr, int T, int P, int I, int C, float* out_pose,
+                           float* out_intr, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (np) {
+#define X(N)                                                                              \
+  case N:                                                                                 \
+    return matvec16_np<N>(J16, img_idx, cam_idx, vinv, xpose, xintr, T, P, I, C, out_pose, \
+                          out_intr, s);
     BA_FOR_EACH_NP(X)
 #undef X
     default:

@@ -32,7 +32,9 @@ class ResidentBundleSolver:
         new_problem = solver.fetch_problem()   # one download + write-back
 
     device: None = the card (raises on a host without CUDA), or ``"cpu"``
-    for the plain PyTorch versions of the kernels.
+    for the plain PyTorch versions of the kernels. cg_bf16: run the CG
+    matvecs from J packed to bf16; None = bf16 on the card, f32 on the CPU
+    (``ba_kernels.cg_bf16_default``).
 
     After each solve, ``last_result`` holds the loop's counters
     (``host_syncs``: condition reads of the LM and CG loops, plus the one
@@ -40,12 +42,13 @@ class ResidentBundleSolver:
     """
 
     def __init__(self, problem: BundleProblem, options, cg_iters: int = 30,
-                 device=None):
+                 device=None, cg_bf16=None):
         if isinstance(problem.model_id, tuple):
             raise NotImplementedError(
                 "mixed-model bundles are not ported yet (see ROADMAP.md)"
             )
         self.device = resolve_device(device)
+        self.cg_bf16 = bk.cg_bf16_default(self.device, cg_bf16)
         if problem.num_obs == 0:
             raise ValueError("empty problem")
         self._problem = problem
@@ -92,7 +95,7 @@ class ResidentBundleSolver:
             self._intr_free, self._problem.model_id,
             int(options.loss_function_type),
             float(options.loss_function_scale), self._cg_iters, max_iters,
-            eta=float(getattr(options, "eta", 0.1)),
+            eta=float(getattr(options, "eta", 0.1)), cg_bf16=self.cg_bf16,
         )
         self._quat, self._trans = r.quat, r.trans
         # the solver runs NP-narrow intrinsics; columns >= NP are untouched

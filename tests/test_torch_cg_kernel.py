@@ -224,3 +224,104 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         _cuda.libs()
     assert _cuda._libs is None
+
+
+# ---------------------------------------------------------------------------
+# the bf16-packed matvec (reference cg_matvec16_bucket, cg_kernel.py:352)
+# ---------------------------------------------------------------------------
+
+
+def _bf16_case(seed, NPm, Cm, T16=4, P16=256, ragged=219):
+    """An f32 J of the NP-wide layout whose columns >= `ragged` are padding
+    (all-zero J, index 0), so P stays the multiple of 128 the reference's
+    kernel needs while the data is ragged."""
+    rng = np.random.default_rng(seed)
+    J = rng.normal(size=(2, 9 + NPm, T16, P16)).astype(np.float32)
+    mask = (rng.uniform(size=(T16, P16)) > 0.3).astype(np.float32)
+    mask[:, ragged:] = 0.0
+    J *= mask[None, None]
+    ii = (rng.integers(0, I, (T16, P16)) * mask).astype(np.int32)
+    ci = (rng.integers(0, Cm, (T16, P16)) * mask).astype(np.int32)
+    Vinv = rng.normal(size=(6, P16)).astype(np.float32)
+    x_pose = rng.normal(size=(I, 6)).astype(np.float32)
+    x_intr = rng.normal(size=(Cm, NPm)).astype(np.float32)
+    return J, ii, ci, Vinv, x_pose, x_intr
+
+
+def _bucket16(ii, ci):
+    return tbk.Bucket(torch.from_numpy(ii), torch.from_numpy(ci),
+                      *([None] * 5))
+
+
+def _to_torch_bf16(j16):
+    """The reference's bf16 array as a torch bf16 tensor, bit for bit."""
+    return torch.from_numpy(np.asarray(j16).view(np.int16).copy()).view(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("NPm", [3, 4, 8])
+def test_pack_j_bf16_is_bit_equal(NPm):
+    """Both round f32 to nearest even; the layouts match exactly."""
+    J = _bf16_case(60 + NPm, NPm, 1)[0]
+    J[0, 0, 0, :4] = [1.00390625, 1.01171875, -3.0e38, 1e-40]  # ties, edges
+    ref = _to_torch_bf16(jck.pack_j_bf16(jnp.asarray(J)))
+    got = tck.pack_j_bf16(torch.from_numpy(J))
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    np.testing.assert_array_equal(
+        tck.unpack_j_bf16(got).numpy(),
+        np.asarray(jnp.asarray(J).astype(jnp.bfloat16).astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("NPm", [3, 4, 8])
+@pytest.mark.parametrize("Cm", [1, 3])
+def test_schur_matvec16_matches_pallas(NPm, Cm):
+    """The plain bf16 matvec vs the reference's Pallas kernel (interpret
+    mode) on the reference's own packed J16. Tolerance 2e-5 scaled, the f32
+    matvec's (tests/test_cg_kernel.py:64): both sides multiply the same
+    bf16 values in f32. Cm = 1 is the reference's single_cam variant."""
+    J, ii, ci, Vinv, x_pose, x_intr = _bf16_case(70 + NPm + Cm, NPm, Cm)
+    J16 = jck.pack_j_bf16(jnp.asarray(J))
+    jb = tbk.Bucket(jnp.asarray(ii), jnp.asarray(ci), *([None] * 5))
+    ref = jck.schur_matvec16([jb], [J16], [jnp.asarray(Vinv)],
+                             jnp.asarray(x_pose), jnp.asarray(x_intr), I, Cm,
+                             interpret=True)
+    tck.reset_counts()
+    got = tck.schur_matvec16([_bucket16(ii, ci)], [_to_torch_bf16(J16)],
+                             [torch.from_numpy(Vinv)], torch.from_numpy(x_pose),
+                             torch.from_numpy(x_intr), I, Cm)
+    assert tck.LAUNCHES["matvec16"] == 0
+    scale = max(np.abs(np.asarray(ref[0])).max(),
+                np.abs(np.asarray(ref[1])).max(), 1.0)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g.numpy() / scale, np.asarray(r) / scale,
+                                   atol=2e-5)
+    # the ragged data without its padding columns gives the same sums, up
+    # to f32 summation order
+    R = 219
+    cut = tck.schur_matvec16(
+        [_bucket16(np.ascontiguousarray(ii[:, :R]),
+                   np.ascontiguousarray(ci[:, :R]))],
+        [_to_torch_bf16(J16)[:, :, :R]], [torch.from_numpy(Vinv[:, :R])],
+        torch.from_numpy(x_pose), torch.from_numpy(x_intr), I, Cm)
+    for g, c in zip(got, cut):
+        np.testing.assert_allclose(c.numpy() / scale, g.numpy() / scale,
+                                   atol=1e-6)
+
+
+def test_schur_matvec16_matches_f32():
+    """bf16 storage of J vs the f32 matvec: 3e-2 scaled, the reference's
+    tolerance (tests/test_cg_kernel.py:239; ~8e-3 relative on the
+    quadratic form)."""
+    J, ii, ci, Vinv, x_pose, x_intr = _bf16_case(11, 4, 2, T16=8)
+    b = _bucket16(ii, ci)
+    args = ([torch.from_numpy(Vinv)], torch.from_numpy(x_pose),
+            torch.from_numpy(x_intr), I, 2)
+    ref = tck.schur_matvec([b], [torch.from_numpy(J)], *args)
+    got = tck.schur_matvec16([b], [tck.pack_j_bf16(torch.from_numpy(J))],
+                             *args)
+    scale = max(float(ref[0].abs().max()), float(ref[1].abs().max()), 1.0)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy() / scale, r.numpy() / scale,
+                                   atol=3e-2)

@@ -31,4 +31,10 @@ def test_the_port_is_scanned():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     assert "pycolmap_torch/features/sift.py" in names
     assert "pycolmap_torch/sfm/cg_kernel.py" in names
+    for mod in ("scene/reconstruction.py", "scene/database.py",
+                "scene/correspondence_graph.py", "geometry/types.py",
+                "sfm/problem.py", "sfm/incremental_triangulator.py",
+                "pipeline/sfm.py", "ops/solvers.py",
+                "estimators/two_view_geometry.py"):
+        assert f"pycolmap_torch/{mod}" in names
     assert len(FILES) > 20

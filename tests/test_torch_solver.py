@@ -88,3 +88,42 @@ def test_resident_solver_matches():
     r = ts_.last_result
     assert r.host_syncs >= r.iterations  # one per LM step, one per CG check
     assert r.cg_iterations >= 1
+
+
+def _bf16_problem():
+    """tests/test_cg_kernel_solver.py's problem."""
+    jp = jsyn(num_images=7, num_points=120, obs_per_point=4, pose_noise=0.03,
+              point_noise=0.05, refine_intrinsics=True, seed=3)
+    return convert.bundle_problem_from_numpy(
+        {k: np.asarray(v) for k, v in jp._asdict().items() if k != "model_id"},
+        jp.model_id,
+    )
+
+
+def test_bf16_setting_converges_on_the_cpu():
+    """The CG matvecs from bf16-packed J (the card's default) converge as
+    tests/test_cg_kernel_solver.py requires (final < 0.1 x initial), and
+    land within 1e-3 relative of the f32 setting's final cost."""
+    tp = _bf16_problem()
+    _, to = _options(False)
+    to.max_num_iterations = 5
+    out = {}
+    for bf16 in (True, False):
+        _, out[bf16] = tbk.solve_bundle_fast(tp, to, cg_iters=15,
+                                             device="cpu", cg_bf16=bf16)
+    assert out[True].final_cost < 0.1 * out[True].initial_cost
+    assert out[True].final_cost == pytest.approx(out[False].final_cost,
+                                                 rel=1e-3)
+
+
+def test_cg_bf16_defaults_follow_the_device():
+    """bf16 on the card, f32 on the CPU, as the reference on its
+    accelerator and its CPU; one argument selects either."""
+    assert tbk.cg_bf16_default("cuda") is True
+    assert tbk.cg_bf16_default("cpu") is False
+    assert tbk.cg_bf16_default("cuda", False) is False
+    tp = _bf16_problem()
+    _, to = _options(False)
+    assert tres.ResidentBundleSolver(tp, to, device="cpu").cg_bf16 is False
+    assert tres.ResidentBundleSolver(tp, to, device="cpu",
+                                     cg_bf16=True).cg_bf16 is True
