@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive pycolmap_torch on one CUDA card and check it: the bundle adjuster,
-the feature front end (SIFT extraction, descriptor matching) and the
+the feature front end (SIFT extraction, descriptor matching), the
 known-pose entry points (global BA of a model, triangulation of a model
-with known poses).
+with known poses) and the dense pipeline (undistortion, PatchMatch stereo,
+stereo fusion).
 
 Run from the repository root on a host with an H100 (or another sm_90a
 card) and the CUDA toolkit:
@@ -48,7 +49,16 @@ Phases (each raises on failure; the script then exits nonzero):
     options; then a 32-image model on the card and on the CPU, both with
     the bf16 matvec, compared;
 12. ``triangulate_points`` on the card: a 128-image sequential database of
-    100k points seen by about 6 images each, ground-truth poses.
+    100k points seen by about 6 images each, ground-truth poses;
+13. hold the PatchMatch cost kernel to its plain version (f32 and
+    float64) at the main path's inputs captured in phase 14 (photometric
+    and geometric) and at irregular shapes (K 3 and 11); time both;
+14. the dense pipeline at run_sift's size: 12 rendered 960x1280 images of
+    two textured planes through a SIMPLE_RADIAL camera, ``undistort_images``
+    -> ``patch_match_stereo`` -> ``stereo_fusion`` with default options,
+    launch counts, depth and fusion accuracy against the planes, and a
+    profile of one image's photometric PatchMatch (phase 14 runs before
+    phase 13, which checks the inputs it captures).
 
 The last lines are one JSON object describing every kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -90,6 +100,14 @@ try:
     )
     from pycolmap_torch.sfm.bundle_adjustment import BundleAdjustmentOptions
     from pycolmap_torch.sfm.resident import ResidentBundleSolver
+    from pycolmap_torch.mvs import controller as mvs_controller
+    from pycolmap_torch.mvs import patch_match as pm
+    from pycolmap_torch.mvs import pm_kernels as pmk
+    from pycolmap_torch.mvs.depth_map_io import depth_map_path, read_mat
+    from pycolmap_torch.pipeline import (
+        PatchMatchOptions, patch_match_stereo, stereo_fusion, undistort_images,
+    )
+    from pycolmap_torch.pipeline.images import write_image
 except ImportError as e:  # run outside the repository
     sys.exit(f"chip_smoke: the pycolmap_torch package is missing ({e})")
 
@@ -127,6 +145,8 @@ KERNEL_INFO = {
                        "pycolmap_tpu/features/window_sampler.py:127"),
     "top2": ("pycolmap_torch/features/csrc/top2.cu",
              "pycolmap_tpu/features/pallas_kernels.py:87"),
+    "pm_cost": ("pycolmap_torch/mvs/csrc/pm_cost.cu",
+                "pycolmap_tpu/mvs/pm_kernels.py:412"),
 }
 # tolerance on max |kernel - plain| / max(1, max |plain|) per output, the
 # plain version evaluated in float64 (the CPU parity tests' tolerances).
@@ -140,13 +160,20 @@ TOL = {"resjac": 1e-5, "cost": 1e-5, "finish": 1e-5, "prepare": 3e-5,
        "window_sampler": 2e-5,
        # unit-vector similarities; indices must agree where the top-2
        # margin exceeds TOP2_MARGIN
-       "top2": 1e-6}
+       "top2": 1e-6,
+       # against the f32 plain version; against float64 plus the f32 plain
+       # version's own gap (check_pm_cost)
+       "pm_cost": 2e-5}
 TOP2_MARGIN = 1e-5
 SIFT_H, SIFT_W = 960, 1280  # bench.py run_sift's images
 # the kernels phase 2 chains as in an LM step (the bf16 matvec: phase 10)
 F32_KERNELS = ("resjac", "cost", "finish", "prepare", "matvec")
 # phase 12's database: the bench's image and point counts
 TRI_IMAGES, TRI_POINTS = 128, 100_000
+# phase 14's scene: run_sift's image size, two planes (z = 6 owns x < 0.15)
+MVS_IMAGES, MVS_H, MVS_W = 12, 960, 1280
+MVS_PLANES = (6.0, 7.5)
+MVS_RADIAL_K = -0.03
 
 
 def log(msg):
@@ -1266,6 +1293,452 @@ def known_pose_triangulation(tmp):
                 **split)
 
 
+# ---------------------------------------------------------------------------
+# phases 13 and 14: dense MVS
+# ---------------------------------------------------------------------------
+
+
+def noise_texture(rng, cells=(16, 32, 64, 128, 256)):
+    """Multi-octave value noise: one periodic random grid per octave, finer
+    octaves weaker (tests/test_full_pipeline.py's texture, in numpy)."""
+    return [(rng.normal(size=(c, c)), c ** -0.3) for c in cells]
+
+
+def sample_texture(grids, u, v, period=8.0):
+    """Texture value in [0, 1] at world coordinates (u, v): the bilinear
+    sum of the octaves, wrapped every `period` units."""
+    out = np.zeros(u.shape)
+    for g, amp in grids:
+        c = g.shape[0]
+        tu, tv = u / period * c, v / period * c
+        x0, y0 = np.floor(tu), np.floor(tv)
+        fx, fy = tu - x0, tv - y0
+        x0 = x0.astype(np.int64) % c
+        y0 = y0.astype(np.int64) % c
+        x1, y1 = (x0 + 1) % c, (y0 + 1) % c
+        out += amp * (g[y0, x0] * (1 - fy) * (1 - fx) + g[y0, x1] * (1 - fy) * fx
+                      + g[y1, x0] * fy * (1 - fx) + g[y1, x1] * fy * fx)
+    norm = math.sqrt(sum(a * a for _, a in grids))
+    return np.clip(0.5 + 0.16 * out / norm, 0.0, 1.0)
+
+
+def dense_poses(num_images):
+    """render_scene's camera arc (tests/test_full_pipeline.py:33): cameras
+    6.5 units from a target between the planes, over 0.7 rad."""
+    target = np.array([0.0, 0.0, 6.5])
+    poses = []
+    for i in range(num_images):
+        theta = -0.35 + i * (0.7 / max(num_images - 1, 1))
+        center = target + 6.5 * np.array(
+            [np.sin(theta), 0.10 * np.sin(2 * theta), -np.cos(theta)])
+        fwd = (target - center) / np.linalg.norm(target - center)
+        right = np.cross(np.array([0.0, -1.0, 0.0]), fwd)
+        right /= np.linalg.norm(right)
+        R_wc = np.stack([right, np.cross(fwd, right), fwd], axis=0)
+        poses.append(Rigid3d(Rotation3d(R_wc), -R_wc @ center))
+    return poses
+
+
+def plane_hits(center, dirs):
+    """Depth along world rays `dirs` [..., 3] (camera z = 1) to the two
+    planes: z = 6 owns x < 0.15, z = 7.5 the rest. Returns (t, plane index),
+    t = inf where nothing is hit."""
+    t_hit = np.full(dirs.shape[:-1], np.inf)
+    plane = np.full(dirs.shape[:-1], -1)
+    for k, z0 in enumerate(MVS_PLANES):
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = (z0 - center[2]) / dirs[..., 2]
+        px = center[0] + t * dirs[..., 0]
+        own = (px < 0.15) if k == 0 else (px >= 0.15)
+        sel = (t > 0.1) & np.isfinite(t) & own & (t < t_hit)
+        t_hit[sel] = t[sel]
+        plane[sel] = k
+    return t_hit, plane
+
+
+def render_dense_scene(root, num_images, H, W, seed=0, num_points=2000):
+    """Two textured planes seen by a SIMPLE_RADIAL camera (small k) along
+    render_scene's arc, written as .ppm images, and the ground-truth sparse
+    model: every camera, and `num_points` surface points with the tracks of
+    the images that see them (unoccluded, inside the frame)."""
+    rng = np.random.default_rng(seed)
+    f = 450.0 * W / 512
+    cam = Camera(1, "SIMPLE_RADIAL", W, H, [f, W / 2, H / 2, MVS_RADIAL_K])
+    textures = [noise_texture(rng) for _ in MVS_PLANES]
+    poses = dense_poses(num_images)
+    yy, xx = np.mgrid[0:H, 0:W]
+    pix = np.stack([xx.ravel() + 0.5, yy.ravel() + 0.5], axis=1)
+    uv = cam.cam_from_img(pix)  # undistorted rays through each pixel
+    d_cam = np.concatenate([uv, np.ones((len(uv), 1))], axis=1)
+    (root / "images").mkdir(parents=True)
+    for i, pose in enumerate(poses):
+        inv = pose.inverse()
+        t, plane = plane_hits(inv.translation, d_cam @ inv.rotation.matrix().T)
+        hit = d_cam @ inv.rotation.matrix().T * t[:, None] + inv.translation
+        img = np.full(len(uv), 0.5)
+        for k in range(len(MVS_PLANES)):
+            sel = plane == k
+            img[sel] = sample_texture(textures[k], hit[sel, 0], hit[sel, 1])
+        u8 = (img.reshape(H, W) * 255).round().astype(np.uint8)
+        write_image(root / "images" / f"view{i:02d}.ppm",
+                    np.stack([u8, u8, (u8 * 0.9).astype(np.uint8)], axis=-1))
+
+    n0 = num_points // 2
+    pts = np.stack([
+        np.concatenate([rng.uniform(-3.0, 0.15, n0),
+                        rng.uniform(0.15, 3.0, num_points - n0)]),
+        rng.uniform(-2.5, 2.5, num_points),
+        np.where(np.arange(num_points) < n0, *MVS_PLANES),
+    ], axis=1)
+    rec = Reconstruction()
+    rec.add_camera(cam)
+    seen = []
+    for i, pose in enumerate(poses):
+        p_cam = pose * pts
+        center = pose.inverse().translation
+        xy = cam.img_from_cam(p_cam[:, :2] / p_cam[:, 2:])
+        # a far-plane point is hidden where its ray crosses the near plane
+        s = (MVS_PLANES[0] - center[2]) / (pts[:, 2] - center[2])
+        hidden = (pts[:, 2] > MVS_PLANES[0]) & (
+            center[0] + s * (pts[:, 0] - center[0]) < 0.15)
+        ids = np.nonzero((p_cam[:, 2] > 0) & ~hidden & (xy[:, 0] >= 0)
+                         & (xy[:, 0] < W) & (xy[:, 1] >= 0) & (xy[:, 1] < H))[0]
+        seen.append(ids)
+        img = Image(name=f"view{i:02d}.ppm", camera_id=1, id=i + 1,
+                    keypoints_xy=xy[ids])
+        img.cam_from_world = pose
+        img.registered = True
+        rec.add_image(img)
+    kp = [dict(zip(ids.tolist(), range(len(ids)))) for ids in seen]
+    for j in range(num_points):
+        els = [TrackElement(i + 1, kp[i][j]) for i in range(num_images)
+               if j in kp[i]]
+        if len(els) >= 2:
+            rec.add_point3D(pts[j], Track(els))
+    (root / "sparse").mkdir()
+    rec.write_binary(root / "sparse")
+    return rec
+
+
+def depth_accuracy(ws):
+    """Valid share and median relative error of the geometric depth maps
+    against the planes, through the undistorted (PINHOLE) camera; both
+    pooled over every image."""
+    rec = Reconstruction(ws / "sparse")
+    n_valid = n_px = 0
+    errs = []
+    for img in rec.images.values():
+        d = read_mat(depth_map_path(ws, img.name, "geometric"))
+        cam = rec.cameras[img.camera_id]
+        H, W = d.shape
+        K = cam.calibration_matrix()
+        inv = img.cam_from_world.inverse()
+        yy, xx = np.mgrid[0:H, 0:W]
+        dirs = np.stack([(xx + 0.5 - K[0, 2]) / K[0, 0],
+                         (yy + 0.5 - K[1, 2]) / K[1, 1],
+                         np.ones((H, W))], -1) @ inv.rotation.matrix().T
+        gt, _ = plane_hits(inv.translation, dirs)
+        valid = (d > 0) & np.isfinite(gt)
+        n_valid += int(valid.sum())
+        n_px += H * W
+        errs.append(np.abs(d[valid] - gt[valid]) / gt[valid])
+    errs = np.concatenate(errs)
+    return n_valid / n_px, float(np.median(errs)) if len(errs) else math.inf
+
+
+class CostRecorder:
+    """Wraps the PatchMatch loop's cost call: passes every call through to
+    the wrapper (its launches count) and keeps the arguments of the calls
+    whose index is in `keep`."""
+
+    def __init__(self, keep):
+        self.keep, self.calls, self.kept = dict(keep), 0, {}
+        self.wrapped = pm.pm_view_costs
+
+    def __call__(self, *args, **kw):
+        for tag, idx in self.keep.items():
+            if self.calls == idx:
+                self.kept[tag] = (args, kw)
+        self.calls += 1
+        return self.wrapped(*args, **kw)
+
+
+def dense_pipeline(tmp):
+    """Phase 14: undistort_images -> patch_match_stereo -> stereo_fusion at
+    full width with default options; the cost kernel's launch count is
+    zeroed just before and read just after. Captures the inputs of one
+    photometric and one geometric cost call for phase 13, and the first
+    image's PatchMatch call for the profile."""
+    t0 = time.perf_counter()
+    render_dense_scene(tmp / "scene", MVS_IMAGES, MVS_H, MVS_W)
+    t_render = time.perf_counter() - t0
+    per_image = 8 * 2 * PatchMatchOptions().num_iterations
+    per_pass = per_image * MVS_IMAGES
+    # the middle image's refresh at step 4, in each pass
+    at = MVS_IMAGES // 2 * per_image + 32
+    rec = CostRecorder({"photometric": at, "geometric": per_pass + at})
+    first = []
+    kernel = mvs_controller.patch_match_kernel
+
+    def record_first(*args, **kw):
+        if not first:
+            first.append((args, kw))
+        return kernel(*args, **kw)
+
+    pm.pm_view_costs = rec
+    mvs_controller.patch_match_kernel = record_first
+    split = {}
+    try:
+        pmk.reset_counts()
+        t1 = time.perf_counter()
+        undistort_images(tmp / "dense", tmp / "scene" / "sparse",
+                         tmp / "scene" / "images")
+        t2 = time.perf_counter()
+        patch_match_stereo(tmp / "dense", timings=split)
+        t3 = time.perf_counter()
+        xyz, _ = stereo_fusion(tmp / "dense" / "fused.ply", tmp / "dense")
+        t4 = time.perf_counter()
+        launches = dict(pmk.LAUNCHES)
+        plain_on_cuda = dict(pmk.PLAIN_ON_CUDA)
+    finally:
+        pm.pm_view_costs = rec.wrapped
+        mvs_controller.patch_match_kernel = kernel
+    split = dict(undistort=t2 - t1, **split, fusion=t4 - t3)
+    valid, med = depth_accuracy(tmp / "dense")
+    dist = np.minimum(*(np.abs(xyz[:, 2] - z) for z in MVS_PLANES))
+    fused_med = float(np.median(dist)) if len(xyz) else math.inf
+    log(f"phase 14 scene: {MVS_IMAGES} images {MVS_H}x{MVS_W} SIMPLE_RADIAL "
+        f"k {MVS_RADIAL_K}, rendered in {t_render:.2f} s")
+    log(f"phase 14 wall: {t4 - t1:.3f} s: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in split.items())
+        + f"; PatchMatch {(split['photometric'] + split['geometric']) / (2 * MVS_IMAGES):.3f}"
+        " s per image and pass")
+    log(f"phase 14 launches {launches} (expected {2 * per_pass}: 8 per "
+        f"red/black step); geometric maps {100 * valid:.2f}% valid, median "
+        f"relative depth error {med:.5f}; {len(xyz)} fused points, median "
+        f"distance to the planes {fused_med:.5f}")
+    if launches["pm_cost"] != 2 * per_pass or any(plain_on_cuda.values()):
+        raise AssertionError(f"phase 14: {launches} cost launches, expected "
+                             f"{2 * per_pass}; plain on CUDA {plain_on_cuda}")
+    if not (valid > 0.2 and med < 0.01 and len(xyz) > 1000
+            and fused_med < 0.02):
+        raise AssertionError("phase 14: dense accuracy below the thresholds "
+                             "(valid > 0.2, error < 0.01, > 1000 fused "
+                             "points at < 0.02)")
+    return launches, dict(split, valid=valid, median_rel_err=med,
+                          fused=len(xyz), fused_median_dist=fused_med), \
+        rec.kept, first[0]
+
+
+def profile_patch_match(call):
+    """torch.profiler over one image's photometric PatchMatch call, re-run
+    with a fresh generator: device busy share and the top device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args, kw = call
+    args = (torch.Generator(device="cuda").manual_seed(1),) + tuple(args[1:])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = mvs_controller.patch_match_kernel(*args, **kw)
+        out[0].cpu()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    busy = sum(dev_us(e) for e in rows) * 1e-6
+    log(f"phase 14 profile: one photometric PatchMatch call in "
+        f"{wall * 1e3:.2f} ms wall; device busy {busy * 1e3:.2f} ms "
+        f"({100 * busy / wall:.1f}%), {sum(e.count for e in rows)} device ops")
+    for e in sorted(rows, key=dev_us, reverse=True)[:12]:
+        log(f"phase 14 profile:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:5d}  "
+            f"{e.key[:90]}")
+    return busy / wall
+
+
+def irregular_pm_inputs(dev, geom, seed=13):
+    """H, W no multiples of 8 / 128, K = 3, radius 3 / step 1 (nw = 49), a
+    slanted plane with a patch of random normals, a wide-angle reference and
+    a source turned 75 degrees, behind which part of the plane lies; with
+    geom, source depth maps with a hole."""
+    g = torch.Generator().manual_seed(seed)
+    H, W, K, radius, step = 203, 317, 3, 3, 1
+    f = 200.0
+    Kr = torch.tensor([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1.0]])
+    yy, xx = torch.meshgrid(torch.arange(H) + 0.5, torch.arange(W) + 0.5,
+                            indexing="ij")
+    rays = torch.stack([(xx - W / 2) / f, (yy - H / 2) / f, torch.ones(H, W)])
+
+    def texture():
+        img = torch.zeros(H, W)
+        for _ in range(10):
+            fy, fx, ph, a = torch.rand(4, generator=g)
+            img += (0.2 + a) * torch.sin((fy - 0.5) * yy + (fx - 0.5) * xx
+                                         + 6.28 * ph)
+        return (img - img.min()) / (img.max() - img.min())
+
+    ref = texture()
+    srcs = torch.stack([texture() for _ in range(K)])
+    n = torch.tensor([0.35, 0.15, -1.0])
+    n = n / n.norm()
+    normal = n[:, None, None].expand(3, H, W).clone()
+    normal[:, 50:90, 100:160] = torch.nn.functional.normalize(
+        torch.randn(3, 40, 60, generator=g) - 2 * rays[:, 50:90, 100:160],
+        dim=0)
+    depth = -5.0 / torch.einsum("c,chw->hw", n, rays)
+    a = math.radians(75.0)
+    R_rel = torch.stack([
+        torch.eye(3),
+        torch.tensor([[math.cos(a), 0, math.sin(a)], [0, 1.0, 0],
+                      [-math.sin(a), 0, math.cos(a)]]),
+        torch.tensor([[0.999, -0.04, 0], [0.04, 0.999, 0], [0, 0, 1.0]]),
+    ])
+    t_rel = torch.tensor([[0.3, 0.1, 0.0], [-3.0, 0.0, 1.5], [0.2, -0.3, 0.1]])
+    Ks = torch.stack([Kr, Kr * torch.tensor([[1.2], [1.2], [1.0]]), Kr])
+    offsets = pm._window_offsets(radius, step)
+    ref_off, w_off, w_sum, ref_mean, ref_var = pm.window_stats(
+        ref, offsets, radius, 0.2)
+    sdep = None
+    if geom:
+        sdep = 4.0 + 3.0 * srcs
+        sdep[:, 120:150, 200:260] = 0.0
+    params = pmk.pm_view_params(R_rel, t_rel, Ks, Kr, 0.2, 0.3, 3.0)
+    to = lambda x: None if x is None else x.to(dev).contiguous()  # noqa: E731
+    return tuple(to(x) for x in (
+        srcs, sdep, w_off, w_off * ref_off, depth, normal,
+        torch.stack([w_sum, ref_mean, ref_var]), params,
+        torch.as_tensor(offsets, dtype=torch.float32)))
+
+
+def pm_valid_samples(args):
+    """Valid (pixel, view, offset) samples of one cost call: the kernel's
+    warp and validity test in float64."""
+    srcs, _, _, _, depth, normal, _, params, offs = args
+    K, H, W = srcs.shape
+    P = params.double()
+    R, t, ks = P[:, 0:9, None, None], P[:, 9:12, None, None], P[:, 12:16]
+    kr = P[0, 16:20]
+    py, px = torch.meshgrid(torch.arange(H, device=srcs.device) + 0.5,
+                            torch.arange(W, device=srcs.device) + 0.5,
+                            indexing="ij")
+    n = normal.double()
+    ndotr = n[0] * (px - kr[2]) / kr[0] + n[1] * (py - kr[3]) / kr[1] + n[2]
+    denom = depth.double() * torch.where(ndotr.abs() < 1e-6, -1e-6, ndotr)
+    count = 0
+    for dy, dx in offs.tolist():
+        rq = torch.stack([(px + dx - kr[2]) / kr[0], (py + dy - kr[3]) / kr[1],
+                          torch.ones_like(px)])
+        scale = (n * rq).sum(0) / denom
+        m = [(R[:, 3 * i:3 * i + 3] * rq).sum(1) + t[:, i] * scale
+             for i in range(3)]
+        z = torch.where(m[2].abs() < 1e-9, 1e-9, m[2])
+        us = ks[:, 0, None, None] * (m[0] / z) + ks[:, 2, None, None] - 0.5
+        vs = ks[:, 1, None, None] * (m[1] / z) + ks[:, 3, None, None] - 0.5
+        count += int(((us >= 0) & (us < W - 1) & (vs >= 0) & (vs < H - 1)
+                      & (m[2] > 0)).sum())
+    return count
+
+
+def pm_bound(args, geom):
+    """Least time of one cost call: bytes (every input read once, the cost
+    written once) over HBM rate against f32 operations over the f32 rate.
+    Operations, as counted in csrc/pm_cost.cu: 33 per sample for the warp
+    and validity, 28 more per valid sample, 13 per (pixel, offset), 15 per
+    (pixel, view) for the NCC and 50 more with the geometric term."""
+    srcs, sdep, w_off = args[0], args[1], args[2]
+    K, H, W = srcs.shape
+    nw = w_off.shape[0]
+    HW = H * W
+    nbytes = 4 * (K * HW * (2 + geom) + 2 * nw * HW + 7 * HW
+                  + args[7].numel() + args[8].numel())
+    valid = pm_valid_samples(args)
+    ops = 33 * K * nw * HW + 28 * valid + 13 * nw * HW + K * HW * (15 + 50 * geom)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, gflop=ops / 1e9,
+                valid_share=valid / (K * nw * HW))
+
+
+def check_pm_cost(tag, args, geom, results=None):
+    """Kernel vs its plain version on the same inputs, twice. In f32, which
+    the kernel computes operation for operation: every entry within
+    TOL["pm_cost"] scaled. In float64: every entry within TOL["pm_cost"]
+    scaled plus the f32 plain version's own distance from float64 there;
+    that distance is large only where a cost is ill-conditioned in f32 (a
+    sample within rounding of the image edge, a plane nearly parallel to its
+    ray, a source depth map that jumps between the taps of a geometric
+    sample), and is reported."""
+    got = pmk.pm_view_costs(*args, geom=geom).double()
+    p32 = pmk.pm_view_costs_plain(*args, geom=geom).double()
+    ref = pmk.pm_view_costs_plain(args[0].double(), *args[1:], geom=geom)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.abs().max()))
+    tol = TOL["pm_cost"] * scale
+    gap32 = (p32 - ref).abs()
+    err = (got - ref).abs()
+    e32 = float((got - p32).abs().max())
+    n_bad = int((err > tol + gap32).sum())
+    if not (bool(torch.isfinite(got).all()) and e32 <= tol and n_bad == 0):
+        raise AssertionError(
+            f"[{tag}] pm_cost: max |kernel - plain f32| {e32:.3e}; {n_bad} "
+            f"entries beyond {TOL['pm_cost']:.0e} scaled + the f32 gap from "
+            f"float64")
+    q = torch.tensor([0.99, 0.999], device=err.device, dtype=err.dtype)
+    p99, p999 = (float(v) for v in torch.quantile(err.flatten(), q))
+    e_all = float(err.max())
+    share = float((err > tol).double().mean())
+    K, H, W = got.shape
+    log(f"phase 13 pm_cost {tag}: K {K}, {H}x{W}, nw {args[2].shape[0]}, geom "
+        f"{geom}; max |kernel - plain f32| {e32:.3e}; |kernel - float64| max "
+        f"{e_all:.3e} (f32 plain {float(gap32.max()):.3e}), p99 {p99:.3e}, "
+        f"p99.9 {p999:.3e}, {100 * share:.4f}% of entries beyond "
+        f"{TOL['pm_cost']:.0e} scaled (scale {scale:.3f})")
+    if results is None:
+        return
+    b = pm_bound(args, geom)
+    results[tag] = dict(
+        max_abs_err=e_all, max_abs_err_f32=e32, p999_abs_err=p999,
+        beyond_tol_share=share, scaled_err=e_all / scale,
+        ms=time_gpu(lambda: pmk.pm_view_costs(*args, geom=geom)),
+        plain_ms=time_gpu(lambda: pmk.pm_view_costs_plain(*args, geom=geom),
+                          3),
+        **b)
+    r = results[tag]
+    log(f"phase 13 pm_cost {tag}: kernel {r['ms']:.4f} ms "
+        f"({r['gflop'] / r['ms']:.2f} TFLOP/s), plain {r['plain_ms']:.3f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {r['gflop']:.2f} "
+        f"GFLOP, {r['bytes'] / 1e6:.1f} MB, {100 * r['valid_share']:.1f}% "
+        f"valid samples)")
+
+
+def pm_cost_kernel(captured):
+    """Phase 13: the cost kernel vs its plain version at the main path's
+    captured inputs and at the irregular shape."""
+    dev = torch.device("cuda")
+    results = {}
+    for tag in ("photometric", "geometric"):
+        args, kw = captured[tag]
+        check_pm_cost(tag, args, kw.get("geom", False), results)
+    for geom in (False, True):
+        check_pm_cost(f"irregular geom={geom}", irregular_pm_inputs(dev, geom),
+                      geom)
+    # 11 views: the kernel's second block of views along z
+    args = list(irregular_pm_inputs(dev, True))
+    args[0] = args[0].repeat(4, 1, 1)[:11].contiguous()
+    args[1] = args[1].repeat(4, 1, 1)[:11].contiguous()
+    args[7] = args[7].repeat(4, 1)[:11].contiguous()
+    check_pm_cost("irregular K=11 geom=True", tuple(args), True)
+    torch.cuda.empty_cache()
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1343,7 +1816,15 @@ def main():
         known_pose = dict(bundle_adjustment=model_bundle_adjustment(Path(tmp)))
         model_ba_parity(Path(tmp))
         known_pose["triangulate_points"] = known_pose_triangulation(Path(tmp))
-    log(f"known-pose summary: {json.dumps(known_pose)}")
+        log(f"known-pose summary: {json.dumps(known_pose)}")
+
+        # --- phases 14 and 13: the dense pipeline and its cost kernel -----
+        pm_launches, dense, captured, first_call = dense_pipeline(Path(tmp))
+    dense["busy_share"] = profile_patch_match(first_call)
+    del first_call
+    log(f"dense summary: {json.dumps(dense)}")
+    pm_res = pm_cost_kernel(captured)
+    del captured
 
     kernels = []
     for name in ck.KERNELS:
@@ -1374,6 +1855,23 @@ def main():
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
+    # the cost kernel's row: the captured photometric call (the geometric
+    # one is logged in phase 13)
+    src, rep = KERNEL_INFO["pm_cost"]
+    r = pm_res["photometric"]
+    kernels.append(dict(
+        name="pm_cost", route="cuda", source=src, replaces=rep,
+        shape=f"{MVS_H}x{MVS_W}, K 8, nw 36, photometric",
+        launches=pm_launches["pm_cost"],
+        max_abs_err=r["max_abs_err"], max_scaled_err=r["scaled_err"],
+        max_abs_err_vs_f32_plain=r["max_abs_err_f32"],
+        p999_abs_err=r["p999_abs_err"],
+        share_beyond_tol=r["beyond_tol_share"], ms=r["ms"],
+        ms_geometric=pm_res["geometric"]["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+        library_note="no single PyTorch call computes the windowed NCC; "
+                     "grid_sample alone does only the sampling",
+    ))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,11 @@ any of them rebuilds all. Nothing is built or imported when this module is
 imported: the CPU tests import every module and such a host has no
 ``nvcc``.
 
-The launcher modules (``sfm/_cuda.py``, ``features/_cuda.py``) hold the C
-signatures and call :func:`launch`. Every C launcher takes PyTorch's current
-stream as its last argument, allocates nothing, and returns
-``cudaGetLastError()`` after the launch; a nonzero code raises here.
+The launcher modules (``sfm/_cuda.py``, ``features/_cuda.py``,
+``mvs/_cuda.py``) hold the C signatures and call :func:`launch`. Every C
+launcher takes PyTorch's current stream as its last argument, allocates
+nothing, and returns ``cudaGetLastError()`` after the launch; a nonzero
+code raises here.
 """
 
 from __future__ import annotations
@@ -36,11 +37,16 @@ SOURCES = (
     "sfm/csrc/schur.cu",
     "features/csrc/window_sampler.cu",
     "features/csrc/top2.cu",
+    "mvs/csrc/pm_cost.cu",
 )
 HEADERS = ("sfm/csrc/ba_device.cuh",)
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 _FLAGS = (_ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
           "-Xptxas", "-v")
+# per-source flags: the PatchMatch cost kernel rounds every product before
+# its sum, as PyTorch's separate kernels do, so that it computes its plain
+# version's f32 arithmetic operation for operation
+SOURCE_FLAGS = {"mvs/csrc/pm_cost.cu": ("-fmad=false",)}
 BUILD_ROOT = PACKAGE.parent / "build" / "pycolmap_torch"
 
 _lock = threading.Lock()
@@ -65,6 +71,7 @@ def _source_key() -> str:
         h.update(name.encode())
         h.update((PACKAGE / name).read_bytes())
     h.update(" ".join(_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return h.hexdigest()
 
 
@@ -82,7 +89,8 @@ def _build(out_dir: Path) -> None:
     for name in SOURCES:
         src = PACKAGE / name
         tmp = out_dir / f"{_lib_name(name)}.tmp{os.getpid()}"
-        cmd = [nvcc, *_FLAGS, "-I", str(src.parent), "-o", str(tmp), str(src)]
+        cmd = [nvcc, *_FLAGS, *SOURCE_FLAGS.get(name, ()), "-I",
+               str(src.parent), "-o", str(tmp), str(src)]
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs, failed = [], []

@@ -1,10 +1,13 @@
 """Carry state from the reference package into the port.
 
 The reference's ``BundleProblem`` and its options (BA, SIFT extraction,
-SIFT matching, the incremental pipeline) cross as plain data (numpy
-arrays, dicts), never as reference objects, so this module imports nothing
-of ``pycolmap_tpu``. Parity tests build one problem, hand its fields to
-both packages, and compare the results.
+SIFT matching, the incremental pipeline, PatchMatch, stereo fusion,
+undistortion) cross as plain data (numpy arrays, dicts), never as
+reference objects, so this module imports nothing of ``pycolmap_tpu``.
+Parity tests build one problem, hand its fields to both packages, and
+compare the results. The dense pipeline has no other state: its model,
+images and depth maps cross as files, which both packages read and write
+alike.
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ import torch
 
 from pycolmap_torch.features.matcher import SiftMatchingOptions
 from pycolmap_torch.features.sift import SiftExtractionOptions
+from pycolmap_torch.mvs.fusion import StereoFusionOptions
+from pycolmap_torch.mvs.patch_match import PatchMatchOptions
+from pycolmap_torch.pipeline.images import UndistortCameraOptions
 from pycolmap_torch.pipeline.sfm import IncrementalPipelineOptions
 from pycolmap_torch.sfm.bundle_adjustment import (
     BundleAdjustmentOptions,
@@ -27,6 +33,8 @@ _INT_FIELDS = ("obs_image_idx", "obs_camera_idx", "obs_point_idx")
 # (BA) and the reference's thread and GPU selectors (features)
 _DROPPED_OPTIONS = ("devices",)
 _DROPPED_FEATURE_OPTIONS = ("num_threads", "use_gpu", "gpu_index")
+# PatchMatch's GPU selector: the port's entry points take ``device``
+_DROPPED_PM_OPTIONS = ("gpu_index",)
 
 
 def bundle_problem_from_numpy(arrays: Mapping, model_id) -> BundleProblem:
@@ -86,4 +94,28 @@ def pipeline_options_from_dict(values: Mapping) -> IncrementalPipelineOptions:
     opts = IncrementalPipelineOptions()
     opts.mergedict({k: v for k, v in values.items()
                     if k not in _DROPPED_OPTIONS})
+    return opts
+
+
+def patch_match_options_from_dict(values: Mapping) -> PatchMatchOptions:
+    """The port's PatchMatch options from the reference
+    ``PatchMatchOptions.todict()`` (``gpu_index`` dropped)."""
+    opts = PatchMatchOptions()
+    opts.mergedict({k: v for k, v in values.items()
+                    if k not in _DROPPED_PM_OPTIONS})
+    return opts
+
+
+def stereo_fusion_options_from_dict(values: Mapping) -> StereoFusionOptions:
+    """The port's fusion options from the reference options' ``todict()``."""
+    opts = StereoFusionOptions()
+    opts.mergedict(dict(values))
+    return opts
+
+
+def undistort_options_from_dict(values: Mapping) -> UndistortCameraOptions:
+    """The port's undistortion options from the reference
+    ``UndistortCameraOptions.todict()``."""
+    opts = UndistortCameraOptions()
+    opts.mergedict(dict(values))
     return opts

@@ -1,0 +1,244 @@
+"""Image reading and undistortion.
+
+Port of the undistortion half of ``pycolmap_tpu/pipeline/images.py`` (API
+parity: pycolmap/pipeline/images.h — ``undistort_images`` :96-148,
+``UndistortCameraOptions`` :209-233). ``import_images`` and the rest of the
+module wait for the images-to-model slice (ROADMAP.md).
+
+Binary PGM and PPM (P5, P6, 8 bit) are read and written with numpy, so the
+dense pipeline runs on a host without Pillow; the bytes and pixels are
+Pillow's. Every other format goes through Pillow, imported when needed, as
+the reference reads every format. The undistortion remap is a bilinear
+gather on the entry point's device.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pycolmap_torch import resolve_device
+from pycolmap_torch.features.window_sampler import _bilinear_plane
+from pycolmap_torch.scene import Camera, Reconstruction
+from pycolmap_torch.utils.options import BaseOptions, options_dataclass
+
+IMAGE_EXTENSIONS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".pgm", ".ppm"}
+_PNM = {".pgm", ".ppm"}
+
+
+@options_dataclass
+class UndistortCameraOptions(BaseOptions):
+    """Mirrors reference UndistortCameraOptions (images.h:209-233)."""
+
+    blank_pixels: float = 0.0
+    min_scale: float = 0.2
+    max_scale: float = 2.0
+    max_image_size: int = -1
+    roi_min_x: float = 0.0
+    roi_min_y: float = 0.0
+    roi_max_x: float = 1.0
+    roi_max_y: float = 1.0
+
+
+def _read_pnm(path):
+    """A binary 8-bit PGM (HxW) or PPM (HxWx3) as uint8, or None for any
+    other file (Pillow then reads it)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] not in (b"P5", b"P6"):
+        return None
+    fields = []
+    pos = 2
+    # header: magic, then width, height, maxval separated by whitespace or
+    # comments, then one whitespace byte before the pixels
+    while len(fields) < 3:
+        while data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":
+            pos = data.index(b"\n", pos) + 1
+            continue
+        end = pos
+        while data[end:end + 1].isdigit():
+            end += 1
+        if end == pos:
+            return None
+        fields.append(int(data[pos:end]))
+        pos = end
+    w, h, maxval = fields
+    if maxval > 255 or not data[pos:pos + 1].isspace():
+        return None
+    pos += 1
+    c = 1 if data[:2] == b"P5" else 3
+    arr = np.frombuffer(data, np.uint8, count=h * w * c, offset=pos)
+    return arr.reshape((h, w) if c == 1 else (h, w, 3)).copy()
+
+
+def _read_u8(path):
+    if Path(path).suffix.lower() in _PNM:
+        arr = _read_pnm(path)
+        if arr is not None:
+            return arr
+    from PIL import Image as PILImage
+
+    with PILImage.open(path) as im:
+        if im.mode not in ("L", "RGB"):
+            im = im.convert("RGB")
+        return np.asarray(im, dtype=np.uint8)
+
+
+def _gray(arr):
+    """Pillow's ``convert("L")`` of an RGB uint8 array, bit for bit."""
+    if arr.ndim == 2:
+        return arr
+    r, g, b = (arr[..., i].astype(np.uint32) for i in range(3))
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
+def read_image_gray(path) -> np.ndarray:
+    """HxW float32 grayscale in [0, 1]."""
+    return _gray(_read_u8(path)).astype(np.float32) / 255.0
+
+
+def read_image_rgb(path) -> np.ndarray:
+    """HxWx3 uint8 (a gray file's channel replicated)."""
+    arr = _read_u8(path)
+    if arr.ndim == 2:
+        arr = np.repeat(arr[..., None], 3, axis=2)
+    return arr
+
+
+def write_image(path, arr: np.ndarray) -> None:
+    """Write an HxW or HxWx3 uint8 array. ``.pgm`` / ``.ppm`` are written
+    with numpy (P5 for gray, P6 for RGB, whatever the extension, with
+    Pillow's header); other formats through Pillow."""
+    path = Path(path)
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    if path.suffix.lower() in _PNM:
+        magic = b"P5" if arr.ndim == 2 else b"P6"
+        with open(path, "wb") as f:
+            f.write(magic + b"\n%d %d\n255\n" % (arr.shape[1], arr.shape[0]))
+            f.write(arr.tobytes())
+        return
+    from PIL import Image as PILImage
+
+    PILImage.fromarray(arr).save(path)
+
+
+def undistort_camera(camera: Camera, options: UndistortCameraOptions = None) -> Camera:
+    """Compute the undistorted PINHOLE camera (upstream UndistortCamera)."""
+    if options is None:
+        options = UndistortCameraOptions()
+    new_cam = Camera.create(
+        camera.camera_id, "PINHOLE", camera.focal_length, camera.width, camera.height
+    )
+    new_cam.params[0] = camera.focal_length_x
+    new_cam.params[1] = camera.focal_length_y
+    new_cam.params[2] = camera.principal_point_x
+    new_cam.params[3] = camera.principal_point_y
+
+    # determine scaling so that no blank pixels remain (blank_pixels=0) by
+    # examining the undistorted border positions
+    w, h = camera.width, camera.height
+    n = 64
+    xs = np.linspace(0.5, w - 0.5, n)
+    ys = np.linspace(0.5, h - 0.5, n)
+    top = np.stack([xs, np.full(n, 0.5)], axis=1)
+    bottom = np.stack([xs, np.full(n, h - 0.5)], axis=1)
+    left = np.stack([np.full(n, 0.5), ys], axis=1)
+    right = np.stack([np.full(n, w - 0.5), ys], axis=1)
+    pts = np.concatenate([top, bottom, left, right])
+    uv = camera.cam_from_img(pts)  # undistorted normalized coords
+    # project through new pinhole camera
+    xy = uv * [new_cam.params[0], new_cam.params[1]] + [
+        new_cam.params[2], new_cam.params[3]
+    ]
+    # scale the focal so the undistorted border maps inside the image
+    cx, cy = new_cam.params[2], new_cam.params[3]
+    span_x = max(xy[:, 0].max() - cx, cx - xy[:, 0].min())
+    span_y = max(xy[:, 1].max() - cy, cy - xy[:, 1].min())
+    scale_x = (w / 2) / span_x if span_x > 0 else 1.0
+    scale_y = (h / 2) / span_y if span_y > 0 else 1.0
+    if options.blank_pixels == 0:
+        scale = min(scale_x, scale_y)
+    else:
+        scale = max(scale_x, scale_y)
+    scale = float(np.clip(scale, options.min_scale, options.max_scale))
+    new_cam.params[0] *= scale
+    new_cam.params[1] *= scale
+    return new_cam
+
+
+def undistort_image(image_arr: np.ndarray, camera: Camera, new_camera: Camera,
+                    device=None) -> np.ndarray:
+    """Remap an HxW[xC] image to the undistorted camera: a bilinear gather
+    in f32 on ``device`` (default: the card); uint8 input is rounded and
+    clipped back to uint8."""
+    device = resolve_device(device)
+    h, w = new_camera.height, new_camera.width
+    ys, xs = np.mgrid[0:h, 0:w]
+    pix = np.stack([xs.ravel() + 0.5, ys.ravel() + 0.5], axis=1)
+    uv = new_camera.cam_from_img(pix)  # normalized (pinhole: linear)
+    src = camera.img_from_cam(uv)  # distorted source pixels
+    # the reference samples at f32 coordinates
+    src_x = torch.from_numpy((src[:, 0].reshape(h, w) - 0.5).astype(np.float32))
+    src_y = torch.from_numpy((src[:, 1].reshape(h, w) - 0.5).astype(np.float32))
+    arr = torch.from_numpy(np.asarray(image_arr, dtype=np.float32)).to(device)
+    # channel-first planes; each tap outside the image counts zero, as the
+    # reference's features/sift.py _bilinear_gather
+    planes = arr[None] if arr.dim() == 2 else arr.permute(2, 0, 1)
+    chan = torch.arange(planes.shape[0], device=device)[:, None, None]
+    out = _bilinear_plane(planes, chan, src_y.to(device), src_x.to(device))
+    out = out[0] if arr.dim() == 2 else out.permute(1, 2, 0)
+    if image_arr.dtype == np.uint8:
+        out = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+    return out.cpu().numpy()
+
+
+def undistort_images(
+    output_path,
+    input_path,
+    image_path,
+    output_type: str = "COLMAP",
+    options: UndistortCameraOptions = None,
+    image_names=None,
+    device=None,
+):
+    """Undistort a reconstruction's images into a dense workspace
+    (ref: images.h:96-148). Writes sparse/ model + images/ remaps; the
+    remap runs on ``device`` (default: the card)."""
+    if options is None:
+        options = UndistortCameraOptions()
+    device = resolve_device(device)
+    output_path = Path(output_path)
+    image_path = Path(image_path)
+    rec = Reconstruction(input_path)
+    (output_path / "images").mkdir(parents=True, exist_ok=True)
+    (output_path / "sparse").mkdir(parents=True, exist_ok=True)
+
+    new_cams = {}
+    for cam_id, cam in rec.cameras.items():
+        new_cams[cam_id] = undistort_camera(cam, options)
+
+    select = set(image_names) if image_names else None
+    for img in rec.images.values():
+        if not img.registered:
+            continue
+        if select is not None and img.name not in select:
+            continue
+        src_file = image_path / img.name
+        if not src_file.exists():
+            continue
+        arr = read_image_rgb(src_file)
+        cam = rec.cameras[img.camera_id]
+        out = undistort_image(arr, cam, new_cams[img.camera_id], device)
+        dst = output_path / "images" / img.name
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        write_image(dst, out)
+
+    # write undistorted sparse model
+    for cam_id, cam in new_cams.items():
+        rec.cameras[cam_id] = cam
+    rec.write_binary(output_path / "sparse")
+    return rec

@@ -35,6 +35,10 @@ def test_the_port_is_scanned():
                 "scene/correspondence_graph.py", "geometry/types.py",
                 "sfm/problem.py", "sfm/incremental_triangulator.py",
                 "pipeline/sfm.py", "ops/solvers.py",
-                "estimators/two_view_geometry.py"):
+                "estimators/two_view_geometry.py", "pipeline/images.py",
+                "pipeline/mvs.py", "mvs/workspace.py", "mvs/depth_map_io.py",
+                "mvs/consistency_graph.py", "mvs/pm_kernels.py",
+                "mvs/_cuda.py", "mvs/patch_match.py", "mvs/controller.py",
+                "mvs/fusion.py"):
         assert f"pycolmap_torch/{mod}" in names
     assert len(FILES) > 20
