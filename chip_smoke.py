@@ -58,7 +58,24 @@ Phases (each raises on failure; the script then exits nonzero):
     -> ``patch_match_stereo`` -> ``stereo_fusion`` with default options,
     launch counts, depth and fusion accuracy against the planes, and a
     profile of one image's photometric PatchMatch (phase 14 runs before
-    phase 13, which checks the inputs it captures).
+    phase 13, which checks the inputs it captures);
+15. hold the mixed-model variants of the resjac, cost and finish kernels
+    (bundles whose cameras span several camera models) to their plain
+    versions in float64, with phase 2's tolerances: at the inputs captured
+    in phase 16's solve, at an irregular three-model bundle of width 13
+    (SIMPLE_PINHOLE, FULL_OPENCV and FOV near omega = 0, plus a camera whose
+    selector names no listed model), at one bundle holding all 11 models,
+    and, with prepare, matvec and matvec16, at the mixed widths 6, 9 and 13;
+16. ``bundle_adjustment`` of a mixed-model model at full width: phase 11's
+    128-image / 100k-point ring, even images through a SIMPLE_RADIAL camera
+    and odd ones through an OPENCV camera, observations projected in
+    float64 through each camera plus 0.5 px noise, written and read back as
+    a binary model, default options with the bf16 matvec; compared with
+    phase 11's single-model solve of the same size; then a 32-image model
+    on the card and on the CPU (phase 16 runs before phase 15);
+17. hold the per-observation parameter gather to its plain version
+    (exactly equal) at phase 16's bucket shapes and at a ragged shape, and
+    time it beside ``index_select``.
 
 The last lines are one JSON object describing every kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -147,6 +164,15 @@ KERNEL_INFO = {
              "pycolmap_tpu/features/pallas_kernels.py:87"),
     "pm_cost": ("pycolmap_torch/mvs/csrc/pm_cost.cu",
                 "pycolmap_tpu/mvs/pm_kernels.py:412"),
+    # the tuple (mixed-model) forms of the first three TPU kernels
+    "resjac_mixed": ("pycolmap_torch/sfm/csrc/resjac.cu",
+                     "pycolmap_tpu/sfm/cg_kernel.py:659"),
+    "cost_mixed": ("pycolmap_torch/sfm/csrc/cost.cu",
+                   "pycolmap_tpu/sfm/cg_kernel.py:738"),
+    "finish_mixed": ("pycolmap_torch/sfm/csrc/cost.cu",
+                     "pycolmap_tpu/sfm/cg_kernel.py:866"),
+    "gather": ("pycolmap_torch/sfm/csrc/gather.cu",
+               "pycolmap_tpu/sfm/cg_kernel.py:505"),
 }
 # tolerance on max |kernel - plain| / max(1, max |plain|) per output, the
 # plain version evaluated in float64 (the CPU parity tests' tolerances).
@@ -154,6 +180,7 @@ KERNEL_INFO = {
 # float atomics whose order varies run to run.
 TOL = {"resjac": 1e-5, "cost": 1e-5, "finish": 1e-5, "prepare": 3e-5,
        "matvec": 2e-5,
+       "resjac_mixed": 1e-5, "cost_mixed": 1e-5, "finish_mixed": 1e-5,
        # the f32 matvec's: both sides multiply the same bf16 values
        "matvec16": 2e-5,
        # the reference's sampler tolerance (tests/test_window_sampler.py)
@@ -168,6 +195,17 @@ TOP2_MARGIN = 1e-5
 SIFT_H, SIFT_W = 960, 1280  # bench.py run_sift's images
 # the kernels phase 2 chains as in an LM step (the bf16 matvec: phase 10)
 F32_KERNELS = ("resjac", "cost", "finish", "prepare", "matvec")
+# the BA kernels of a single-model solve, and those of a mixed-model one
+SINGLE_BA = ("resjac", "cost", "finish", "prepare", "matvec", "matvec16")
+MIXED_BA = ("resjac_mixed", "cost_mixed", "finish_mixed", "prepare",
+            "matvec", "matvec16")
+# phase 16's cameras: even images SIMPLE_RADIAL, odd images OPENCV, about
+# the bench's principal point and focal length
+MIXED_CAMERAS = (
+    ("SIMPLE_RADIAL", [1000.0, 2000.0, 1500.0, -0.03]),
+    ("OPENCV", [1000.0, 1002.0, 2000.0, 1500.0, -0.03, 0.01, 1e-4, -1e-4]),
+)
+MIXED_PIXEL_NOISE = 0.5
 # phase 12's database: the bench's image and point counts
 TRI_IMAGES, TRI_POINTS = 128, 100_000
 # phase 14's scene: run_sift's image size, two planes (z = 6 owns x < 0.15)
@@ -245,6 +283,8 @@ class Case:
         self.x_pose = (1e-3 * torch.randn(self.I, 6, generator=g)).to(dev)
         self.x_intr = (1e-3 * torch.randn(self.C, NP, generator=g)).to(dev)
         self.x_intr[:, 0] *= 100.0  # focal steps in pixels
+        if isinstance(model_id, tuple):
+            self.x_intr[:, NP - 1] = 0.0  # the solver never moves a selector
         nq = torch.nn.functional.normalize(
             quat + 1e-3 * torch.randn(quat.shape, generator=g).to(dev), dim=1)
         self.new_quat = nq
@@ -269,7 +309,9 @@ def check_case(case, tag, results=None):
     bench shape the f32 plain prepare, whose index_add_ sums 600k terms onto
     one camera row, is itself 4e-4 off the float64 sum while the kernel is
     within 1e-6. Returns per kernel (max_abs_err, scaled_err); with
-    `results`, also times the kernels and the f32 plain versions."""
+    `results`, also times the kernels and the f32 plain versions. A
+    mixed-model case reports resjac, cost and finish as their *_mixed
+    variants."""
     b_l, pts = case.buckets, case.pts
     m, lt, ls = case.model_id, case.loss_type, case.loss_scale
     NP, I, C = case.NP, case.I, case.C
@@ -335,17 +377,21 @@ def check_case(case, tag, results=None):
                for b, J, V, g in zip(bl, J_k, Vinv_l, g_l)]
         return [o[0] for o in out] + [sum(o[1] for o in out)]
 
+    def kname(name):
+        return ck._kernel_name(name, m) if name in ck.KERNELS[:3] else name
+
     errs = {}
     for name in F32_KERNELS:
         worst = (0.0, 0.0)
         for got, ref in zip(kernel_out[name], plain(name, torch.float64)):
             e = scaled_err(got.reshape(-1), ref.reshape(-1))
             worst = (max(worst[0], e[0]), max(worst[1], e[1]))
-        errs[name] = worst
-        if not worst[1] <= TOL[name]:
+        errs[kname(name)] = worst
+        if not worst[1] <= TOL[kname(name)]:
             raise AssertionError(
-                f"[{tag}] {name}: kernel vs plain scaled error {worst[1]:.3e} "
-                f"> {TOL[name]:.0e} (max abs {worst[0]:.3e})")
+                f"[{tag}] {kname(name)}: kernel vs plain scaled error "
+                f"{worst[1]:.3e} > {TOL[kname(name)]:.0e} (max abs "
+                f"{worst[0]:.3e})")
     torch.cuda.synchronize()
 
     if results is not None:
@@ -365,11 +411,11 @@ def check_case(case, tag, results=None):
                 scaled_err(got.reshape(-1), ref.reshape(-1))[1]
                 for got, ref in zip(plain(name, torch.float32),
                                     plain(name, torch.float64)))
-            results[name] = dict(
+            results[kname(name)] = dict(
                 plain32_scaled_err=plain32, ms=time_gpu(kern[name]),
                 plain_ms=time_gpu(lambda: plain(name, torch.float32), 5),
-                max_abs_err=errs[name][0], scaled_err=errs[name][1],
-                **bound(name, case),
+                max_abs_err=errs[kname(name)][0],
+                scaled_err=errs[kname(name)][1], **bound(name, case),
             )
     return errs
 
@@ -419,15 +465,44 @@ def bound(name, case):
                 bytes=nbytes)
 
 
-def irregular_cases(model_id, loss_type, dev, seed):
-    """Three cameras, buckets of T = 4, 8, 16 at widths that are no
-    multiple of 128, mask holes, two images behind their points, partly
-    fixed intrinsics and points."""
+def camera_table(rng, model_id, omega):
+    """Intrinsics and intr_free of an irregular case's cameras: three of
+    one model, or for a tuple one camera per listed model (at least three,
+    cycling), each with its model id in the selector column, then one
+    camera whose selector names no listed model. FOV cameras at `omega`."""
     from pycolmap_torch.ops.camera_models import CAMERA_MODEL_BY_ID, MAX_PARAMS
 
+    mixed = isinstance(model_id, tuple)
+    models = model_id if mixed else (model_id,)
+    NP = solver_num_params(model_id)
+    C = max(3, len(models)) + mixed
+    intr = np.zeros((C, max(MAX_PARAMS, NP)), np.float32)
+    for c in range(C):
+        info = CAMERA_MODEL_BY_ID[models[c % len(models)]]
+        for i in info.focal_idxs:
+            intr[c, i] = 400.0 + 30 * rng.normal()
+        intr[c, info.principal_idxs[0]] = 320.0
+        intr[c, info.principal_idxs[1]] = 240.0
+        for i in info.extra_idxs:
+            intr[c, i] = rng.uniform(-0.05, 0.05)
+        if info.name == "FOV":
+            intr[c, info.extra_idxs[0]] = omega
+        if mixed:
+            intr[c, NP - 1] = info.model_id
+    if mixed:
+        intr[C - 1, NP - 1] = min(set(range(12)) - set(models))
+    intr_free = (rng.uniform(size=intr.shape) > 0.4).astype(np.float32)
+    if mixed:
+        intr_free[:, NP - 1] = 0.0
+    return intr, intr_free
+
+
+def irregular_cases(model_id, loss_type, dev, seed, omega=0.8):
+    """The cameras of camera_table, buckets of T = 4, 8, 16 at widths that
+    are no multiple of 128, mask holes, two images behind their points,
+    partly fixed intrinsics and points."""
     rng = np.random.default_rng(seed)
-    I, C = 20, 3
-    info = CAMERA_MODEL_BY_ID[model_id]
+    I = 20
     quat = rng.normal(size=(I, 4)).astype(np.float32)
     quat /= np.linalg.norm(quat, axis=1, keepdims=True)
     trans = rng.normal(size=(I, 3)).astype(np.float32)
@@ -435,16 +510,8 @@ def irregular_cases(model_id, loss_type, dev, seed):
     # every point lies far behind these two cameras (far, so that no point
     # moved by the back-substitution lands near the singular depth 0)
     trans[:2, 2] = -30.0
-    intr = np.zeros((C, MAX_PARAMS), np.float32)
-    for i in info.focal_idxs:
-        intr[:, i] = 400.0 + 30 * rng.normal(size=C)
-    intr[:, info.principal_idxs[0]] = 320.0
-    intr[:, info.principal_idxs[1]] = 240.0
-    for i in info.extra_idxs:
-        intr[:, i] = rng.uniform(-0.05, 0.05, size=C)
-    if info.name == "FOV":
-        intr[:, info.extra_idxs[0]] = 0.8
-    intr_free = (rng.uniform(size=(C, MAX_PARAMS)) > 0.4).astype(np.float32)
+    intr, intr_free = camera_table(rng, model_id, omega)
+    C = intr.shape[0]
     buckets = []
     for T, P in ((4, 300), (8, 1000), (16, 77)):
         mask = (rng.uniform(size=(T, P)) > 0.3).astype(np.float32)
@@ -563,7 +630,7 @@ def bench_solve(cg_bf16):
     if not warm.final_cost < warm.initial_cost:
         raise AssertionError(f"bench cost did not fall: {warm}")
     unused = "matvec" if cg_bf16 else "matvec16"
-    missing = [k for k, v in launches.items() if v <= 0 and k != unused]
+    missing = [k for k in SINGLE_BA if launches[k] <= 0 and k != unused]
     if missing or launches[unused]:
         raise AssertionError(f"{tag}: kernels never launched on the main "
                              f"path: {missing}; {unused} launched "
@@ -1018,7 +1085,7 @@ def matvec16_bound(buckets, J16_l, I, C):
 
 
 def check_matvec16(tag, buckets, J16_l, Vinv_l, x_pose, x_intr, I, C,
-                   results=None):
+                   results=None, phase="phase 10"):
     """Kernel vs matvec16_plain in float64 on the same bf16 values."""
     NP = J16_l[0].shape[0] - 9
     got = ck.schur_matvec16(buckets, J16_l, Vinv_l, x_pose, x_intr, I, C)
@@ -1040,7 +1107,7 @@ def check_matvec16(tag, buckets, J16_l, Vinv_l, x_pose, x_intr, I, C,
         raise AssertionError(f"[{tag}] matvec16: kernel vs plain scaled "
                              f"error {err[1]:.3e} > {TOL['matvec16']:.0e}")
     shapes = [tuple(b.mask.shape) for b in buckets]
-    log(f"phase 10 matvec16 {tag}: NP {NP}, I {I}, C {C}, buckets [T, P] "
+    log(f"{phase} matvec16 {tag}: NP {NP}, I {I}, C {C}, buckets [T, P] "
         f"{shapes}; scaled err {err[1]:.2e} (max abs {err[0]:.3e})")
     if results is None:
         return err
@@ -1052,10 +1119,25 @@ def check_matvec16(tag, buckets, J16_l, Vinv_l, x_pose, x_intr, I, C,
         **matvec16_bound(buckets, J16_l, I, C),
     )
     r = results[tag]
-    log(f"phase 10 matvec16 {tag}: kernel {r['ms']:.4f} ms, plain "
+    log(f"{phase} matvec16 {tag}: kernel {r['ms']:.4f} ms, plain "
         f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)")
     return err
+
+
+def check_case_matvec16(tag, case, phase, results=None):
+    """check_matvec16 on a case's own J (packed to bf16) and Vinv, as the
+    kernels of an LM step give them."""
+    res_l, J_l = ck.res_and_jac(case.buckets, case.pts, case.quat,
+                                case.trans, case.intr, case.intr_free,
+                                case.model_id, case.loss_type,
+                                case.loss_scale)
+    Vinv_l = ck.schur_prepare(case.buckets, J_l, res_l, case.lam, case.I,
+                              case.C)[0]
+    return check_matvec16(tag, case.buckets,
+                          [ck.pack_j_bf16(J) for J in J_l], Vinv_l,
+                          case.x_pose, case.x_intr, case.I, case.C,
+                          results=results, phase=phase)
 
 
 def bf16_matvec():
@@ -1067,14 +1149,7 @@ def bf16_matvec():
     # cameras, buckets of widths that are no multiple of 128
     for model_id in (0, 3, 4, 6):
         case = irregular_cases(model_id, 0, dev, seed=20 + model_id)
-        res_l, J_l = ck.res_and_jac(case.buckets, case.pts, case.quat,
-                                    case.trans, case.intr, case.intr_free,
-                                    model_id, 0, 1.0)
-        Vinv_l = ck.schur_prepare(case.buckets, J_l, res_l, case.lam,
-                                  case.I, case.C)[0]
-        check_matvec16(f"irregular model {model_id}", case.buckets,
-                       [ck.pack_j_bf16(J) for J in J_l], Vinv_l, case.x_pose,
-                       case.x_intr, case.I, case.C)
+        check_case_matvec16(f"irregular model {model_id}", case, "phase 10")
     return results["bench"]
 
 
@@ -1083,24 +1158,31 @@ def bf16_matvec():
 # ---------------------------------------------------------------------------
 
 
-def reconstruction_from_bundle(problem):
+def reconstruction_from_bundle(problem, cameras=None, xy=None):
     """A Reconstruction of the port's scene classes holding a synthetic
-    bundle's initial state: one camera, image i's keypoints are its
-    observations, point j's track the observations of j."""
+    bundle's initial state: image i's keypoints are its observations
+    (`xy`, default the bundle's), point j's track the observations of j.
+    Image i sees through cameras[i % len(cameras)]; the default is the
+    bundle's one SIMPLE_RADIAL camera."""
     intr = problem.intrinsics[0].double().numpy()
     quat = problem.cam_quat.double().numpy()  # wxyz
     trans = problem.cam_trans.double().numpy()
     obs_img = problem.obs_image_idx.numpy()
     obs_pt = problem.obs_point_idx.numpy()
-    xy = problem.obs_xy.double().numpy()
+    if xy is None:
+        xy = problem.obs_xy.double().numpy()
+    if cameras is None:
+        cameras = [Camera(1, "SIMPLE_RADIAL", int(2 * intr[1]),
+                          int(2 * intr[2]), intr[:4])]
     rec = Reconstruction()
-    rec.add_camera(Camera(1, "SIMPLE_RADIAL", int(2 * intr[1]),
-                          int(2 * intr[2]), intr[:4]))
+    for cam in cameras:
+        rec.add_camera(cam)
     kp_idx = np.zeros(len(obs_img), np.int64)
     for i in range(problem.num_images):
         sel = np.nonzero(obs_img == i)[0]
         kp_idx[sel] = np.arange(len(sel))
-        img = Image(name=f"image{i:04d}.jpg", camera_id=1, id=i + 1,
+        img = Image(name=f"image{i:04d}.jpg",
+                    camera_id=cameras[i % len(cameras)].camera_id, id=i + 1,
                     keypoints_xy=xy[sel])
         img.cam_from_world = Rigid3d(Rotation3d(quat[i, [1, 2, 3, 0]]),
                                      trans[i])
@@ -1148,21 +1230,23 @@ def model_bundle_adjustment(tmp):
     if not (summary.final_cost < summary.initial_cost and err1 < err0):
         raise AssertionError("phase 11: cost or reprojection error did not "
                              "fall")
-    missing = [k for k, v in launches.items() if v <= 0 and k != "matvec"]
+    missing = [k for k in SINGLE_BA if launches[k] <= 0 and k != "matvec"]
     if missing or launches["matvec"]:
         raise AssertionError(f"phase 11: kernels never launched {missing}; "
                              f"f32 matvec launched {launches['matvec']}")
     return dict(read_s=t3 - t2, entry_s=t5 - t4, lm=summary.num_iterations,
-                err0=err0, err1=err1, **split)
+                err0=err0, err1=err1, launches=launches, **split)
 
 
-def model_ba_parity(tmp, kwargs=(("cuda", {}),
-                                 ("cpu", dict(device="cpu", cg_bf16=True)))):
-    """32 images: the card (bf16, its default) vs the CPU with the bf16
-    setting through the plain versions."""
-    reconstruction_from_bundle(
-        make_synthetic_bundle(32, 8192, 6, refine_intrinsics=True)
-    ).write_binary(tmp / "medium")
+def model_ba_parity(tmp, rec=None, tag="phase 11 medium 32/8192 bf16",
+                    kwargs=(("cuda", {}),
+                            ("cpu", dict(device="cpu", cg_bf16=True)))):
+    """32 images (`rec`, default phase 11's scene): the card (bf16, its
+    default) vs the CPU with the bf16 setting through the plain versions."""
+    if rec is None:
+        rec = reconstruction_from_bundle(
+            make_synthetic_bundle(32, 8192, 6, refine_intrinsics=True))
+    rec.write_binary(tmp / "medium")
     opts = options(MEDIUM_LM_ITERS)
     got = {}
     for dev, kw in kwargs:
@@ -1173,11 +1257,10 @@ def model_ba_parity(tmp, kwargs=(("cuda", {}),
     d_trans = max(float(np.abs(rg.images[i].cam_from_world.translation
                                - rc.images[i].cam_from_world.translation).max())
                   for i in rg.images)
-    log(f"phase 11 medium 32/8192 bf16: card {sg}, CPU {sc}; final cost rel "
-        f"diff {rel:.3e} (tol 1e-3), translation max abs diff {d_trans:.3e} "
-        f"(tol 1e-3)")
+    log(f"{tag}: card {sg}, CPU {sc}; final cost rel diff {rel:.3e} (tol "
+        f"1e-3), translation max abs diff {d_trans:.3e} (tol 1e-3)")
     if not (rel <= 1e-3 and d_trans <= 1e-3 and sg.final_cost < sg.initial_cost):
-        raise AssertionError("phase 11: card and CPU bf16 solves disagree")
+        raise AssertionError(f"{tag}: card and CPU bf16 solves disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -1739,6 +1822,264 @@ def pm_cost_kernel(captured):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phases 15-17: mixed-model bundles and the parameter gather
+# ---------------------------------------------------------------------------
+
+
+def quat_matrices(q):
+    """[N, 4] wxyz -> [N, 3, 3] rotation matrices, float64."""
+    w, x, y, z = (q[:, i] for i in range(4))
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                  2 * (x * z + w * y)], -1),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                  2 * (y * z - w * x)], -1),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                  1 - 2 * (x * x + y * y)], -1)], 1)
+
+
+def mixed_reconstruction(num_images, num_points, seed=0):
+    """Phase 11's ring scene through MIXED_CAMERAS: image i through camera
+    i % 2 + 1. The observations are the generator's true points projected
+    in float64 through each image's camera, plus MIXED_PIXEL_NOISE px;
+    poses and points start at the generator's values perturbed with the
+    bench's noise (the generator draws the same structure and noise at any
+    noise level)."""
+    kw = dict(BENCH, num_images=num_images, num_points=num_points, seed=seed)
+    start = make_synthetic_bundle(**kw)
+    truth = make_synthetic_bundle(**dict(kw, pixel_noise=0.0, pose_noise=0.0,
+                                         point_noise=0.0))
+    cams = [Camera(c + 1, name, 4000, 3000, np.array(params))
+            for c, (name, params) in enumerate(MIXED_CAMERAS)]
+    obs_img = truth.obs_image_idx.numpy()
+    obs_pt = truth.obs_point_idx.numpy()
+    R = quat_matrices(truth.cam_quat.double().numpy())
+    Xc = (np.einsum("mij,mj->mi", R[obs_img],
+                    truth.points.double().numpy()[obs_pt])
+          + truth.cam_trans.double().numpy()[obs_img])
+    uv = Xc[:, :2] / Xc[:, 2:]
+    xy = np.empty_like(uv)
+    for c, cam in enumerate(cams):
+        sel = obs_img % len(cams) == c
+        xy[sel] = cam.img_from_cam(uv[sel])
+    xy += np.random.default_rng(seed + 1).normal(0, MIXED_PIXEL_NOISE,
+                                                 xy.shape)
+    return reconstruction_from_bundle(start, cams, xy)
+
+
+def mixed_model_bundle_adjustment(tmp, single):
+    """Phase 16: the entry point on the mixed model at full width, with
+    the launch counts zeroed just before and read just after. `single`:
+    phase 11's numbers for the single-model model of the same size.
+    Returns the phase's numbers and the first res_and_jac call's inputs."""
+    captured, problems = [], []
+    res_and_jac, solve_bundle = ck.res_and_jac, psfm.solve_bundle
+
+    def record_resjac(*args):
+        if not captured:
+            captured.append(args)
+        return res_and_jac(*args)
+
+    def record_solve(problem, *args, **kw):
+        out = solve_bundle(problem, *args, **kw)
+        problems.append((problem, out[0]))
+        return out
+
+    t0 = time.perf_counter()
+    rec = mixed_reconstruction(BENCH["num_images"], BENCH["num_points"])
+    t1 = time.perf_counter()
+    rec.write_binary(tmp / "mixed_in")
+    t2 = time.perf_counter()
+    rec = Reconstruction(tmp / "mixed_in")
+    t3 = time.perf_counter()
+    err0 = rec.compute_mean_reprojection_error()
+    split = {}
+    ck.reset_counts()
+    ck.res_and_jac, psfm.solve_bundle = record_resjac, record_solve
+    try:
+        t4 = time.perf_counter()
+        summary = psfm.bundle_adjustment(rec, timings=split)
+        t5 = time.perf_counter()
+    finally:
+        ck.res_and_jac, psfm.solve_bundle = res_and_jac, solve_bundle
+    launches = dict(ck.LAUNCHES)
+    plain_on_cuda = dict(ck.PLAIN_ON_CUDA)
+    err1 = rec.compute_mean_reprojection_error()
+    rec.write_binary(tmp / "mixed_out")
+    t6 = time.perf_counter()
+    problem, solved = problems[0]
+    sel = solver_num_params(problem.model_id) - 1
+    sel_same = torch.equal(problem.intrinsics[:, sel],
+                           solved.intrinsics[:, sel].cpu())
+    lm = summary.num_iterations
+    rate = lm / split["solve"]
+    per_step = {k: launches[k] / lm for k in MIXED_BA}
+    single_rate = single["lm"] / single["solve"]
+    single_step = {k: single["launches"][k] / single["lm"] for k in SINGLE_BA}
+    log(f"phase 16 model: {rec.num_reg_images} images through "
+        f"{[c.model for c in rec.cameras.values()]} (model_id "
+        f"{problem.model_id}, width {sel + 1}), {rec.num_points3D} points, "
+        f"{rec.compute_num_observations()} observations; built in "
+        f"{t1 - t0:.2f} s, written in {t2 - t1:.2f} s")
+    log(f"phase 16 bundle_adjustment: {summary}; mean reprojection error "
+        f"{err0:.4f} -> {err1:.4f} px; selector column unchanged {sel_same}")
+    log(f"phase 16 wall: read {t3 - t2:.3f} s, entry point {t5 - t4:.3f} s "
+        f"(problem build {split['build']:.3f} s, solve {split['solve']:.3f} "
+        f"s, write back {split['write_back']:.3f} s), model write "
+        f"{t6 - t5:.3f} s; {rate:.2f} LM it/s over the solve")
+    log(f"phase 16 launches {launches}; per LM step "
+        f"{json.dumps({k: round(v, 3) for k, v in per_step.items()})}")
+    log(f"phase 16 vs phase 11's single-model SIMPLE_RADIAL model of the same "
+        f"size: solve {split['solve']:.3f} s / {single['solve']:.3f} s, "
+        f"{lm} / {single['lm']} LM steps, {rate:.2f} / {single_rate:.2f} LM "
+        f"it/s, entry point {t5 - t4:.3f} s / {single['entry_s']:.3f} s; "
+        f"single-model launches per LM step "
+        f"{json.dumps({k: round(v, 3) for k, v in single_step.items()})}")
+    if not (summary.final_cost < summary.initial_cost and err1 < err0
+            and err1 < 1.0):
+        raise AssertionError("phase 16: cost or reprojection error did not "
+                             "fall below 1 px")
+    if not sel_same:
+        raise AssertionError("phase 16: the solve moved the selector column")
+    missing = [k for k in MIXED_BA if launches[k] <= 0 and k != "matvec"]
+    single_run = [k for k in ("resjac", "cost", "finish", "matvec")
+                  if launches[k]]
+    if missing or single_run:
+        raise AssertionError(f"phase 16: kernels never launched {missing}; "
+                             f"single-model or f32 kernels launched "
+                             f"{single_run}")
+    if any(plain_on_cuda.values()):
+        raise AssertionError(f"phase 16: plain versions ran on CUDA tensors: "
+                             f"{plain_on_cuda}")
+    out = dict(read_s=t3 - t2, entry_s=t5 - t4, lm=lm, lm_per_s=rate,
+               err0=err0, err1=err1, single_lm_per_s=single_rate,
+               launches=launches, per_step=per_step, **split)
+    return out, captured[0]
+
+
+def mixed_kernels(captured):
+    """Phase 15: the mixed kernels and the bf16 matvec vs their float64
+    plain versions at the inputs captured in phase 16 (the mixed kernels
+    timed), then at irregular shapes."""
+    dev = torch.device("cuda")
+    (buckets, pts, quat, trans, intr, intr_free, model_id, loss_type,
+     loss_scale) = captured
+    case = Case([b._replace(points=p) for b, p in zip(buckets, pts)], quat,
+                trans, intr, intr_free, model_id, loss_type, loss_scale, 0)
+    results = {}
+    check_case(case, "phase 16 capture", results)
+    # the bf16 matvec at the width and buckets phase 16's CG loop gives it
+    check_case_matvec16("phase 16 capture", case, "phase 15", {})
+    del case
+    torch.cuda.empty_cache()
+    for name, r in results.items():
+        log(f"phase 15 {name} at phase 16's inputs (model_id {model_id}): "
+            f"scaled err {r['scaled_err']:.2e} (max abs "
+            f"{r['max_abs_err']:.3e}; plain f32 err "
+            f"{r['plain32_scaled_err']:.2e}); kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)")
+    # widths 6, 9, 13 (13: FOV near omega = 0), and every model at once;
+    # each case has one camera whose selector names no listed model
+    for models, loss, omega in (((2, 3), 0, 0.8), ((2, 4), 1, 0.8),
+                                ((0, 6, 7), 2, 1e-9),
+                                (tuple(range(11)), 1, 0.8)):
+        case = irregular_cases(models, loss, dev, seed=40 + len(models),
+                               omega=omega)
+        errs = check_case(case, f"irregular {models}")
+        e16 = check_case_matvec16(f"irregular {models}", case, "phase 15")
+        log(f"phase 15 irregular {models} (NP {case.NP}, {case.C} cameras, "
+            f"loss {loss}): " + ", ".join(f"{k} {v[1]:.2e}"
+                                          for k, v in errs.items())
+            + f", matvec16 {e16[1]:.2e}")
+    return results
+
+
+def gather_bound(buckets, Ri, I, Rc, C):
+    """Bytes: the two index grids read and the Ri + Rc planes written once
+    per slot, and the tables read once; no arithmetic."""
+    nbytes = 4 * (Ri * I + Rc * C)
+    for b in buckets:
+        nbytes += 4 * b.mask.numel() * (2 + Ri + Rc)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=t_bytes, bound_by="bytes", bytes=nbytes)
+
+
+def check_gather(tag, buckets, img_tab, cam_tab, results=None):
+    """Kernel vs plain version on the card: exactly equal."""
+    for b in buckets:
+        got = ck.gather_params_bucket(img_tab, cam_tab, b.img_idx, b.cam_idx)
+        ref = ck.gather_params_plain(img_tab, cam_tab, b.img_idx, b.cam_idx)
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"[{tag}] gather: kernel differs from plain")
+    torch.cuda.synchronize()
+    shapes = [tuple(b.mask.shape) for b in buckets]
+    log(f"phase 17 gather {tag}: tables {tuple(img_tab.shape)} and "
+        f"{tuple(cam_tab.shape)}, buckets [T, P] {shapes}: exactly equal")
+    if results is None:
+        return
+
+    def each(fn):
+        return lambda: [fn(b) for b in buckets]
+
+    results[tag] = dict(
+        max_abs_err=0.0, scaled_err=0.0,
+        ms=time_gpu(each(lambda b: ck.gather_params_bucket(
+            img_tab, cam_tab, b.img_idx, b.cam_idx))),
+        plain_ms=time_gpu(each(lambda b: ck.gather_params_plain(
+            img_tab, cam_tab, b.img_idx, b.cam_idx))),
+        library_ms=time_gpu(each(lambda b: (
+            img_tab.index_select(1, b.img_idx.flatten()),
+            cam_tab.index_select(1, b.cam_idx.flatten())))),
+        **gather_bound(buckets, *img_tab.shape, *cam_tab.shape))
+    r = results[tag]
+    log(f"phase 17 gather {tag}: kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, index_select x2 {r['library_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB)")
+
+
+def gather_kernel(captured):
+    """Phase 17: phase 16's buckets with its parameter tables (quat | trans
+    per image, the intrinsics per camera, selector included), then a ragged
+    shape with indices outside the tables."""
+    buckets, _, quat, trans, intr, _, model_id = captured[:7]
+    NP = solver_num_params(model_id)
+    results = {}
+    check_gather("phase 16 buckets", buckets,
+                 torch.cat([quat, trans], 1).T.contiguous(),
+                 intr[:, :NP].T.contiguous(), results)
+    g = torch.Generator().manual_seed(17)
+    dev = quat.device
+    T, P, I, C = 5, 1001, 37, 3
+    idx = lambda n: torch.randint(-2, n + 2, (T, P), generator=g,  # noqa: E731
+                                  dtype=torch.int32).to(dev)
+    b = bk.Bucket(idx(I), idx(C), None, torch.ones(T, P, device=dev), None,
+                  None, None)
+    check_gather("ragged", [b], torch.randn(7, I, generator=g).to(dev),
+                 torch.randn(13, C, generator=g).to(dev))
+    return results["phase 16 buckets"]
+
+
+def ba_kernel_registers(build_log):
+    """ptxas register counts of the resjac / cost / finish instances, by
+    kernel and camera policy (Single<model id> or Mixed<width>)."""
+    import re
+
+    out, name = {}, None
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(resjac|cost|finish)"
+                      r"_kernelI\d+(Single|Mixed)ILi(\d+)E", ln)
+        if m:
+            name = f"{m[1]} {m[2]}<{m[3]}>"
+        elif "Compiling entry function" in ln:
+            name = None
+        elif name and "Used" in ln and "registers" in ln:
+            out[name] = int(ln.split("Used ")[1].split()[0])
+            name = None
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1763,6 +2104,8 @@ def main():
     log(f"phase 1: ptxas reports {len(regs)} kernels; max "
         f"{max((int(ln.split('Used ')[1].split()[0]) for ln in regs), default=0)}"
         f" registers")
+    log(f"phase 1: registers of the per-model BA kernels: "
+        f"{json.dumps(ba_kernel_registers(_cuda_build.build_log))}")
 
     # --- phase 2: kernels vs plain ----------------------------------------
     dev = torch.device("cuda")
@@ -1818,6 +2161,22 @@ def main():
         known_pose["triangulate_points"] = known_pose_triangulation(Path(tmp))
         log(f"known-pose summary: {json.dumps(known_pose)}")
 
+        # --- phases 16, 15 and 17: mixed-model bundles, the gather -------
+        t16 = time.perf_counter()
+        mixed, captured_ba = mixed_model_bundle_adjustment(
+            Path(tmp), known_pose["bundle_adjustment"])
+        model_ba_parity(Path(tmp), mixed_reconstruction(32, 8192),
+                        tag="phase 16 medium 32/8192 mixed bf16")
+        t15 = time.perf_counter()
+        mixed_res = mixed_kernels(captured_ba)
+        t17 = time.perf_counter()
+        gather_res = gather_kernel(captured_ba)
+        del captured_ba
+        torch.cuda.empty_cache()
+        mixed["phase_s"] = {"16": t15 - t16, "15": t17 - t15,
+                            "17": time.perf_counter() - t17}
+        log(f"mixed summary: {json.dumps(mixed)}")
+
         # --- phases 14 and 13: the dense pipeline and its cost kernel -----
         pm_launches, dense, captured, first_call = dense_pipeline(Path(tmp))
     dense["busy_share"] = profile_patch_match(first_call)
@@ -1827,7 +2186,7 @@ def main():
     del captured
 
     kernels = []
-    for name in ck.KERNELS:
+    for name in SINGLE_BA:
         src, rep = KERNEL_INFO[name]
         r = results[name]
         # the f32 matvec runs in the f32-setting bench solve; every other
@@ -1871,6 +2230,35 @@ def main():
         bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
         library_note="no single PyTorch call computes the windowed NCC; "
                      "grid_sample alone does only the sampling",
+    ))
+    # the mixed variants: timed at phase 16's captured inputs, launched on
+    # phase 16's main path
+    for name in MIXED_BA[:3]:
+        src, rep = KERNEL_INFO[name]
+        r = mixed_res[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=rep,
+            shape="phase 16: 128 images, 100k points, SIMPLE_RADIAL + OPENCV",
+            launches=mixed["launches"][name],
+            launches_per_lm_step=mixed["per_step"][name],
+            run="phase 16 bundle_adjustment, bf16 CG",
+            max_abs_err=r["max_abs_err"], max_scaled_err=r["scaled_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None,
+            library_note="no single PyTorch call computes this function",
+        ))
+    # the gather has no caller on the main path (neither has the TPU
+    # kernel's): its launches there are 0; phase 17 launches it itself
+    src, rep = KERNEL_INFO["gather"]
+    r = gather_res
+    kernels.append(dict(
+        name="gather", route="cuda", source=src, replaces=rep,
+        shape="phase 16's buckets and tables",
+        launches=mixed["launches"]["gather"], main_path=False,
+        max_abs_err=r["max_abs_err"], max_scaled_err=r["scaled_err"],
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        library_note="two index_select calls, one per table",
     ))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

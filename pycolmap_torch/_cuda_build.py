@@ -35,6 +35,7 @@ SOURCES = (
     "sfm/csrc/resjac.cu",
     "sfm/csrc/cost.cu",
     "sfm/csrc/schur.cu",
+    "sfm/csrc/gather.cu",
     "features/csrc/window_sampler.cu",
     "features/csrc/top2.cu",
     "mvs/csrc/pm_cost.cu",

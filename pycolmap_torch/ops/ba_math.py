@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from pycolmap_torch.ops.camera_models import CAMERA_MODEL_BY_ID
+from pycolmap_torch.ops.camera_models import CAMERA_MODEL_BY_ID, mixed_sel_index
 
 
 # -- quaternions (tuples (w, x, y, z)) --------------------------------------
@@ -178,11 +178,23 @@ _DISTORT_CF = {
 
 def img_from_cam_cf(model_id, params, u, v):
     """Normalized plane -> pixels, component-first. params: sequence of
-    tensors in the model's parameter layout. Returns (x, y)."""
+    tensors in the model's parameter layout. Returns (x, y).
+
+    model_id may be a tuple (a mixed-model bundle): params then carries the
+    per-observation model id at ``mixed_sel_index(models)``; each model is
+    evaluated and selected with ``torch.where``, so another model's NaN
+    (FOV at omega 0) never leaks, and an id naming no listed model gives 0.
+    """
     if isinstance(model_id, tuple):
-        raise NotImplementedError(
-            "mixed-model bundles are not ported yet (see ROADMAP.md)"
-        )
+        sel = params[mixed_sel_index(model_id)]
+        px = torch.zeros_like(u)
+        py = torch.zeros_like(v)
+        for m in model_id:
+            xm, ym = img_from_cam_cf(m, params, u, v)
+            c = sel == m
+            px = torch.where(c, xm, px)
+            py = torch.where(c, ym, py)
+        return px, py
     info = CAMERA_MODEL_BY_ID[model_id]
     du, dv = _DISTORT_CF[model_id](params, u, v)
     if len(info.focal_idxs) == 1:

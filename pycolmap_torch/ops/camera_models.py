@@ -12,6 +12,14 @@ colmap/sensor/models.h, enumerated via ``CAMERA_MODEL_CASES``):
 
 ``params`` is padded to ``MAX_PARAMS``. The reference dispatches a traced
 model id through ``lax.switch``; eager PyTorch dispatches on the Python int.
+
+A mixed-model bundle passes ``model_id`` as a tuple of ids (the
+reference's ``img_from_cam_fixed``): ``params`` then carries one more
+column, the per-camera model id, at ``mixed_sel_index(models)``, and every
+listed model is evaluated and selected per point with ``torch.where`` (a
+NaN of a model evaluated on another model's parameters, FOV at omega 0,
+never reaches the output). A point whose selector names no listed model
+maps to 0, as in the reference.
 """
 
 from __future__ import annotations
@@ -328,18 +336,27 @@ def _focal_principal(model_id, params):
     return fx, fy, cx, cy
 
 
-def _single_model(model_id):
-    if isinstance(model_id, tuple):
-        raise NotImplementedError(
-            "mixed-model bundles are not ported yet (see ROADMAP.md)"
-        )
-    return int(model_id)
+def _mixed(models, fn, params, x):
+    """fn(m, params, x) of each listed model, selected per point by the
+    selector column of params (0 where it names none)."""
+    sel_idx = mixed_sel_index(models)
+    sel = params[..., sel_idx:sel_idx + 1]
+    out = None
+    for m in models:
+        y = fn(m, params, x)
+        if out is None:
+            out = torch.zeros_like(y)
+        out = torch.where(sel == m, y, out)
+    return out
 
 
 def img_from_cam(model_id, params, uv):
-    """Project normalized camera points [..., 2] to pixels for one model id;
-    params [..., MAX_PARAMS]."""
-    model_id = _single_model(model_id)
+    """Project normalized camera points [..., 2] to pixels for one model id
+    (or a tuple of them); params [..., MAX_PARAMS] (one more column, the
+    selector, for a tuple)."""
+    if isinstance(model_id, tuple):
+        return _mixed(model_id, img_from_cam, params, uv)
+    model_id = int(model_id)
     duv = _DISTORT_FNS[model_id](params, uv)
     fx, fy, cx, cy = _focal_principal(model_id, params)
     return torch.cat([fx * duv[..., 0:1] + cx, fy * duv[..., 1:2] + cy], dim=-1)
@@ -347,7 +364,9 @@ def img_from_cam(model_id, params, uv):
 
 def cam_from_img(model_id, params, xy):
     """Unproject pixels [..., 2] to the normalized camera plane."""
-    model_id = _single_model(model_id)
+    if isinstance(model_id, tuple):
+        return _mixed(model_id, cam_from_img, params, xy)
+    model_id = int(model_id)
     fx, fy, cx, cy = _focal_principal(model_id, params)
     u = (xy[..., 0:1] - cx) / fx
     v = (xy[..., 1:2] - cy) / fy

@@ -44,7 +44,9 @@ class UndistortCameraOptions(BaseOptions):
 
 def _read_pnm(path):
     """A binary 8-bit PGM (HxW) or PPM (HxWx3) as uint8, or None for any
-    other file (Pillow then reads it)."""
+    other file (Pillow then reads it). Samples of a file whose maxval is
+    below 255 are scaled to 0..255 as Pillow scales them:
+    ``round(min(v, maxval) * 255 / maxval)``, halves to even."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] not in (b"P5", b"P6"):
@@ -67,12 +69,16 @@ def _read_pnm(path):
         fields.append(int(data[pos:end]))
         pos = end
     w, h, maxval = fields
-    if maxval > 255 or not data[pos:pos + 1].isspace():
+    if not 0 < maxval <= 255 or not data[pos:pos + 1].isspace():
         return None
     pos += 1
     c = 1 if data[:2] == b"P5" else 3
     arr = np.frombuffer(data, np.uint8, count=h * w * c, offset=pos)
-    return arr.reshape((h, w) if c == 1 else (h, w, 3)).copy()
+    arr = arr.reshape((h, w) if c == 1 else (h, w, 3))
+    if maxval < 255:
+        scaled = np.minimum(arr, maxval).astype(np.float64) * 255.0 / maxval
+        return np.round(scaled).astype(np.uint8)
+    return arr.copy()
 
 
 def _read_u8(path):

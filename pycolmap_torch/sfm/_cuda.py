@@ -18,19 +18,31 @@ from pycolmap_torch._cuda_build import ptr as _ptr
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# the mixed-model launchers take (width, model bit mask) where the
+# single-model ones take the model id; resjac also takes the first model
+_MIXED = [_I, _I]
+_RESJAC = [_P] * 9 + [_I, _I, _I, _F, _P, _P, _P]
+_COST = [_P] * 7 + [_I, _I, _I, _F, _P, _P]
+_FINISH = [_P] * 13 + [_I, _I, _I, _F, _P, _P, _P]
 # C signatures of the launchers (see the extern "C" functions in csrc/*.cu)
 _SIGNATURES = {
     "resjac.cu": {
-        "ba_resjac": [_I] + [_P] * 9 + [_I, _I, _I, _F, _P, _P, _P],
+        "ba_resjac": [_I] + _RESJAC,
+        "ba_resjac_mixed": _MIXED + [_I] + _RESJAC,
     },
     "cost.cu": {
-        "ba_cost": [_I] + [_P] * 7 + [_I, _I, _I, _F, _P, _P],
-        "ba_finish": [_I] + [_P] * 13 + [_I, _I, _I, _F, _P, _P, _P],
+        "ba_cost": [_I] + _COST,
+        "ba_finish": [_I] + _FINISH,
+        "ba_cost_mixed": _MIXED + _COST,
+        "ba_finish_mixed": _MIXED + _FINISH,
     },
     "schur.cu": {
         "ba_prepare": [_I] + [_P] * 5 + [_I] * 4 + [_P] * 5,
         "ba_matvec": [_I] + [_P] * 6 + [_I] * 4 + [_P] * 3,
         "ba_matvec16": [_I] + [_P] * 6 + [_I] * 4 + [_P] * 3,
+    },
+    "gather.cu": {
+        "ba_gather": [_P] * 4 + [_I] * 5 + [_P] * 3,
     },
 }
 
@@ -45,29 +57,58 @@ def _call(source: str, fn: str, *args) -> None:
 # ---------------------------------------------------------------------------
 
 
-def resjac(model, itab, intr, ifree, img_idx, cam_idx, xy, mask, pts, pfree,
-           loss, scale, res, J):
+def _resjac(fn, head, itab, intr, ifree, img_idx, cam_idx, xy, mask, pts,
+            pfree, loss, scale, res, J):
     T, P = img_idx.shape
-    _call("resjac.cu", "ba_resjac", model, _ptr(itab), _ptr(intr), _ptr(ifree),
+    _call("resjac.cu", fn, *head, _ptr(itab), _ptr(intr), _ptr(ifree),
           _i32(img_idx), _i32(cam_idx), _ptr(xy), _ptr(mask), _ptr(pts),
           _ptr(pfree), T, P, loss, scale, _ptr(res), _ptr(J))
 
 
-def cost(model, itab, intr, img_idx, cam_idx, xy, mask, pts, loss, scale,
-         partials):
+def _cost(fn, head, itab, intr, img_idx, cam_idx, xy, mask, pts, loss, scale,
+          partials):
     T, P = img_idx.shape
-    _call("cost.cu", "ba_cost", model, _ptr(itab), _ptr(intr), _i32(img_idx),
+    _call("cost.cu", fn, *head, _ptr(itab), _ptr(intr), _i32(img_idx),
           _i32(cam_idx), _ptr(xy), _ptr(mask), _ptr(pts), T, P, loss, scale,
           _ptr(partials))
 
 
-def finish(model, J, vinv, gpt, img_idx, cam_idx, xy, mask, pts, pfree,
-           xpose, xintr, nitab, nintr, loss, scale, new_pts, partials):
+def _finish(fn, head, J, vinv, gpt, img_idx, cam_idx, xy, mask, pts, pfree,
+            xpose, xintr, nitab, nintr, loss, scale, new_pts, partials):
     T, P = img_idx.shape
-    _call("cost.cu", "ba_finish", model, _ptr(J), _ptr(vinv), _ptr(gpt),
+    _call("cost.cu", fn, *head, _ptr(J), _ptr(vinv), _ptr(gpt),
           _i32(img_idx), _i32(cam_idx), _ptr(xy), _ptr(mask), _ptr(pts),
           _ptr(pfree), _ptr(xpose), _ptr(xintr), _ptr(nitab), _ptr(nintr),
           T, P, loss, scale, _ptr(new_pts), _ptr(partials))
+
+
+def resjac(model, *args):
+    _resjac("ba_resjac", (model,), *args)
+
+
+def cost(model, *args):
+    _cost("ba_cost", (model,), *args)
+
+
+def finish(model, *args):
+    _finish("ba_finish", (model,), *args)
+
+
+# mixed-model variants: NP the solver width (selector column last), models
+# the listed ids as a bit mask; resjac's first is the id an observation
+# naming no listed model takes (the cost projects it to pixel 0)
+
+
+def resjac_mixed(NP, models, first, *args):
+    _resjac("ba_resjac_mixed", (NP, models, first), *args)
+
+
+def cost_mixed(NP, models, *args):
+    _cost("ba_cost_mixed", (NP, models), *args)
+
+
+def finish_mixed(NP, models, *args):
+    _finish("ba_finish_mixed", (NP, models), *args)
 
 
 def prepare(NP, J, res, img_idx, cam_idx, lam, I, C, vinv, gpt, acc_img,
@@ -92,3 +133,11 @@ def matvec16(NP, J16, img_idx, cam_idx, vinv, xpose, xintr, I, C, out_pose,
     _call("schur.cu", "ba_matvec16", NP, _ptr(J16, torch.bfloat16),
           _i32(img_idx), _i32(cam_idx), _ptr(vinv), _ptr(xpose), _ptr(xintr),
           T, P, I, C, _ptr(out_pose), _ptr(out_intr))
+
+
+def gather(img_tab, cam_tab, img_idx, cam_idx, out_i, out_c):
+    T, P = img_idx.shape
+    _call("gather.cu", "ba_gather", _ptr(img_tab), _ptr(cam_tab),
+          _i32(img_idx), _i32(cam_idx), img_tab.shape[0], img_tab.shape[1],
+          cam_tab.shape[0], cam_tab.shape[1], T * P, _ptr(out_i),
+          _ptr(out_c))

@@ -30,7 +30,11 @@ import numpy as np
 import torch
 
 from pycolmap_torch.ops import ba_math as bm
-from pycolmap_torch.ops.camera_models import CAMERA_MODEL_BY_ID, solver_num_params
+from pycolmap_torch.ops.camera_models import (
+    CAMERA_MODEL_BY_ID,
+    mixed_sel_index,
+    solver_num_params,
+)
 from pycolmap_torch.sfm.bundle_adjustment import BASummary, BundleProblem
 
 _BUCKET_TS = (4, 8, 16, 32, 64)
@@ -158,11 +162,26 @@ def _bucket_res_and_jac(model_id, bucket, q_obs, t_obs, k_obs, intr_free_obs):
     rule is assembled in closed form; only the 2-D distortion is linearized,
     by ``torch.func.jvp`` (two passes for d(dist)/d(u,v) plus one per extra
     parameter), as the reference does with ``jax.jvp``.
+
+    model_id may be a tuple (a mixed-model bundle): each model's residual
+    and Jacobian come from this same path and are selected per observation
+    by the selector plane ``k_obs[mixed_sel_index(models)]`` with
+    ``torch.where`` (an observation whose selector names no listed model
+    takes the first one, as in the reference). Columns past a model's own
+    parameter count, the selector's among them, are exact zeros.
     """
     if isinstance(model_id, tuple):
-        raise NotImplementedError(
-            "mixed-model bundles are not ported yet (see ROADMAP.md)"
-        )
+        sel = k_obs[mixed_sel_index(model_id)]
+        res_out = J_out = None
+        for m in model_id:
+            res_m, J_m = _bucket_res_and_jac(m, bucket, q_obs, t_obs, k_obs,
+                                             intr_free_obs)
+            c = sel == m
+            res_out = (res_m if res_out is None
+                       else torch.where(c[None], res_m, res_out))
+            J_out = (J_m if J_out is None
+                     else torch.where(c[None, None], J_m, J_out))
+        return res_out, J_out
     info = CAMERA_MODEL_BY_ID[model_id]
     X = (
         bucket.points[0][None],
@@ -384,10 +403,6 @@ def _lm_solve_bucketed(
     """
     from pycolmap_torch.sfm import cg_kernel as ck
 
-    if isinstance(model_id, tuple):
-        raise NotImplementedError(
-            "mixed-model bundles are not ported yet (see ROADMAP.md)"
-        )
     I, C = quat0.shape[0], intr0.shape[0]
     NP = solver_num_params(model_id)
     intr0 = intr0[:, :NP].contiguous()

@@ -60,10 +60,12 @@ class BundleProblem(NamedTuple):
     # parameters
     cam_quat: torch.Tensor  # [I, 4] wxyz cam_from_world
     cam_trans: torch.Tensor  # [I, 3]
-    intrinsics: torch.Tensor  # [C, MAX_PARAMS]
+    intrinsics: torch.Tensor  # [C, >= MAX_PARAMS]
     points: torch.Tensor  # [P, 3]
     # structure
-    model_id: int  # single camera model id for the problem
+    # one camera model id, or a tuple of ids for a mixed-model bundle
+    # (intrinsics then hold each camera's model id at mixed_sel_index)
+    model_id: int
     obs_image_idx: torch.Tensor  # [M] int32
     obs_camera_idx: torch.Tensor  # [M] int32 (camera of the image)
     obs_point_idx: torch.Tensor  # [M] int32
@@ -71,7 +73,7 @@ class BundleProblem(NamedTuple):
     obs_mask: torch.Tensor  # [M] f32 validity (padding = 0)
     # freedoms
     pose_free: torch.Tensor  # [I, 6] f32 mask (gauge fixing / constant poses)
-    intr_free: torch.Tensor  # [C, MAX_PARAMS] f32 mask
+    intr_free: torch.Tensor  # [C, >= MAX_PARAMS] f32 mask
     point_free: torch.Tensor  # [P] f32 mask
 
     @property

@@ -14,9 +14,20 @@ fallback: a CUDA tensor goes to the kernel or the launch raises.
 | schur_prepare      | schur.cu prepare     | schur_prepare_bucket (:1088)     |
 | schur_matvec       | schur.cu matvec      | cg_matvec_bucket (:183)          |
 | schur_matvec16     | schur.cu matvec16    | cg_matvec16_bucket (:352)        |
+| gather_params_bucket | gather.cu          | gather_params_bucket (:466)      |
 
 Inside, parameter tables stay ``[I, 7]`` (quat | trans) and ``[C, NP]``;
 the reference's 128-lane transposed tables are a TPU layout.
+
+A mixed-model bundle passes ``model_id`` as a tuple of ids. Its width NP
+is ``mixed_sel_index(models) + 1``: the last intrinsics column holds each
+camera's model id (the selector), with ``intr_free`` 0 and a zero Jacobian
+column, so the solve never moves it. On the card ``res_and_jac``,
+``total_cost`` and ``backsub_and_cost`` launch the mixed variants of their
+kernels (``*_mixed``: one kernel per function and width, a runtime switch
+on each observation's selector into the same per-model device code); the
+Schur kernels read J at its width and need no variant. The plain versions
+where-select per observation, as the reference does.
 
 ``schur_matvec16`` reads J packed to bf16 by ``pack_j_bf16`` (the
 reference's layout and rounding), once per LM step; prepare, finish and the
@@ -36,7 +47,8 @@ from pycolmap_torch.sfm import _cuda
 from pycolmap_torch.sfm import ba_kernels as bk
 from pycolmap_torch.sfm.bundle_adjustment import _robust_cost, _robust_weight
 
-KERNELS = ("resjac", "cost", "finish", "prepare", "matvec", "matvec16")
+KERNELS = ("resjac", "cost", "finish", "prepare", "matvec", "matvec16",
+           "resjac_mixed", "cost_mixed", "finish_mixed", "gather")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)
 BLOCK = 256  # BA_BLOCK in csrc/ba_device.cuh: one cost partial per block
@@ -56,17 +68,39 @@ def _is_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-def _plain_call(name, t):
+def _plain_call(name, t, model_id=0):
     if t.is_cuda:
-        PLAIN_ON_CUDA[name] += 1
+        PLAIN_ON_CUDA[_kernel_name(name, model_id)] += 1
+
+
+def _kernel_name(name, model_id):
+    return f"{name}_mixed" if isinstance(model_id, tuple) else name
 
 
 def _model(model_id):
+    """(model, NP): one model's id and parameter count, or a mixed
+    bundle's tuple of ids and its width, the selector column last."""
     if isinstance(model_id, tuple):
-        raise NotImplementedError(
-            "mixed-model bundles are not ported yet (see ROADMAP.md)"
-        )
-    return int(model_id), solver_num_params(model_id)
+        model = tuple(int(m) for m in model_id)
+    else:
+        model = int(model_id)
+    return model, solver_num_params(model)
+
+
+def _launch(name, model, NP, *args):
+    """Launch the kernel of `name` for one model, or its mixed variant for
+    a tuple (the launcher takes the width and the listed ids as a bit mask;
+    resjac also the first id, which observations naming no listed model
+    take)."""
+    key = _kernel_name(name, model)
+    LAUNCHES[key] += 1
+    if isinstance(model, tuple):
+        head = (NP, sum(1 << m for m in set(model)))
+        if name == "resjac":
+            head += (model[0],)
+        getattr(_cuda, key)(*head, *args)
+    else:
+        getattr(_cuda, key)(model, *args)
 
 
 def _blocks(P):
@@ -80,7 +114,7 @@ def _blocks(P):
 
 def resjac_plain(b, pts, itab, intr, ifree, model_id, loss_type, loss_scale):
     """Robust-weighted residual [2, T, P] and Jacobian [2, 9+NP, T, P]."""
-    _plain_call("resjac", pts)
+    _plain_call("resjac", pts, model_id)
     q_obs = bk._gather_table(itab[:, :4], b.img_idx)
     t_obs = bk._gather_table(itab[:, 4:7], b.img_idx)
     k_obs = bk._gather_table(intr, b.cam_idx)
@@ -105,14 +139,14 @@ def _bucket_cost(b, pts, itab, intr, model_id, loss_type, loss_scale):
 
 def cost_plain(b, pts, itab, intr, model_id, loss_type, loss_scale):
     """Robust cost of one bucket (0-d)."""
-    _plain_call("cost", pts)
+    _plain_call("cost", pts, model_id)
     return _bucket_cost(b, pts, itab, intr, model_id, loss_type, loss_scale)
 
 
 def finish_plain(b, pts, J, Vinv, g_pt, x_pose, x_intr, nitab, nintr,
                  model_id, loss_type, loss_scale):
     """Back-substituted points [3, P] and the cost at the update (0-d)."""
-    _plain_call("finish", pts)
+    _plain_call("finish", pts, model_id)
     NP = x_intr.shape[1]
     nk = 6 + NP
     xc = torch.cat([
@@ -232,10 +266,9 @@ def res_and_jac(buckets, pts_list, quat, trans, intr, intr_free, model_id,
             T, P = b.mask.shape
             res = torch.empty((2, T, P), device=pts.device)
             J = torch.empty((2, 9 + NP, T, P), device=pts.device)
-            LAUNCHES["resjac"] += 1
-            _cuda.resjac(model, itab, intr, ifree, b.img_idx, b.cam_idx, b.xy,
-                         b.mask, pts.contiguous(), b.point_free,
-                         int(loss_type), float(loss_scale), res, J)
+            _launch("resjac", model, NP, itab, intr, ifree, b.img_idx,
+                    b.cam_idx, b.xy, b.mask, pts.contiguous(), b.point_free,
+                    int(loss_type), float(loss_scale), res, J)
         else:
             res, J = resjac_plain(b, pts, itab, intr, ifree, model,
                                   int(loss_type), float(loss_scale))
@@ -254,10 +287,9 @@ def total_cost(buckets, pts_list, quat, trans, intr, model_id, loss_type,
     for b, pts in zip(buckets, pts_list):
         if _is_cuda(pts):
             partials = torch.empty(_blocks(pts.shape[1]), device=pts.device)
-            LAUNCHES["cost"] += 1
-            _cuda.cost(model, itab, intr, b.img_idx, b.cam_idx, b.xy, b.mask,
-                       pts.contiguous(), int(loss_type), float(loss_scale),
-                       partials)
+            _launch("cost", model, NP, itab, intr, b.img_idx, b.cam_idx, b.xy,
+                    b.mask, pts.contiguous(), int(loss_type),
+                    float(loss_scale), partials)
             cost = cost + torch.sum(partials)
         else:
             cost = cost + cost_plain(b, pts, itab, intr, model,
@@ -282,11 +314,10 @@ def backsub_and_cost(buckets, pts_list, J_l, Vinv_l, g_pt_l, x_pose, x_intr,
             P = pts.shape[1]
             new_pts = torch.empty((3, P), device=pts.device)
             partials = torch.empty(_blocks(P), device=pts.device)
-            LAUNCHES["finish"] += 1
-            _cuda.finish(model, J, Vinv, g_pt, b.img_idx, b.cam_idx, b.xy,
-                         b.mask, pts.contiguous(), b.point_free, x_pose,
-                         x_intr, nitab, nintr, int(loss_type),
-                         float(loss_scale), new_pts, partials)
+            _launch("finish", model, NP, J, Vinv, g_pt, b.img_idx,
+                    b.cam_idx, b.xy, b.mask, pts.contiguous(), b.point_free,
+                    x_pose, x_intr, nitab, nintr, int(loss_type),
+                    float(loss_scale), new_pts, partials)
             part = torch.sum(partials)
         else:
             new_pts, part = finish_plain(b, pts, J, Vinv, g_pt, x_pose,
@@ -361,3 +392,57 @@ def schur_matvec16(buckets, J16_l, Vinv_l, x_pose, x_intr, I, C):
     return _matvec_buckets("matvec16", _cuda.matvec16, matvec16_plain,
                            J16_l[0].shape[0] - 9, buckets, J16_l, Vinv_l,
                            x_pose, x_intr, I, C)
+
+
+# ---------------------------------------------------------------------------
+# per-observation parameter gather
+# ---------------------------------------------------------------------------
+
+
+def _take(tab, idx):
+    """tab [R, N] at idx [T, P] -> [R, T, P]; 0 at an index outside
+    [0, N), as the reference's chunked lane gather gives there."""
+    idx = idx.long()
+    inside = (idx >= 0) & (idx < tab.shape[1])
+    out = tab[:, idx.clamp(0, tab.shape[1] - 1)]
+    return torch.where(inside[None], out, out.new_zeros(()))
+
+
+def gather_params_plain(img_tab_t, cam_tab_t, img_idx, cam_idx):
+    """The plain version of :func:`gather_params_bucket`."""
+    _plain_call("gather", img_idx)
+    return _take(img_tab_t, img_idx), _take(cam_tab_t, cam_idx)
+
+
+def gather_params_bucket(img_tab_t, cam_tab_t, img_idx, cam_idx):
+    """Per-observation parameter gather of one bucket, both index spaces.
+
+    img_tab_t [Ri, I] and cam_tab_t [Rc, C] f32 (one table row per
+    parameter, no padding needed), img_idx / cam_idx [T, P] int32. Returns
+    (out_i [Ri, T, P], out_c [Rc, T, P]) with out_i[r] = img_tab_t[r,
+    img_idx], 0 at an index outside the table."""
+    if not _is_cuda(img_idx):
+        return gather_params_plain(img_tab_t, cam_tab_t, img_idx, cam_idx)
+    T, P = img_idx.shape
+    img_tab_t = img_tab_t.contiguous()
+    cam_tab_t = cam_tab_t.contiguous()
+    out_i = torch.empty((img_tab_t.shape[0], T, P), device=img_idx.device)
+    out_c = torch.empty((cam_tab_t.shape[0], T, P), device=img_idx.device)
+    LAUNCHES["gather"] += 1
+    _cuda.gather(img_tab_t, cam_tab_t, img_idx, cam_idx, out_i, out_c)
+    return out_i, out_c
+
+
+def gather_obs_params(bucket, quat, trans, intr):
+    """quat [I, 4], trans [I, 3], intr [C, NP] per observation: (q_obs
+    4-tuple, t_obs 3-tuple, k_obs NP-tuple) of [T, P] tensors."""
+    oi, oc = gather_params_bucket(_itab(quat, trans).T, intr.T,
+                                  bucket.img_idx, bucket.cam_idx)
+    return tuple(oi[:4]), tuple(oi[4:7]), tuple(oc)
+
+
+def gather_x(bucket, x_pose, x_intr):
+    """CG solution vectors per observation: x_pose [I, 6], x_intr [C, NP]
+    -> (xp [6, T, P], xi [NP, T, P])."""
+    return gather_params_bucket(x_pose.T, x_intr.T, bucket.img_idx,
+                                bucket.cam_idx)

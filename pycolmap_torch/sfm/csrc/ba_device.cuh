@@ -1,7 +1,9 @@
 // Shared device code of the bundle-adjustment kernels (resjac.cu, cost.cu,
 // schur.cu): forward-mode dual numbers, the quaternion rotation, the 11
-// COLMAP camera distortions templated on the scalar type, the robust losses,
-// and the in-block reductions and scatters.
+// COLMAP camera distortions templated on the scalar type, the per-model
+// residual and Jacobian, the camera policies (one model, or a mixed-model
+// bundle's per-observation switch), the robust losses, and the in-block
+// reductions and scatters.
 //
 // Layouts (all row-major, f32 unless noted), shared with the plain PyTorch
 // versions in pycolmap_torch/sfm/cg_kernel.py:
@@ -226,6 +228,217 @@ __device__ __forceinline__ void residual(const float* k, const float q[4], const
   bool behind = cz <= 1e-8f && mask > 0.f;
   rx = behind ? 1e3f : (px - x0) * mask;
   ry = behind ? 1e3f : (py - x1) * mask;
+}
+
+// ba_kernels._bucket_res_and_jac for one observation of model M in a solver
+// of NPM intrinsics columns (NPM >= the model's own count): the masked
+// residual (rx, ry) and the unweighted Jacobian rows c0, c1 of 9 + NPM
+// columns, 6 pose | NPM intrinsics (the model's own, masked by fr; exact
+// zeros past them) | 3 point. k, fr: the camera's parameters and free flags.
+template <int M, int NPM>
+__device__ __forceinline__ void jac_obs(const float* k, const float* fr, const float q[4],
+                                        const float tt[3], float X0, float X1, float X2,
+                                        float x0, float x1, float m, float pf, float& rx,
+                                        float& ry, float* c0, float* c1) {
+  using Mi = Model<M>;
+  constexpr int NP = Mi::NP;
+  float vx, vy, vz;
+  quat_rotate(q, X0, X1, X2, vx, vy, vz);
+  const float cx = vx + tt[0], cy = vy + tt[1], cz = vz + tt[2];
+  const float inv_z = 1.f / (fabsf(cz) < 1e-8f ? 1e-8f : cz);
+  const float u = cx * inv_z, v = cy * inv_z;
+
+  Dual kd[NP];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) kd[j] = mk(k[j]);
+  Dual du_u, dv_u, du_v, dv_v;
+  distort<M, Dual>(kd, mk(u, 1.f), mk(v), du_u, dv_u);
+  distort<M, Dual>(kd, mk(u), mk(v, 1.f), du_v, dv_v);
+  const float du = du_u.v, dv = dv_u.v;
+  const float fx = k[0], fy = k[Mi::fy];
+  const float px = fx * du + k[Mi::cx];
+  const float py = fy * dv + k[Mi::cy];
+
+  const bool behind = cz <= 1e-8f && m > 0.f;
+  rx = behind ? 1e3f : (px - x0) * m;
+  ry = behind ? 1e3f : (py - x1) * m;
+  // column weight: mask, and zero where the constant 1e3 residual replaced
+  // the projection
+  const float wgt = m * (behind ? 0.f : 1.f);
+
+  // A = d(px,py)/d(u,v); B = A d(u,v)/dXc (2x3 perspective)
+  const float A11 = fx * du_u.d, A12 = fx * du_v.d;
+  const float A21 = fy * dv_u.d, A22 = fy * dv_v.d;
+  const float B1x = A11 * inv_z, B1y = A12 * inv_z;
+  const float B1z = -(A11 * u + A12 * v) * inv_z;
+  const float B2x = A21 * inv_z, B2y = A22 * inv_z;
+  const float B2z = -(A21 * u + A22 * v) * inv_z;
+
+  // rotation (left tangent): dXc/dth = -[RX]x
+  c0[0] = -B1y * vz + B1z * vy;  c1[0] = -B2y * vz + B2z * vy;
+  c0[1] = B1x * vz - B1z * vx;   c1[1] = B2x * vz - B2z * vx;
+  c0[2] = -B1x * vy + B1y * vx;  c1[2] = -B2x * vy + B2y * vx;
+  // translation: dXc/dt = I
+  c0[3] = B1x; c1[3] = B2x;
+  c0[4] = B1y; c1[4] = B2y;
+  c0[5] = B1z; c1[5] = B2z;
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    c0[a] *= wgt;
+    c1[a] *= wgt;
+  }
+  // intrinsics, masked by intr_free
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    float jx, jy;
+    if (j == 0) {
+      jx = du;
+      jy = Mi::two_focal ? 0.f : dv;
+    } else if (Mi::two_focal && j == 1) {
+      jx = 0.f;
+      jy = dv;
+    } else if (j == Mi::cx) {
+      jx = 1.f;
+      jy = 0.f;
+    } else if (j == Mi::cy) {
+      jx = 0.f;
+      jy = 1.f;
+    } else {  // extra parameter: one more dual pass with dk_j = 1
+      Dual ek, ev;
+      kd[j].d = 1.f;
+      distort<M, Dual>(kd, mk(u), mk(v), ek, ev);
+      kd[j].d = 0.f;
+      jx = fx * ek.d;
+      jy = fy * ev.d;
+    }
+    c0[6 + j] = jx * wgt * fr[j];
+    c1[6 + j] = jy * wgt * fr[j];
+  }
+#pragma unroll
+  for (int j = NP; j < NPM; ++j) c0[6 + j] = c1[6 + j] = 0.f;
+  // point: dXc/dX = R(q)
+  const float w = q[0], qx = q[1], qy = q[2], qz = q[3];
+  const float R[3][3] = {
+      {1.f - 2.f * (qy * qy + qz * qz), 2.f * (qx * qy - w * qz), 2.f * (qx * qz + w * qy)},
+      {2.f * (qx * qy + w * qz), 1.f - 2.f * (qx * qx + qz * qz), 2.f * (qy * qz - w * qx)},
+      {2.f * (qx * qz - w * qy), 2.f * (qy * qz + w * qx), 1.f - 2.f * (qx * qx + qy * qy)}};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    c0[6 + NPM + a] = (B1x * R[0][a] + B1y * R[1][a] + B1z * R[2][a]) * wgt * pf;
+    c1[6 + NPM + a] = (B2x * R[0][a] + B2y * R[1][a] + B2z * R[2][a]) * wgt * pf;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// camera policies: the kernels are templated on one of these
+// ---------------------------------------------------------------------------
+
+// One camera model for the whole bundle; `models` and `first` are unused.
+template <int M>
+struct Single {
+  static constexpr int NP = Model<M>::NP;
+  __device__ static __forceinline__ void jac(int, int, const float* k, const float* fr,
+                                             const float q[4], const float tt[3], float X0,
+                                             float X1, float X2, float x0, float x1, float m,
+                                             float pf, float& rx, float& ry, float* c0,
+                                             float* c1) {
+    jac_obs<M, NP>(k, fr, q, tt, X0, X1, X2, x0, x1, m, pf, rx, ry, c0, c1);
+  }
+  __device__ static __forceinline__ void res(int, const float* k, const float q[4],
+                                             const float tt[3], float X0, float X1, float X2,
+                                             float x0, float x1, float m, float& rx, float& ry) {
+    residual<M>(k, q, tt, X0, X1, X2, x0, x1, m, rx, ry);
+  }
+};
+
+// The model an observation's selector names when the bundle lists it (bit
+// id of `models`), else -1. The reference compares the f32 selector plane
+// with each listed id.
+__device__ __forceinline__ int mixed_model(float s, int models) {
+  if (!(s >= 0.f && s < 11.f)) return -1;  // also NaN
+  const int id = (int)s;
+  if ((float)id != s) return -1;
+  return ((models >> id) & 1) ? id : -1;
+}
+
+// An observation whose selector names no listed model projects to pixel 0,
+// the default of ba_math.img_from_cam_cf's where-chain.
+__device__ __forceinline__ void residual_none(const float q[4], const float t[3], float X0,
+                                              float X1, float X2, float x0, float x1,
+                                              float mask, float& rx, float& ry) {
+  float cx, cy, cz;
+  quat_rotate(q, X0, X1, X2, cx, cy, cz);
+  cz += t[2];
+  const bool behind = cz <= 1e-8f && mask > 0.f;
+  rx = behind ? 1e3f : (0.f - x0) * mask;
+  ry = behind ? 1e3f : (0.f - x1) * mask;
+}
+
+// A mixed-model bundle of solver width NPM: the last intrinsics column is
+// the camera's model id. Each observation switches at run time into the
+// same per-model code as Single<M>; a model is compiled in only where it
+// fits the width. In jac an unlisted id takes `first`, the default of
+// ba_kernels._bucket_res_and_jac's where-chain.
+template <int NPM>
+struct Mixed {
+  static constexpr int NP = NPM;
+  __device__ static __forceinline__ void jac(int models, int first, const float* k,
+                                             const float* fr, const float q[4],
+                                             const float tt[3], float X0, float X1, float X2,
+                                             float x0, float x1, float m, float pf, float& rx,
+                                             float& ry, float* c0, float* c1) {
+    int id = mixed_model(k[NPM - 1], models);
+    if (id < 0) id = first;
+    switch (id) {
+#define BA_CASE(M)                                                                     \
+  case M:                                                                              \
+    if constexpr (Model<M>::NP < NPM) {                                                \
+      jac_obs<M, NPM>(k, fr, q, tt, X0, X1, X2, x0, x1, m, pf, rx, ry, c0, c1);        \
+      return;                                                                          \
+    }                                                                                  \
+    break;
+      BA_FOR_EACH_MODEL(BA_CASE)
+#undef BA_CASE
+      default:
+        break;
+    }
+    // unreachable for launcher-checked arguments
+    rx = ry = 0.f;
+#pragma unroll
+    for (int c = 0; c < 9 + NPM; ++c) c0[c] = c1[c] = 0.f;
+  }
+  __device__ static __forceinline__ void res(int models, const float* k, const float q[4],
+                                             const float tt[3], float X0, float X1, float X2,
+                                             float x0, float x1, float m, float& rx, float& ry) {
+    switch (mixed_model(k[NPM - 1], models)) {
+#define BA_CASE(M)                                                \
+  case M:                                                         \
+    if constexpr (Model<M>::NP < NPM) {                           \
+      residual<M>(k, q, tt, X0, X1, X2, x0, x1, m, rx, ry);       \
+      return;                                                     \
+    }                                                             \
+    break;
+      BA_FOR_EACH_MODEL(BA_CASE)
+#undef BA_CASE
+      default:
+        break;
+    }
+    residual_none(q, tt, X0, X1, X2, x0, x1, m, rx, ry);
+  }
+};
+
+// the mixed widths: max(model NP) + 1 over the 11 models
+#define BA_FOR_EACH_MIXED_NP(X) X(4) X(5) X(6) X(9) X(13)
+
+// Host check of a mixed launch: every listed model fits the width.
+inline bool mixed_args_ok(int np, int models) {
+  static const int kNP[11] = {Model<0>::NP, Model<1>::NP, Model<2>::NP, Model<3>::NP,
+                              Model<4>::NP, Model<5>::NP, Model<6>::NP, Model<7>::NP,
+                              Model<8>::NP, Model<9>::NP, Model<10>::NP};
+  if (models <= 0 || models >= (1 << 11)) return false;
+  for (int m = 0; m < 11; ++m)
+    if (((models >> m) & 1) && kNP[m] >= np) return false;
+  return true;
 }
 
 // sfm/bundle_adjustment.py _robust_weight / _robust_cost

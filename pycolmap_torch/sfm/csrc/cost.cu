@@ -18,16 +18,22 @@
 // atomics; the wrapper sums the partials with torch.sum, as the reference
 // wrapper sums its [8, 128] lane partials (cg_kernel.py:935, :967). The sum
 // is deterministic for a given launch shape.
+//
+// Mixed-model bundles: both kernels on the Mixed<NPM> camera policy
+// (ba_device.cuh), one instance per mixed width; each observation's
+// residual switches on its camera's selector at run time, and an id that
+// names no listed model projects to pixel 0, as the reference's
+// where-chain (ba_math.img_from_cam_cf) gives.
 #include "ba_device.cuh"
 
-template <int M>
+template <class Cam>
 __global__ void __launch_bounds__(BA_BLOCK)
 cost_kernel(const float* __restrict__ itab, const float* __restrict__ intr,
             const int* __restrict__ img_idx, const int* __restrict__ cam_idx,
             const float* __restrict__ xy, const float* __restrict__ mask,
-            const float* __restrict__ pts, int T, int P, int loss, float scale,
+            const float* __restrict__ pts, int T, int P, int loss, float scale, int models,
             float* __restrict__ partials) {
-  constexpr int NP = Model<M>::NP;
+  constexpr int NP = Cam::NP;
   const int p = blockIdx.x * BA_BLOCK + threadIdx.x;
   const size_t TP = (size_t)T * P;
   float acc = 0.f;
@@ -43,7 +49,7 @@ cost_kernel(const float* __restrict__ itab, const float* __restrict__ intr,
 #pragma unroll
       for (int j = 0; j < NP; ++j) k[j] = __ldg(intr + ci * NP + j);
       float rx, ry;
-      residual<M>(k, q, tt, X0, X1, X2, xy[o], xy[TP + o], m, rx, ry);
+      Cam::res(models, k, q, tt, X0, X1, X2, xy[o], xy[TP + o], m, rx, ry);
       acc += robust_cost(rx * rx + ry * ry, loss, scale) * m;
     }
   }
@@ -51,7 +57,7 @@ cost_kernel(const float* __restrict__ itab, const float* __restrict__ intr,
   if (threadIdx.x == 0) partials[blockIdx.x] = s;
 }
 
-template <int M>
+template <class Cam>
 __global__ void __launch_bounds__(BA_BLOCK)
 finish_kernel(const float* __restrict__ J, const float* __restrict__ vinv,
               const float* __restrict__ gpt, const int* __restrict__ img_idx,
@@ -60,8 +66,8 @@ finish_kernel(const float* __restrict__ J, const float* __restrict__ vinv,
               const float* __restrict__ pfree, const float* __restrict__ xpose,
               const float* __restrict__ xintr, const float* __restrict__ nitab,
               const float* __restrict__ nintr, int T, int P, int loss, float scale,
-              float* __restrict__ new_pts, float* __restrict__ partials) {
-  constexpr int NP = Model<M>::NP;
+              int models, float* __restrict__ new_pts, float* __restrict__ partials) {
+  constexpr int NP = Cam::NP;
   constexpr int NK = 6 + NP;
   constexpr int NJ = 9 + NP;
   const int p = blockIdx.x * BA_BLOCK + threadIdx.x;
@@ -106,7 +112,7 @@ finish_kernel(const float* __restrict__ J, const float* __restrict__ vinv,
 #pragma unroll
       for (int j = 0; j < NP; ++j) k[j] = __ldg(nintr + ci * NP + j);
       float rx, ry;
-      residual<M>(k, q, tt, X0, X1, X2, xy[o], xy[TP + o], m, rx, ry);
+      Cam::res(models, k, q, tt, X0, X1, X2, xy[o], xy[TP + o], m, rx, ry);
       acc += robust_cost(rx * rx + ry * ry, loss, scale) * m;
     }
   }
@@ -116,16 +122,24 @@ finish_kernel(const float* __restrict__ J, const float* __restrict__ vinv,
 
 BA_DEFINE_ERROR_STRING
 
+#define BA_COST_LAUNCH(CAM, MODELS)                                                    \
+  cost_kernel<CAM><<<blocks, BA_BLOCK, 0, s>>>(itab, intr, img_idx, cam_idx, xy, mask, \
+                                               pts, T, P, loss, scale, MODELS, partials);
+#define BA_FINISH_LAUNCH(CAM, MODELS)                                                   \
+  finish_kernel<CAM><<<blocks, BA_BLOCK, 0, s>>>(J, vinv, gpt, img_idx, cam_idx, xy,    \
+                                                 mask, pts, pfree, xpose, xintr, nitab, \
+                                                 nintr, T, P, loss, scale, MODELS,      \
+                                                 new_pts, partials);
+
 extern "C" int ba_cost(int model, const float* itab, const float* intr, const int* img_idx,
                        const int* cam_idx, const float* xy, const float* mask, const float* pts,
                        int T, int P, int loss, float scale, float* partials, void* stream) {
   const int blocks = (P + BA_BLOCK - 1) / BA_BLOCK;
   cudaStream_t s = (cudaStream_t)stream;
   switch (model) {
-#define X(M)                                                                            \
-  case M:                                                                               \
-    cost_kernel<M><<<blocks, BA_BLOCK, 0, s>>>(itab, intr, img_idx, cam_idx, xy, mask, \
-                                               pts, T, P, loss, scale, partials);       \
+#define X(M)                        \
+  case M:                           \
+    BA_COST_LAUNCH(Single<M>, 0)   \
     break;
     BA_FOR_EACH_MODEL(X)
 #undef X
@@ -144,14 +158,56 @@ extern "C" int ba_finish(int model, const float* J, const float* vinv, const flo
   const int blocks = (P + BA_BLOCK - 1) / BA_BLOCK;
   cudaStream_t s = (cudaStream_t)stream;
   switch (model) {
-#define X(M)                                                                             \
-  case M:                                                                                \
-    finish_kernel<M><<<blocks, BA_BLOCK, 0, s>>>(J, vinv, gpt, img_idx, cam_idx, xy,    \
-                                                 mask, pts, pfree, xpose, xintr, nitab, \
-                                                 nintr, T, P, loss, scale, new_pts,     \
-                                                 partials);                             \
+#define X(M)                          \
+  case M:                             \
+    BA_FINISH_LAUNCH(Single<M>, 0)   \
     break;
     BA_FOR_EACH_MODEL(X)
+#undef X
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// np, models: as ba_resjac_mixed (an unlisted id projects to pixel 0 here,
+// so there is no `first`)
+extern "C" int ba_cost_mixed(int np, int models, const float* itab,
+                             const float* intr, const int* img_idx, const int* cam_idx,
+                             const float* xy, const float* mask, const float* pts, int T,
+                             int P, int loss, float scale, float* partials, void* stream) {
+  if (!mixed_args_ok(np, models)) return (int)cudaErrorInvalidValue;
+  const int blocks = (P + BA_BLOCK - 1) / BA_BLOCK;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (np) {
+#define X(N)                             \
+  case N:                                \
+    BA_COST_LAUNCH(Mixed<N>, models)    \
+    break;
+    BA_FOR_EACH_MIXED_NP(X)
+#undef X
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ba_finish_mixed(int np, int models, const float* J,
+                               const float* vinv, const float* gpt, const int* img_idx,
+                               const int* cam_idx, const float* xy, const float* mask,
+                               const float* pts, const float* pfree, const float* xpose,
+                               const float* xintr, const float* nitab, const float* nintr,
+                               int T, int P, int loss, float scale, float* new_pts,
+                               float* partials, void* stream) {
+  if (!mixed_args_ok(np, models)) return (int)cudaErrorInvalidValue;
+  const int blocks = (P + BA_BLOCK - 1) / BA_BLOCK;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (np) {
+#define X(N)                               \
+  case N:                                  \
+    BA_FINISH_LAUNCH(Mixed<N>, models)    \
+    break;
+    BA_FOR_EACH_MIXED_NP(X)
 #undef X
     default:
       return (int)cudaErrorInvalidValue;

@@ -19,18 +19,25 @@
 // same quantities the reference takes with jax.jvp, for all 11 models, with
 // no second derivation. Padded slots (mask 0) write zeros without
 // evaluating the model.
+//
+// Mixed-model bundles (model_id a tuple in cg_kernel.py): the same kernel
+// on the Mixed<NPM> camera policy (ba_device.cuh), one instance per width
+// NPM = max(model NP) + 1. Each observation reads its camera's selector
+// (the last intrinsics column) and switches at run time into the per-model
+// code; J keeps 9 + NPM columns, exact zeros past the model's own
+// parameters (the selector's column among them). Lanes of a warp whose
+// cameras use different models run their cases one after another.
 #include "ba_device.cuh"
 
-template <int M>
+template <class Cam>
 __global__ void __launch_bounds__(BA_BLOCK)
 resjac_kernel(const float* __restrict__ itab, const float* __restrict__ intr,
               const float* __restrict__ ifree, const int* __restrict__ img_idx,
               const int* __restrict__ cam_idx, const float* __restrict__ xy,
               const float* __restrict__ mask, const float* __restrict__ pts,
               const float* __restrict__ pfree, int T, int P, int loss, float scale,
-              float* __restrict__ res, float* __restrict__ J) {
-  using Mi = Model<M>;
-  constexpr int NP = Mi::NP;
+              int models, int first, float* __restrict__ res, float* __restrict__ J) {
+  constexpr int NP = Cam::NP;
   constexpr int NJ = 9 + NP;
   const int p = blockIdx.x * BA_BLOCK + threadIdx.x;
   if (p >= P) return;
@@ -52,89 +59,8 @@ resjac_kernel(const float* __restrict__ itab, const float* __restrict__ intr,
         k[j] = __ldg(intr + ci * NP + j);
         fr[j] = __ldg(ifree + ci * NP + j);
       }
-      float vx, vy, vz;
-      quat_rotate(q, X0, X1, X2, vx, vy, vz);
-      const float cx = vx + tt[0], cy = vy + tt[1], cz = vz + tt[2];
-      const float inv_z = 1.f / (fabsf(cz) < 1e-8f ? 1e-8f : cz);
-      const float u = cx * inv_z, v = cy * inv_z;
-
-      Dual kd[NP];
-#pragma unroll
-      for (int j = 0; j < NP; ++j) kd[j] = mk(k[j]);
-      Dual du_u, dv_u, du_v, dv_v;
-      distort<M, Dual>(kd, mk(u, 1.f), mk(v), du_u, dv_u);
-      distort<M, Dual>(kd, mk(u), mk(v, 1.f), du_v, dv_v);
-      const float du = du_u.v, dv = dv_u.v;
-      const float fx = k[0], fy = k[Mi::fy];
-      const float px = fx * du + k[Mi::cx];
-      const float py = fy * dv + k[Mi::cy];
-
-      const bool behind = cz <= 1e-8f && m > 0.f;
-      rx = behind ? 1e3f : (px - xy[o]) * m;
-      ry = behind ? 1e3f : (py - xy[TP + o]) * m;
-      // column weight: mask, and zero where the constant 1e3 residual
-      // replaced the projection
-      const float wgt = m * (behind ? 0.f : 1.f);
-
-      // A = d(px,py)/d(u,v); B = A d(u,v)/dXc (2x3 perspective)
-      const float A11 = fx * du_u.d, A12 = fx * du_v.d;
-      const float A21 = fy * dv_u.d, A22 = fy * dv_v.d;
-      const float B1x = A11 * inv_z, B1y = A12 * inv_z;
-      const float B1z = -(A11 * u + A12 * v) * inv_z;
-      const float B2x = A21 * inv_z, B2y = A22 * inv_z;
-      const float B2z = -(A21 * u + A22 * v) * inv_z;
-
-      // rotation (left tangent): dXc/dth = -[RX]x
-      c0[0] = -B1y * vz + B1z * vy;  c1[0] = -B2y * vz + B2z * vy;
-      c0[1] = B1x * vz - B1z * vx;   c1[1] = B2x * vz - B2z * vx;
-      c0[2] = -B1x * vy + B1y * vx;  c1[2] = -B2x * vy + B2y * vx;
-      // translation: dXc/dt = I
-      c0[3] = B1x; c1[3] = B2x;
-      c0[4] = B1y; c1[4] = B2y;
-      c0[5] = B1z; c1[5] = B2z;
-#pragma unroll
-      for (int a = 0; a < 6; ++a) {
-        c0[a] *= wgt;
-        c1[a] *= wgt;
-      }
-      // intrinsics, masked by intr_free
-#pragma unroll
-      for (int j = 0; j < NP; ++j) {
-        float jx, jy;
-        if (j == 0) {
-          jx = du;
-          jy = Mi::two_focal ? 0.f : dv;
-        } else if (Mi::two_focal && j == 1) {
-          jx = 0.f;
-          jy = dv;
-        } else if (j == Mi::cx) {
-          jx = 1.f;
-          jy = 0.f;
-        } else if (j == Mi::cy) {
-          jx = 0.f;
-          jy = 1.f;
-        } else {  // extra parameter: one more dual pass with dk_j = 1
-          Dual ek, ev;
-          kd[j].d = 1.f;
-          distort<M, Dual>(kd, mk(u), mk(v), ek, ev);
-          kd[j].d = 0.f;
-          jx = fx * ek.d;
-          jy = fy * ev.d;
-        }
-        c0[6 + j] = jx * wgt * fr[j];
-        c1[6 + j] = jy * wgt * fr[j];
-      }
-      // point: dXc/dX = R(q)
-      const float w = q[0], qx = q[1], qy = q[2], qz = q[3];
-      const float R[3][3] = {
-          {1.f - 2.f * (qy * qy + qz * qz), 2.f * (qx * qy - w * qz), 2.f * (qx * qz + w * qy)},
-          {2.f * (qx * qy + w * qz), 1.f - 2.f * (qx * qx + qz * qz), 2.f * (qy * qz - w * qx)},
-          {2.f * (qx * qz - w * qy), 2.f * (qy * qz + w * qx), 1.f - 2.f * (qx * qx + qy * qy)}};
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        c0[6 + NP + a] = (B1x * R[0][a] + B1y * R[1][a] + B1z * R[2][a]) * wgt * pf;
-        c1[6 + NP + a] = (B2x * R[0][a] + B2y * R[1][a] + B2z * R[2][a]) * wgt * pf;
-      }
+      Cam::jac(models, first, k, fr, q, tt, X0, X1, X2, xy[o], xy[TP + o], m, pf, rx, ry,
+               c0, c1);
       sw = sqrtf(robust_weight(rx * rx + ry * ry, loss, scale) * m);
     } else {
 #pragma unroll
@@ -152,6 +78,11 @@ resjac_kernel(const float* __restrict__ itab, const float* __restrict__ intr,
 
 BA_DEFINE_ERROR_STRING
 
+#define BA_RESJAC_LAUNCH(CAM, MODELS, FIRST)                                         \
+  resjac_kernel<CAM><<<blocks, BA_BLOCK, 0, s>>>(itab, intr, ifree, img_idx, cam_idx, \
+                                                 xy, mask, pts, pfree, T, P, loss,   \
+                                                 scale, MODELS, FIRST, res, J);
+
 extern "C" int ba_resjac(int model, const float* itab, const float* intr, const float* ifree,
                          const int* img_idx, const int* cam_idx, const float* xy,
                          const float* mask, const float* pts, const float* pfree, int T, int P,
@@ -159,13 +90,35 @@ extern "C" int ba_resjac(int model, const float* itab, const float* intr, const 
   const int blocks = (P + BA_BLOCK - 1) / BA_BLOCK;
   cudaStream_t s = (cudaStream_t)stream;
   switch (model) {
-#define X(M)                                                                         \
-  case M:                                                                            \
-    resjac_kernel<M><<<blocks, BA_BLOCK, 0, s>>>(itab, intr, ifree, img_idx, cam_idx, \
-                                                 xy, mask, pts, pfree, T, P, loss,   \
-                                                 scale, res, J);                     \
+#define X(M)                           \
+  case M:                              \
+    BA_RESJAC_LAUNCH(Single<M>, 0, 0) \
     break;
     BA_FOR_EACH_MODEL(X)
+#undef X
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// np: the mixed width (selector column last); models: the listed ids as a
+// bit mask; first: the id an observation naming no listed model takes.
+extern "C" int ba_resjac_mixed(int np, int models, int first, const float* itab,
+                               const float* intr, const float* ifree, const int* img_idx,
+                               const int* cam_idx, const float* xy, const float* mask,
+                               const float* pts, const float* pfree, int T, int P, int loss,
+                               float scale, float* res, float* J, void* stream) {
+  if (!mixed_args_ok(np, models) || first < 0 || first > 10 || !((models >> first) & 1))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (P + BA_BLOCK - 1) / BA_BLOCK;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (np) {
+#define X(N)                                     \
+  case N:                                        \
+    BA_RESJAC_LAUNCH(Mixed<N>, models, first)   \
+    break;
+    BA_FOR_EACH_MIXED_NP(X)
 #undef X
     default:
       return (int)cudaErrorInvalidValue;

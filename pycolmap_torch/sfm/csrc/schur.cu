@@ -429,7 +429,9 @@ static int matvec16_np(const unsigned short* J16, const int* img_idx, const int*
                      xpose, xintr, T, P, I, C, out_pose, out_intr);
 }
 
-#define BA_FOR_EACH_NP(X) X(3) X(4) X(5) X(8) X(12)
+// the single-model widths (3 4 5 8 12) and the mixed ones (4 5 6 9 13: the
+// widest listed model's count plus the selector column)
+#define BA_FOR_EACH_NP(X) X(3) X(4) X(5) X(6) X(8) X(9) X(12) X(13)
 
 BA_DEFINE_ERROR_STRING
 

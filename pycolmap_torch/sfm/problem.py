@@ -83,7 +83,6 @@ def build_bundle_problem(
     # solver receives model_id as a tuple of the distinct ids plus one
     # extra per-camera selector column (see ops/camera_models.py
     # solver_num_params); a single-model bundle keeps the plain-int path.
-    # The port's solver raises NotImplementedError on the tuple (ROADMAP.md)
     if len(model_ids) <= 1:
         model_id = model_ids[0] if model_ids else 1
         intr_width = cm.MAX_PARAMS

@@ -43,10 +43,6 @@ class ResidentBundleSolver:
 
     def __init__(self, problem: BundleProblem, options, cg_iters: int = 30,
                  device=None, cg_bf16=None):
-        if isinstance(problem.model_id, tuple):
-            raise NotImplementedError(
-                "mixed-model bundles are not ported yet (see ROADMAP.md)"
-            )
         self.device = resolve_device(device)
         self.cg_bf16 = bk.cg_bf16_default(self.device, cg_bf16)
         if problem.num_obs == 0:

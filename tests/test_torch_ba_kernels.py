@@ -178,12 +178,3 @@ def test_default_device_needs_cuda(entry, problems, monkeypatch):
         call()
     assert pycolmap_torch.resolve_device("cpu").type == "cpu"
 
-
-def test_mixed_models_not_ported(problems):
-    from pycolmap_torch.sfm.bundle_adjustment import BundleAdjustmentOptions
-    from pycolmap_torch.sfm.resident import ResidentBundleSolver
-
-    _, tp = problems
-    with pytest.raises(NotImplementedError):
-        ResidentBundleSolver(tp._replace(model_id=(2, 4)),
-                             BundleAdjustmentOptions(), device="cpu")

@@ -235,6 +235,16 @@ def test_pnm_readers_and_writer_match_pillow(tmp_path, mode):
         assert np.array_equal(im.read_image_gray(p), im_ref.read_image_gray(p))
         assert np.array_equal(im.read_image_rgb(p), im_ref.read_image_rgb(p))
     assert np.array_equal(im._read_pnm(tmp_path / f"c{ext}"), arr)
+    # maxval below 255: Pillow scales the samples to 0..255 (values above
+    # maxval clip to it)
+    for maxval in (1, 15, 254):
+        p = tmp_path / f"m{maxval}{ext}"
+        p.write_bytes(head + b"\n53 37\n%d\n" % maxval + arr.tobytes())
+        with PILImage.open(p) as pil:
+            want = np.asarray(pil)
+        assert np.array_equal(im._read_pnm(p), want)
+        assert np.array_equal(im.read_image_gray(p), im_ref.read_image_gray(p))
+        assert np.array_equal(im.read_image_rgb(p), im_ref.read_image_rgb(p))
 
 
 def test_resize_matches_jax_image_resize():
