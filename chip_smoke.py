@@ -2,8 +2,8 @@
 """Drive pycolmap_torch on one CUDA card and check it: the bundle adjuster,
 the feature front end (SIFT extraction, descriptor matching), the
 known-pose entry points (global BA of a model, triangulation of a model
-with known poses) and the dense pipeline (undistortion, PatchMatch stereo,
-stereo fusion).
+with known poses), the dense pipeline (undistortion, PatchMatch stereo,
+stereo fusion) and the gather probe.
 
 Run from the repository root on a host with an H100 (or another sm_90a
 card) and the CUDA toolkit:
@@ -75,7 +75,16 @@ Phases (each raises on failure; the script then exits nonzero):
     on the card and on the CPU (phase 16 runs before phase 15);
 17. hold the per-observation parameter gather to its plain version
     (exactly equal) at phase 16's bucket shapes and at a ragged shape, and
-    time it beside ``index_select``.
+    time it beside ``index_select``;
+18. the gather probe (``pycolmap_torch.scripts.proto_gather``, the port of
+    scripts/proto_pallas_gather.py): its report, each of the five gather
+    forms held to its plain version bit for bit and timed beside its byte
+    bound and one PyTorch call at the reference's shapes, the lane gather
+    at bench_a_sized's [1024, 512], the flat gather at 2,097,152 from
+    2,457,600 and the bilinear baseline beside ``F.grid_sample``; then each
+    form bit for bit at ragged shapes and with negative, out-of-range and
+    int32-extreme indices. Nothing on a user path calls the probe: its
+    launch counts over phases 2-17 are 0.
 
 The last lines are one JSON object describing every kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -125,6 +134,8 @@ try:
         PatchMatchOptions, patch_match_stereo, stereo_fusion, undistort_images,
     )
     from pycolmap_torch.pipeline.images import write_image
+    from pycolmap_torch._timing import REPS, WARMUP, time_gpu
+    from pycolmap_torch.scripts import proto_gather as pg
 except ImportError as e:  # run outside the repository
     sys.exit(f"chip_smoke: the pycolmap_torch package is missing ({e})")
 
@@ -173,6 +184,11 @@ KERNEL_INFO = {
                      "pycolmap_tpu/sfm/cg_kernel.py:866"),
     "gather": ("pycolmap_torch/sfm/csrc/gather.cu",
                "pycolmap_tpu/sfm/cg_kernel.py:505"),
+    # the gather probe's five forms (take_along_last also bench_a_sized's
+    # pallas_call, :164)
+    **{f"probe_{name}": ("pycolmap_torch/scripts/csrc/gather_probe.cu",
+                         f"scripts/proto_pallas_gather.py:{line}")
+       for name, line in zip(pg.KERNELS, (66, 85, 104, 125, 144))},
 }
 # tolerance on max |kernel - plain| / max(1, max |plain|) per output, the
 # plain version evaluated in float64 (the CPU parity tests' tolerances).
@@ -235,27 +251,6 @@ def scaled_err(got, ref):
     diff = float((got - ref).abs().max()) if ref.numel() else 0.0
     scale = max(float(ref.abs().max()) if ref.numel() else 0.0, 1.0)
     return diff, diff / scale
-
-
-def time_gpu(fn, reps=25):
-    """Median device time of fn() in ms. A sleep kernel queued before each
-    timed call keeps the card busy while the host enqueues it, so host
-    launch overhead does not show up as device time."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    evs = []
-    for _ in range(reps):
-        if hasattr(torch.cuda, "_sleep"):
-            torch.cuda._sleep(2_000_000)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        evs.append((a, b))
-    torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for a, b in evs]))
 
 
 # ---------------------------------------------------------------------------
@@ -2061,6 +2056,51 @@ def gather_kernel(captured):
     return results["phase 16 buckets"]
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the gather probe
+
+def gather_probe():
+    """Phase 18: the probe's own run (its report, checks and times), with
+    its launch counts zeroed just before and read just after; then every
+    form bit for bit at ragged shapes, in range and with edge indices, and
+    at the probe's shapes with edge indices. Returns the probe's records and
+    its launches."""
+    pg.reset_counts()
+    res = pg.run(log=lambda m: log(f"phase 18 {m}"))
+    launches = dict(pg.LAUNCHES)
+    failed = {k: r["error"] for k, r in res.items()
+              if not r.get("correct", True)}
+    if failed:
+        raise AssertionError(f"phase 18: probe cases failed: {failed}")
+    unequal = [k for k, r in res.items() if r.get("library_equal") is False]
+    if unequal:
+        raise AssertionError(f"phase 18: the library call differs from the "
+                             f"kernel at in-range indices: {unequal}")
+    # each measure() launches once to check and WARMUP + REPS times to
+    # time; the lane and flat gathers are measured again at their sizes
+    per = 1 + WARMUP + REPS
+    expected = {k: per * (2 if k in ("take_along_last", "take_flat") else 1)
+                for k in pg.KERNELS}
+    if launches != expected:
+        raise AssertionError(f"phase 18: the probe's run launched {launches}, "
+                             f"expected {expected}")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(18)
+    for name in pg.KERNELS:
+        nans = []
+        for s_shape, i_shapes, edge in ((*pg.RAGGED[name], False),
+                                        (*pg.RAGGED[name], True),
+                                        (*pg.PROBES[name][1:], True)):
+            src, idx = pg.to_device(dev, *pg.make_inputs(
+                name, s_shape, i_shapes, rng, edge=edge))
+            nans.append(int(torch.isnan(pg.check(name, src, idx)).sum()))
+        log(f"phase 18 {name}: bit for bit at {pg.RAGGED[name][0]} "
+            f"(indices {pg.RAGGED[name][1]}) in range and with edge "
+            f"indices, and at the probe's shape with edge indices; NaN "
+            f"fills {nans}")
+    return res, launches
+
+
 def ba_kernel_registers(build_log):
     """ptxas register counts of the resjac / cost / finish instances, by
     kernel and camera policy (Single<model id> or Mixed<width>)."""
@@ -2106,6 +2146,9 @@ def main():
         f" registers")
     log(f"phase 1: registers of the per-model BA kernels: "
         f"{json.dumps(ba_kernel_registers(_cuda_build.build_log))}")
+
+    # the probe's counts over phases 2-17, the user paths
+    pg.reset_counts()
 
     # --- phase 2: kernels vs plain ----------------------------------------
     dev = torch.device("cuda")
@@ -2184,6 +2227,14 @@ def main():
     log(f"dense summary: {json.dumps(dense)}")
     pm_res = pm_cost_kernel(captured)
     del captured
+    torch.cuda.empty_cache()
+
+    # --- phase 18: the gather probe ----------------------------------------
+    user_launches = dict(pg.LAUNCHES)
+    t18 = time.perf_counter()
+    probe, probe_launches = gather_probe()
+    log(f"phase 18: {time.perf_counter() - t18:.2f} s; probe launches on "
+        f"phases 2-17 {user_launches}, in its own run {probe_launches}")
 
     kernels = []
     for name in SINGLE_BA:
@@ -2260,6 +2311,27 @@ def main():
         bound_by=r["bound_by"], library_ms=r["library_ms"],
         library_note="two index_select calls, one per table",
     ))
+    # the gather probe: no user path calls it (neither the TPU probe), so
+    # its launches over phases 2-17 are 0; phase 18 runs it itself
+    for name in pg.KERNELS:
+        src, rep = KERNEL_INFO[f"probe_{name}"]
+        r = probe[name]
+        row = dict(
+            name=f"probe_{name}", route="cuda", source=src, replaces=rep,
+            shape=r["shape"], launches=user_launches[name], main_path=False,
+            launches_probe_run=probe_launches[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], library_note=r["library"])
+        sized = {"take_along_last": "take_along_last sized",
+                 "take_flat": "take_flat sized"}.get(name)
+        if sized:
+            s = probe[sized]
+            row.update(shape_sized=s["shape"], ms_sized=s["ms"],
+                       plain_ms_sized=s["plain_ms"],
+                       library_ms_sized=s["library_ms"],
+                       bound_ms_sized=s["bound_ms"])
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

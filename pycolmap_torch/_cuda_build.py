@@ -10,10 +10,10 @@ imported: the CPU tests import every module and such a host has no
 ``nvcc``.
 
 The launcher modules (``sfm/_cuda.py``, ``features/_cuda.py``,
-``mvs/_cuda.py``) hold the C signatures and call :func:`launch`. Every C
-launcher takes PyTorch's current stream as its last argument, allocates
-nothing, and returns ``cudaGetLastError()`` after the launch; a nonzero
-code raises here.
+``mvs/_cuda.py``, ``scripts/_cuda.py``) hold the C signatures and call
+:func:`launch`. Every C launcher takes PyTorch's current stream as its
+last argument, allocates nothing, and returns ``cudaGetLastError()``
+after the launch; a nonzero code raises here.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ SOURCES = (
     "features/csrc/window_sampler.cu",
     "features/csrc/top2.cu",
     "mvs/csrc/pm_cost.cu",
+    "scripts/csrc/gather_probe.cu",
 )
 HEADERS = ("sfm/csrc/ba_device.cuh",)
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"

@@ -39,6 +39,7 @@ def test_the_port_is_scanned():
                 "pipeline/mvs.py", "mvs/workspace.py", "mvs/depth_map_io.py",
                 "mvs/consistency_graph.py", "mvs/pm_kernels.py",
                 "mvs/_cuda.py", "mvs/patch_match.py", "mvs/controller.py",
-                "mvs/fusion.py"):
+                "mvs/fusion.py", "scripts/proto_gather.py",
+                "scripts/_cuda.py", "_timing.py"):
         assert f"pycolmap_torch/{mod}" in names
     assert len(FILES) > 20
