@@ -13,8 +13,9 @@ card) and the CUDA toolkit:
 Phases (each raises on failure; the script then exits nonzero):
 
 1. build every kernel of the port (``pycolmap_torch/*/csrc``) with nvcc,
-   all sources in parallel, and print the build time and the card's name
-   and power limit;
+   all sources in parallel, and print the build time, the card's name and
+   power limit, and the registers, spills and resident blocks per SM of
+   the window sampler and the PatchMatch cost kernel;
 2. hold each bundle-adjustment kernel to its plain PyTorch version on the
    card, at the bench shapes and at an irregular shape (three cameras,
    several buckets, widths that are no multiple of 128, mask holes, points
@@ -28,11 +29,13 @@ Phases (each raises on failure; the script then exits nonzero):
    once with the card's default bf16 CG matvec and once with the f32 one;
 5. profile one more bench solve with torch.profiler: device time per
    kernel and the device's busy share;
-6. hold the window sampler and the top-2 matcher to their plain versions
-   (float64) on the card: the sampler at octave 0's orientation and
-   descriptor inputs of a 960x1280 extract and at an irregular shape, top-2
-   at 8192 x 8192 and at a ragged batch; time kernel, plain version, bound
-   and one PyTorch call that computes the same function;
+6. hold the window sampler (one launch per ``sample_windows`` call, its
+   window origins computed in the kernel) and the top-2 matcher to their
+   plain versions (float64) on the card: the sampler at octave 0's
+   orientation and descriptor calls of a 960x1280 extract and at an
+   irregular shape, top-2 at 8192 x 8192 and at a ragged batch; time
+   kernel, plain version, bound and one PyTorch call that computes the
+   same function, and the sampler's whole call;
 7. extract SIFT at 240x320 on the card and on the CPU (plain versions) and
    compare the keypoint sets;
 8. the front end at bench.py run_sift's size (960x1280 uint8, default
@@ -50,15 +53,18 @@ Phases (each raises on failure; the script then exits nonzero):
     the bf16 matvec, compared;
 12. ``triangulate_points`` on the card: a 128-image sequential database of
     100k points seen by about 6 images each, ground-truth poses;
-13. hold the PatchMatch cost kernel to its plain version (f32 and
-    float64) at the main path's inputs captured in phase 14 (photometric
-    and geometric) and at irregular shapes (K 3 and 11); time both;
+13. hold the PatchMatch cost kernel to its plain version at the main
+    path's inputs captured in phase 14 (photometric and geometric) and at
+    irregular shapes (K 3 and 11): its full-field and both parity launches
+    bit for bit against the f32 plain version, the full field against
+    float64; time the full-field and the parity launch;
 14. the dense pipeline at run_sift's size: 12 rendered 960x1280 images of
     two textured planes through a SIMPLE_RADIAL camera, ``undistort_images``
     -> ``patch_match_stereo`` -> ``stereo_fusion`` with default options,
-    launch counts, depth and fusion accuracy against the planes, and a
-    profile of one image's photometric PatchMatch (phase 14 runs before
-    phase 13, which checks the inputs it captures);
+    launch counts (per image and pass 10 full-field and 70 parity cost
+    launches), depth and fusion accuracy against the planes, and a profile
+    of one image's photometric and geometric PatchMatch (phase 14 runs
+    before phase 13, which checks the inputs it captures);
 15. hold the mixed-model variants of the resjac, cost and finish kernels
     (bundles whose cameras span several camera models) to their plain
     versions in float64, with phase 2's tolerances: at the inputs captured
@@ -107,6 +113,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 try:
     from pycolmap_torch import _cuda_build
+    from pycolmap_torch.features import _cuda as features_cuda
     from pycolmap_torch.features import match_kernels as mk
     from pycolmap_torch.features import matcher as fm
     from pycolmap_torch.features import window_sampler as ws
@@ -126,6 +133,7 @@ try:
     )
     from pycolmap_torch.sfm.bundle_adjustment import BundleAdjustmentOptions
     from pycolmap_torch.sfm.resident import ResidentBundleSolver
+    from pycolmap_torch.mvs import _cuda as mvs_cuda
     from pycolmap_torch.mvs import controller as mvs_controller
     from pycolmap_torch.mvs import patch_match as pm
     from pycolmap_torch.mvs import pm_kernels as pmk
@@ -134,7 +142,7 @@ try:
         PatchMatchOptions, patch_match_stereo, stereo_fusion, undistort_images,
     )
     from pycolmap_torch.pipeline.images import write_image
-    from pycolmap_torch._timing import REPS, WARMUP, time_gpu
+    from pycolmap_torch._timing import REPS, WARMUP, host_ms, time_gpu
     from pycolmap_torch.scripts import proto_gather as pg
 except ImportError as e:  # run outside the repository
     sys.exit(f"chip_smoke: the pycolmap_torch package is missing ({e})")
@@ -680,102 +688,125 @@ def make_u8(seed, H=SIFT_H, W=SIFT_W):
 
 
 def capture_sampler_inputs(img):
-    """The sampler's inputs of octave 0 in one card extract of img: the
-    orientation launch, then the descriptor launch."""
+    """The sampler's inputs of octave 0 in one card extract of img, as
+    sift passes them to ``sample_windows``: the orientation call, then the
+    descriptor call."""
     calls = []
-    kernel = ws.sample_windows_kernel
+    wrapper = ws.sample_windows
 
     def record(*args):
         calls.append(args)
-        return kernel(*args)
+        return wrapper(*args)
 
-    ws.sample_windows_kernel = record
+    ws.sample_windows = record
     try:
         Sift().extract(img)
     finally:
-        ws.sample_windows_kernel = kernel
+        ws.sample_windows = wrapper
     return {"orientation": calls[0], "descriptor": calls[1]}
 
 
 def irregular_sampler_inputs(dev, seed=7):
-    """3 channels (pairs 0-1 and 1-2), K = 37 (no multiple of 8), windows
-    at the volume's four borders, samples left of / above their window and
-    -2.0 rows."""
+    """A 4-channel [256, 640, 4] volume with channel bases 0 and 2 (float2
+    taps), 1 (two scalar taps) and 3 (a pair outside the volume: zeros);
+    K = 37 (no multiple of 8); keypoints at the four borders, left of and
+    above the volume (negative origins) and inside, each spreading its
+    samples past its window so that taps fall outside the window (they
+    count zero)."""
     g = torch.Generator().manual_seed(seed)
-    vol = ws.pad_volume(torch.randn(3, 200, 384, generator=g)).to(dev)
+    vol = ws.interleave(torch.randn(4, 256, 640, generator=g))
     K, win_y, win_x = 37, 48, 256
-    LHp, Wp = vol.shape[1:]
-    ch0 = (torch.arange(K) % 2).to(torch.int32)
-    y0 = torch.tensor([0, LHp - win_y], dtype=torch.int32)[torch.arange(K) % 2]
-    x0 = torch.tensor([0, Wp - win_x], dtype=torch.int32)[(torch.arange(K) // 2) % 2]
-    wy = torch.rand(K, 256, generator=g) * (win_y + 5) - 3
-    wx = torch.rand(K, 256, generator=g) * (win_x + 5) - 3
-    wy[-3:] = -2.0
-    wx[-3:] = -2.0
-    return tuple(t.to(dev) for t in (vol, ch0, y0, x0, wy, wx)) + (win_y, win_x)
+    LHp, Wp = vol.shape[:2]
+    ch0 = torch.tensor([0, 2, 1, 3, 0], dtype=torch.int32)[torch.arange(K) % 5]
+    cy = torch.tensor([1.0, LHp - 2.0, -10.0, 120.0])[torch.arange(K) % 4]
+    cx = torch.tensor([2.0, Wp - 3.0, -60.0, 250.0])[(torch.arange(K) // 4) % 4]
+    wy = (torch.rand(K, 256, generator=g) - 0.5) * (win_y + 4)
+    wx = (torch.rand(K, 256, generator=g) - 0.5) * (win_x - 64)
+    ys = (cy[:, None] + wy).reshape(K, 16, 16)
+    xs = (cx[:, None] + wx).reshape(K, 16, 16)
+    return tuple(t.to(dev) for t in (vol, ch0, ys, xs)) + (win_y, win_x)
 
 
-def sampler_bound(vol, ch0, y0, x0, wy, wx, win_y, win_x):
-    """Bytes: coordinates and origins in, samples out, and the volume
-    pixels this data's taps touch (inside window and volume), each once."""
-    NC, LHp, Wp = vol.shape
-    K = wy.shape[0]
-    iy, ix = torch.floor(wy).long(), torch.floor(wx).long()
+def sampler_bound(vol, ch0, ys, xs, win_y, win_x):
+    """Bytes: coordinates and channel bases in, samples out, and the volume
+    values this data's taps touch (inside the window), each once."""
+    LHp, Wp, NC = vol.shape
+    K = ys.shape[0]
+    ysf, xsf = ys.reshape(K, -1), xs.reshape(K, -1)
+    y0, x0 = ws.window_origins(ysf, xsf, LHp, Wp, win_y, win_x)
+    iy = torch.floor(ysf).long() - y0.long()[:, None]
+    ix = torch.floor(xsf).long() - x0.long()[:, None]
+    c0 = ch0.long()[:, None]
     flat = []
     for ty in (0, 1):
         for tx in (0, 1):
             ry, rx = iy + ty, ix + tx
-            gy, gx = y0.long()[:, None] + ry, x0.long()[:, None] + rx
             ok = ((ry >= 0) & (ry < win_y) & (rx >= 0) & (rx < win_x)
-                  & (gy >= 0) & (gy < LHp) & (gx >= 0) & (gx < Wp))
+                  & (c0 >= 0) & (c0 + 1 < NC))
+            pix = (y0.long()[:, None] + ry) * Wp + x0.long()[:, None] + rx
             for c in (0, 1):
-                idx = (ch0.long()[:, None] + c) * LHp * Wp + gy * Wp + gx
-                flat.append(idx[ok])
+                flat.append((pix * NC + c0 + c)[ok])
     touched = int(torch.unique(torch.cat(flat)).numel())
-    nbytes = K * 256 * 2 * 4 + K * 3 * 4 + K * 2 * 256 * 4 + touched * 4
-    ops = K * 256 * 30  # weights, 8 taps, 8 FMAs
+    nbytes = K * 256 * 2 * 4 + K * 4 + K * 2 * 256 * 4 + touched * 4
+    ops = K * 256 * 30  # weights, 4 taps of 2 channels, 8 FMAs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, touched_px=touched)
+                bytes=nbytes, touched_values=touched)
 
 
 def check_sampler(tag, args, results=None):
-    vol, ch0, y0, x0, wy, wx, win_y, win_x = args
-    out = ws.sample_windows_kernel(*args)
-    ref = ws.sample_windows_plain(vol.double(), ch0, y0, x0, wy.double(),
-                                  wx.double(), win_y, win_x)
+    """The one-launch sampler against its plain path (window origins, then
+    window-coordinate sampling) in float64; timed as the kernel alone, the
+    whole ``sample_windows`` call (device time and host wall per call), the
+    plain path, ``F.grid_sample`` of the channel pair and the bound."""
+    vol, ch0, ys, xs, win_y, win_x = args
+    out = torch.stack(ws.sample_windows(*args))
+    ref = torch.stack(ws.sample_windows_plain(vol.double(), ch0, ys.double(),
+                                              xs.double(), win_y, win_x))
     torch.cuda.synchronize()
     err = scaled_err(out, ref)
     if not err[1] <= TOL["window_sampler"]:
         raise AssertionError(f"[{tag}] window_sampler: scaled error "
                              f"{err[1]:.3e} > {TOL['window_sampler']:.0e}")
-    log(f"phase 6 sampler {tag}: K {wy.shape[0]}, window {win_y}x{win_x}, "
+    log(f"phase 6 sampler {tag}: K {ys.shape[0]}, window {win_y}x{win_x}, "
         f"volume {tuple(vol.shape)}; max abs err {err[0]:.3e}")
     if results is None:
         return err
-    # yardstick: grid_sample of the channel pair at the same samples
-    # (every SIFT keypoint samples channels 0-1)
-    LHp, Wp = vol.shape[1:]
-    ys = y0[:, None].float() + wy
-    xs = x0[:, None].float() + wx
-    grid = torch.stack([2 * xs / (Wp - 1) - 1, 2 * ys / (LHp - 1) - 1], -1)[None]
-    pair = vol[None, 0:2]
+    # the kernel alone: its launcher on a preallocated output
+    K = ys.shape[0]
+    buf = torch.empty((2, K, 16, 16), device=vol.device)
+    ysc, xsc = ys.contiguous(), xs.contiguous()
+    kernel = lambda: features_cuda.sample_windows(  # noqa: E731
+        vol, ch0, ysc, xsc, win_y, win_x, buf)
+    # yardstick: grid_sample of the channel pair at the same samples, from
+    # a channel-major copy (its layout) made before the timing
+    LHp, Wp = vol.shape[:2]
+    grid = torch.stack([2 * xs / (Wp - 1) - 1, 2 * ys / (LHp - 1) - 1],
+                       -1).reshape(1, K, 256, 2)
+    pair = vol[..., 0:2].permute(2, 0, 1)[None].contiguous()
     results[tag] = dict(
         max_abs_err=err[0], scaled_err=err[1],
-        ms=time_gpu(lambda: ws.sample_windows_kernel(*args)),
+        ms=time_gpu(kernel),
+        call_ms=time_gpu(lambda: ws.sample_windows(*args)),
+        call_host_ms=host_ms(lambda: ws.sample_windows(*args)),
         plain_ms=time_gpu(lambda: ws.sample_windows_plain(*args), 5),
         library_ms=time_gpu(lambda: torch.nn.functional.grid_sample(
             pair, grid, mode="bilinear", padding_mode="zeros",
             align_corners=True)),
         **sampler_bound(*args),
     )
+    del pair
     r = results[tag]
-    log(f"phase 6 sampler {tag}: kernel {r['ms']:.4f} ms, plain "
-        f"{r['plain_ms']:.3f} ms, grid_sample {r['library_ms']:.4f} ms, "
-        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
-        f"{r['bytes'] / 1e6:.2f} MB, {r['touched_px']} volume px touched)")
+    log(f"phase 6 sampler {tag}: kernel {r['ms']:.4f} ms, whole call "
+        f"{r['call_ms']:.4f} ms device / {r['call_host_ms']:.4f} ms host "
+        f"wall, plain {r['plain_ms']:.3f} ms, grid_sample "
+        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}, {r['bytes'] / 1e6:.2f} MB, "
+        f"{r['touched_values']} volume values touched); kernel / bound "
+        f"{r['ms'] / r['bound_ms']:.2f}x, grid_sample / kernel "
+        f"{r['library_ms'] / r['ms']:.3f}x")
     return err
 
 
@@ -1555,12 +1586,12 @@ def dense_pipeline(tmp):
     # the middle image's refresh at step 4, in each pass
     at = MVS_IMAGES // 2 * per_image + 32
     rec = CostRecorder({"photometric": at, "geometric": per_pass + at})
-    first = []
+    first = {}
     kernel = mvs_controller.patch_match_kernel
 
     def record_first(*args, **kw):
-        if not first:
-            first.append((args, kw))
+        kind = "geometric" if kw.get("geom_consistency") else "photometric"
+        first.setdefault(kind, (args, kw))
         return kernel(*args, **kw)
 
     pm.pm_view_costs = rec
@@ -1591,13 +1622,19 @@ def dense_pipeline(tmp):
         f"{k} {v:.3f} s" for k, v in split.items())
         + f"; PatchMatch {(split['photometric'] + split['geometric']) / (2 * MVS_IMAGES):.3f}"
         " s per image and pass")
-    log(f"phase 14 launches {launches} (expected {2 * per_pass}: 8 per "
-        f"red/black step); geometric maps {100 * valid:.2f}% valid, median "
-        f"relative depth error {med:.5f}; {len(xyz)} fused points, median "
-        f"distance to the planes {fused_med:.5f}")
-    if launches["pm_cost"] != 2 * per_pass or any(plain_on_cuda.values()):
-        raise AssertionError(f"phase 14: {launches} cost launches, expected "
-                             f"{2 * per_pass}; plain on CUDA {plain_on_cuda}")
+    # per red/black step one full-field refresh and 7 candidates at the
+    # step's colour (parity launches)
+    expect = {"pm_cost": 2 * per_pass // 8,
+              "pm_cost_parity": 2 * per_pass * 7 // 8}
+    log(f"phase 14 launches {launches} (expected {expect}: per image and "
+        f"pass {expect['pm_cost'] // (2 * MVS_IMAGES)} full-field and "
+        f"{expect['pm_cost_parity'] // (2 * MVS_IMAGES)} parity); geometric "
+        f"maps {100 * valid:.2f}% valid, median relative depth error "
+        f"{med:.5f}; {len(xyz)} fused points, median distance to the planes "
+        f"{fused_med:.5f}")
+    if launches != expect or any(plain_on_cuda.values()):
+        raise AssertionError(f"phase 14: cost launches {launches}, expected "
+                             f"{expect}; plain on CUDA {plain_on_cuda}")
     if not (valid > 0.2 and med < 0.01 and len(xyz) > 1000
             and fused_med < 0.02):
         raise AssertionError("phase 14: dense accuracy below the thresholds "
@@ -1605,11 +1642,11 @@ def dense_pipeline(tmp):
                              "points at < 0.02)")
     return launches, dict(split, valid=valid, median_rel_err=med,
                           fused=len(xyz), fused_median_dist=fused_med), \
-        rec.kept, first[0]
+        rec.kept, first
 
 
-def profile_patch_match(call):
-    """torch.profiler over one image's photometric PatchMatch call, re-run
+def profile_patch_match(call, kind):
+    """torch.profiler over one image's PatchMatch call of one pass, re-run
     with a fresh generator: device busy share and the top device ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1630,13 +1667,16 @@ def profile_patch_match(call):
                        getattr(e, "self_cuda_time_total", 0.0))
 
     busy = sum(dev_us(e) for e in rows) * 1e-6
-    log(f"phase 14 profile: one photometric PatchMatch call in "
+    kernel = sum(dev_us(e) for e in rows if "pm_cost" in e.key) * 1e-6
+    log(f"phase 14 profile: one {kind} PatchMatch call in "
         f"{wall * 1e3:.2f} ms wall; device busy {busy * 1e3:.2f} ms "
-        f"({100 * busy / wall:.1f}%), {sum(e.count for e in rows)} device ops")
+        f"({100 * busy / wall:.1f}%), {sum(e.count for e in rows)} device "
+        f"ops; the cost kernel {kernel * 1e3:.2f} ms, "
+        f"{100 * kernel / max(busy, 1e-12):.1f}% of the busy time")
     for e in sorted(rows, key=dev_us, reverse=True)[:12]:
         log(f"phase 14 profile:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:5d}  "
             f"{e.key[:90]}")
-    return busy / wall
+    return busy / wall, kernel / max(busy, 1e-12)
 
 
 def irregular_pm_inputs(dev, geom, seed=13):
@@ -1693,9 +1733,18 @@ def irregular_pm_inputs(dev, geom, seed=13):
         torch.as_tensor(offsets, dtype=torch.float32)))
 
 
-def pm_valid_samples(args):
-    """Valid (pixel, view, offset) samples of one cost call: the kernel's
-    warp and validity test in float64."""
+def _active(H, W, dev, parity):
+    """The pixels a parity launch evaluates ((y + x) % 2 == parity), all
+    for parity None."""
+    if parity is None:
+        return torch.ones(H, W, dtype=torch.bool, device=dev)
+    return (torch.arange(H, device=dev)[:, None]
+            + torch.arange(W, device=dev)[None, :]) % 2 == parity
+
+
+def pm_valid_samples(args, parity=None):
+    """Valid (pixel, view, offset) samples of one cost call at the pixels it
+    evaluates: the kernel's warp and validity test in float64."""
     srcs, _, _, _, depth, normal, _, params, offs = args
     K, H, W = srcs.shape
     P = params.double()
@@ -1707,6 +1756,7 @@ def pm_valid_samples(args):
     n = normal.double()
     ndotr = n[0] * (px - kr[2]) / kr[0] + n[1] * (py - kr[3]) / kr[1] + n[2]
     denom = depth.double() * torch.where(ndotr.abs() < 1e-6, -1e-6, ndotr)
+    active = _active(H, W, srcs.device, parity)
     count = 0
     for dy, dx in offs.tolist():
         rq = torch.stack([(px + dx - kr[2]) / kr[0], (py + dy - kr[3]) / kr[1],
@@ -1718,82 +1768,108 @@ def pm_valid_samples(args):
         us = ks[:, 0, None, None] * (m[0] / z) + ks[:, 2, None, None] - 0.5
         vs = ks[:, 1, None, None] * (m[1] / z) + ks[:, 3, None, None] - 0.5
         count += int(((us >= 0) & (us < W - 1) & (vs >= 0) & (vs < H - 1)
-                      & (m[2] > 0)).sum())
+                      & (m[2] > 0) & active).sum())
     return count
 
 
-def pm_bound(args, geom):
-    """Least time of one cost call: bytes (every input read once, the cost
-    written once) over HBM rate against f32 operations over the f32 rate.
-    Operations, as counted in csrc/pm_cost.cu: 33 per sample for the warp
-    and validity, 28 more per valid sample, 13 per (pixel, offset), 15 per
-    (pixel, view) for the NCC and 50 more with the geometric term."""
+def pm_bound(args, geom, parity=None):
+    """Least time of one cost call: bytes (every input the evaluated pixels
+    need read once, the cost written once) over HBM rate against f32
+    operations over the f32 rate. Operations, as counted in
+    csrc/pm_cost.cu: 33 per sample for the warp and validity, 28 more per
+    valid sample, 13 per (pixel, offset), 15 per (pixel, view) for the NCC
+    and 50 more with the geometric term, at the evaluated pixels."""
     srcs, sdep, w_off = args[0], args[1], args[2]
     K, H, W = srcs.shape
     nw = w_off.shape[0]
     HW = H * W
-    nbytes = 4 * (K * HW * (2 + geom) + 2 * nw * HW + 7 * HW
+    hw = HW if parity is None else int(_active(H, W, srcs.device,
+                                               parity).sum())
+    nbytes = 4 * (K * HW * (1 + geom) + K * HW + (2 * nw + 7) * hw
                   + args[7].numel() + args[8].numel())
-    valid = pm_valid_samples(args)
-    ops = 33 * K * nw * HW + 28 * valid + 13 * nw * HW + K * HW * (15 + 50 * geom)
+    valid = pm_valid_samples(args, parity)
+    ops = (33 * K * nw * hw + 28 * valid + 13 * nw * hw
+           + K * hw * (15 + 50 * geom))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, gflop=ops / 1e9,
-                valid_share=valid / (K * nw * HW))
+                valid_share=valid / (K * nw * hw))
 
 
 def check_pm_cost(tag, args, geom, results=None):
-    """Kernel vs its plain version on the same inputs, twice. In f32, which
-    the kernel computes operation for operation: every entry within
-    TOL["pm_cost"] scaled. In float64: every entry within TOL["pm_cost"]
-    scaled plus the f32 plain version's own distance from float64 there;
-    that distance is large only where a cost is ill-conditioned in f32 (a
-    sample within rounding of the image edge, a plane nearly parallel to its
-    ray, a source depth map that jumps between the taps of a geometric
-    sample), and is reported."""
-    got = pmk.pm_view_costs(*args, geom=geom).double()
-    p32 = pmk.pm_view_costs_plain(*args, geom=geom).double()
+    """Kernel vs its plain version on the same inputs. In f32, which the kernel computes operation for
+    operation: the full-field and both parity launches bit for bit, and a
+    parity launch's active pixels equal to the full field's. In float64
+    (full field): every entry within TOL["pm_cost"] scaled plus the f32
+    plain version's own distance from float64 there; that distance is large
+    only where a cost is ill-conditioned in f32 (a sample within rounding of
+    the image edge, a plane nearly parallel to its ray, a source depth map
+    that jumps between the taps of a geometric sample), and is reported."""
+    got = pmk.pm_view_costs(*args, geom=geom)
+    p32 = pmk.pm_view_costs_plain(*args, geom=geom)
+    bad = {}
+    e32 = float((got - p32).abs().max())
+    if not torch.equal(got, p32):
+        bad["full"] = e32
+    K, H, W = got.shape
+    for parity in (0, 1):
+        gp = pmk.pm_view_costs(*args, geom=geom, parity=parity)
+        pp = pmk.pm_view_costs_plain(*args, geom=geom, parity=parity)
+        ep = float((gp - pp).abs().max())
+        e32 = max(e32, ep)
+        act = _active(H, W, got.device, parity)
+        if not (torch.equal(gp, pp) and torch.equal(gp[:, act], got[:, act])
+                and bool((gp[:, ~act] == 2.0).all())):
+            bad[f"parity {parity}"] = ep
     ref = pmk.pm_view_costs_plain(args[0].double(), *args[1:], geom=geom)
     torch.cuda.synchronize()
+    got, p32 = got.double(), p32.double()
     scale = max(1.0, float(ref.abs().max()))
     tol = TOL["pm_cost"] * scale
     gap32 = (p32 - ref).abs()
     err = (got - ref).abs()
-    e32 = float((got - p32).abs().max())
     n_bad = int((err > tol + gap32).sum())
-    if not (bool(torch.isfinite(got).all()) and e32 <= tol and n_bad == 0):
+    if bad or not (bool(torch.isfinite(got).all()) and n_bad == 0):
         raise AssertionError(
-            f"[{tag}] pm_cost: max |kernel - plain f32| {e32:.3e}; {n_bad} "
-            f"entries beyond {TOL['pm_cost']:.0e} scaled + the f32 gap from "
-            f"float64")
+            f"[{tag}] pm_cost: kernel differs from the f32 plain version "
+            f"(max |diff| by launch) {bad}; {n_bad} entries beyond "
+            f"{TOL['pm_cost']:.0e} scaled + the f32 gap from float64")
     q = torch.tensor([0.99, 0.999], device=err.device, dtype=err.dtype)
     p99, p999 = (float(v) for v in torch.quantile(err.flatten(), q))
     e_all = float(err.max())
     share = float((err > tol).double().mean())
-    K, H, W = got.shape
     log(f"phase 13 pm_cost {tag}: K {K}, {H}x{W}, nw {args[2].shape[0]}, geom "
-        f"{geom}; max |kernel - plain f32| {e32:.3e}; |kernel - float64| max "
-        f"{e_all:.3e} (f32 plain {float(gap32.max()):.3e}), p99 {p99:.3e}, "
-        f"p99.9 {p999:.3e}, {100 * share:.4f}% of entries beyond "
-        f"{TOL['pm_cost']:.0e} scaled (scale {scale:.3f})")
+        f"{geom}; full field and parity 0 / 1 bit for bit equal to the f32 "
+        f"plain version, parity launches equal to the full field at their "
+        f"pixels; |kernel - float64| max {e_all:.3e} (f32 plain "
+        f"{float(gap32.max()):.3e}), p99 {p99:.3e}, p99.9 {p999:.3e}, "
+        f"{100 * share:.4f}% of entries beyond {TOL['pm_cost']:.0e} scaled "
+        f"(scale {scale:.3f})")
     if results is None:
         return
     b = pm_bound(args, geom)
+    bp = pm_bound(args, geom, parity=0)
+
     results[tag] = dict(
-        max_abs_err=e_all, max_abs_err_f32=e32, p999_abs_err=p999,
+        max_abs_err=e_all, max_abs_err_vs_f32_plain=e32, p999_abs_err=p999,
         beyond_tol_share=share, scaled_err=e_all / scale,
         ms=time_gpu(lambda: pmk.pm_view_costs(*args, geom=geom)),
+        ms_parity=time_gpu(lambda: pmk.pm_view_costs(*args, geom=geom,
+                                                     parity=0)),
         plain_ms=time_gpu(lambda: pmk.pm_view_costs_plain(*args, geom=geom),
                           3),
-        **b)
+        bound_ms_parity=bp["bound_ms"], gflop_parity=bp["gflop"], **b)
     r = results[tag]
     log(f"phase 13 pm_cost {tag}: kernel {r['ms']:.4f} ms "
-        f"({r['gflop'] / r['ms']:.2f} TFLOP/s), plain {r['plain_ms']:.3f} ms, "
-        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {r['gflop']:.2f} "
-        f"GFLOP, {r['bytes'] / 1e6:.1f} MB, {100 * r['valid_share']:.1f}% "
-        f"valid samples)")
+        f"({r['gflop'] / r['ms']:.2f} TFLOP/s), parity launch "
+        f"{r['ms_parity']:.4f} ms ({r['ms_parity'] / r['ms']:.3f} of the "
+        f"full field; bound {r['bound_ms_parity']:.4f} ms), plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}; {r['gflop']:.2f} GFLOP, {r['bytes'] / 1e6:.1f} "
+        f"MB, {100 * r['valid_share']:.1f}% valid samples); kernel / bound "
+        f"{r['ms'] / r['bound_ms']:.2f}x")
 
 
 def pm_cost_kernel(captured):
@@ -2120,6 +2196,29 @@ def ba_kernel_registers(build_log):
     return out
 
 
+def kernel_resources(source):
+    """ptxas registers and spill bytes of each kernel of one source, by
+    kernel name (template arguments as <a,b,...>)."""
+    import re
+
+    out, name = {}, None
+    for ln in _cuda_build.source_log(source).splitlines():
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", ln)
+        if m:
+            n = int(m[1])
+            base, rest = m[2][:n], m[2][n:]
+            args = re.findall(r"L[a-z](\d+)E", rest.split("Ev")[0] + "E") \
+                if rest.startswith("I") else []
+            name = base + (f"<{','.join(args)}>" if args else "")
+            out[name] = {}
+        elif name and "spill stores" in ln:
+            v = re.findall(r"(\d+) bytes spill (stores|loads)", ln)
+            out[name].update({f"spill_{k}": int(b) for b, k in v})
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(ln.split("Used ")[1].split()[0])
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2146,6 +2245,17 @@ def main():
         f" registers")
     log(f"phase 1: registers of the per-model BA kernels: "
         f"{json.dumps(ba_kernel_registers(_cuda_build.build_log))}")
+    resources = {
+        "window_sampler": dict(
+            kernels=kernel_resources("features/csrc/window_sampler.cu"),
+            blocks_per_sm=features_cuda.sample_windows_occupancy()),
+        "pm_cost": dict(
+            kernels=kernel_resources("mvs/csrc/pm_cost.cu"),
+            blocks_per_sm={"full field": mvs_cuda.occupancy(False, 36),
+                           "parity": mvs_cuda.occupancy(True, 36)}),
+    }
+    log(f"phase 1: registers, spills and resident blocks per SM (nw 36) of "
+        f"the sampler and the cost kernel: {json.dumps(resources)}")
 
     # the probe's counts over phases 2-17, the user paths
     pg.reset_counts()
@@ -2222,7 +2332,9 @@ def main():
 
         # --- phases 14 and 13: the dense pipeline and its cost kernel -----
         pm_launches, dense, captured, first_call = dense_pipeline(Path(tmp))
-    dense["busy_share"] = profile_patch_match(first_call)
+    for kind in ("photometric", "geometric"):
+        dense[f"{kind}_busy_share"], dense[f"{kind}_kernel_share"] = \
+            profile_patch_match(first_call[kind], kind)
     del first_call
     log(f"dense summary: {json.dumps(dense)}")
     pm_res = pm_cost_kernel(captured)
@@ -2265,6 +2377,17 @@ def main():
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
+    # the sampler's whole call (one launch and its allocations) and its
+    # orientation launch
+    o = feat["orientation"]
+    kernels[-2].update(
+        call_ms=feat["descriptor"]["call_ms"],
+        call_host_ms=feat["descriptor"]["call_host_ms"],
+        ms_orientation=o["ms"], call_ms_orientation=o["call_ms"],
+        call_host_ms_orientation=o["call_host_ms"],
+        library_ms_orientation=o["library_ms"],
+        bound_ms_orientation=o["bound_ms"],
+        resources=resources["window_sampler"])
     # the cost kernel's row: the captured photometric call (the geometric
     # one is logged in phase 13)
     src, rep = KERNEL_INFO["pm_cost"]
@@ -2272,9 +2395,13 @@ def main():
     kernels.append(dict(
         name="pm_cost", route="cuda", source=src, replaces=rep,
         shape=f"{MVS_H}x{MVS_W}, K 8, nw 36, photometric",
-        launches=pm_launches["pm_cost"],
+        launches=pm_launches["pm_cost"] + pm_launches["pm_cost_parity"],
+        launches_full_field=pm_launches["pm_cost"],
+        launches_parity=pm_launches["pm_cost_parity"],
+        ms_parity=r["ms_parity"], bound_ms_parity=r["bound_ms_parity"],
+        resources=resources["pm_cost"],
         max_abs_err=r["max_abs_err"], max_scaled_err=r["scaled_err"],
-        max_abs_err_vs_f32_plain=r["max_abs_err_f32"],
+        max_abs_err_vs_f32_plain=r["max_abs_err_vs_f32_plain"],
         p999_abs_err=r["p999_abs_err"],
         share_beyond_tol=r["beyond_tol_share"], ms=r["ms"],
         ms_geometric=pm_res["geometric"]["ms"], plain_ms=r["plain_ms"],

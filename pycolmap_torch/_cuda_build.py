@@ -2,12 +2,14 @@
 
 Each ``.cu`` source under a ``csrc/`` directory of the package (``SOURCES``)
 compiles with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface, loaded with ``ctypes``. All sources build in parallel, one
-``nvcc`` each, at first use, into ``build/pycolmap_torch/<hash>/`` beside
-the package; the hash covers every source, header and flag, so an edit to
-any of them rebuilds all. Nothing is built or imported when this module is
-imported: the CPU tests import every module and such a host has no
-``nvcc``.
+interface, loaded with ``ctypes``. At first use every library that is not
+built yet builds, all in parallel, one ``nvcc`` each, into
+``build/pycolmap_torch/<stem>-<hash>/`` beside the package. Each library's
+hash covers its own source, the shared headers and its flags, so an edit to
+one source rebuilds only its library. ``nvcc``'s output (ptxas register
+counts) is kept beside each library. Nothing is built or imported when this
+module is imported: the CPU tests import every module and such a host has
+no ``nvcc``.
 
 The launcher modules (``sfm/_cuda.py``, ``features/_cuda.py``,
 ``mvs/_cuda.py``, ``scripts/_cuda.py``) hold the C signatures and call
@@ -53,8 +55,8 @@ BUILD_ROOT = PACKAGE.parent / "build" / "pycolmap_torch"
 
 _lock = threading.Lock()
 _libs: dict | None = None
-build_log = ""  # compiler output of the last build (ptxas register counts)
-build_seconds = None  # wall time of the last build, None if loaded from disk
+build_log = ""  # compiler output of every library (ptxas register counts)
+build_seconds = None  # wall time of this process's build, None if none ran
 
 
 def _nvcc() -> str:
@@ -67,65 +69,75 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def _source_key() -> str:
+def _lib_path(source: str) -> Path:
+    """build/pycolmap_torch/<stem>-<hash>/<stem>.so: the hash of the source,
+    the shared headers and the flags it builds with."""
     h = hashlib.blake2b(digest_size=12)
-    for name in SOURCES + HEADERS:
+    for name in (source,) + HEADERS:
         h.update(name.encode())
         h.update((PACKAGE / name).read_bytes())
-    h.update(" ".join(_FLAGS).encode())
-    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
-    return h.hexdigest()
+    h.update(" ".join(_FLAGS + SOURCE_FLAGS.get(source, ())).encode())
+    stem = Path(source).stem
+    return BUILD_ROOT / f"{stem}-{h.hexdigest()}" / f"{stem}.so"
 
 
-def _lib_name(source: str) -> str:
-    return f"{Path(source).stem}.so"
-
-
-def _build(out_dir: Path) -> None:
-    """Compile every source in parallel (one nvcc each) into out_dir."""
-    global build_log, build_seconds
+def _build(sources) -> None:
+    """Compile `sources` in parallel (one nvcc each) to their library
+    paths, each with its compiler output beside it."""
+    global build_seconds
     nvcc = _nvcc()
-    out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = []
-    for name in SOURCES:
-        src = PACKAGE / name
-        tmp = out_dir / f"{_lib_name(name)}.tmp{os.getpid()}"
+    for name in sources:
+        src, lib = PACKAGE / name, _lib_path(name)
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
         cmd = [nvcc, *_FLAGS, *SOURCE_FLAGS.get(name, ()), "-I",
                str(src.parent), "-o", str(tmp), str(src)]
-        procs.append((name, tmp, subprocess.Popen(
+        procs.append((name, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs, failed = [], []
-    for name, tmp, proc in procs:
+    failed, logs = [], []
+    for name, lib, tmp, proc in procs:
         out, _ = proc.communicate()
         logs.append(f"== {name}\n{out}")
         if proc.returncode != 0:
             failed.append(name)
         else:
-            os.replace(tmp, out_dir / _lib_name(name))
-    build_log = "\n".join(logs)
+            lib.with_suffix(".log").write_text(out)
+            os.replace(tmp, lib)
     build_seconds = time.perf_counter() - t0
     if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
 
 
 def libs() -> dict:
-    """The loaded kernel libraries by source path, building them first if
-    needed."""
-    global _libs
+    """The loaded kernel libraries by source path, building the missing
+    ones first."""
+    global _libs, build_log
     with _lock:
         if _libs is None:
-            out_dir = BUILD_ROOT / _source_key()
-            if not all((out_dir / _lib_name(n)).exists() for n in SOURCES):
-                _build(out_dir)
-            loaded = {}
+            missing = [n for n in SOURCES if not _lib_path(n).exists()]
+            if missing:
+                _build(missing)
+            loaded, logs = {}, []
             for name in SOURCES:
-                lib = ctypes.CDLL(str(out_dir / _lib_name(name)))
+                path = _lib_path(name)
+                lib = ctypes.CDLL(str(path))
                 lib.kernel_error_string.argtypes = [ctypes.c_int]
                 lib.kernel_error_string.restype = ctypes.c_char_p
                 loaded[name] = lib
+                log = path.with_suffix(".log")
+                logs.append(f"== {name}\n"
+                            + (log.read_text() if log.exists() else ""))
+            build_log = "\n".join(logs)
             _libs = loaded
         return _libs
+
+
+def source_log(source: str) -> str:
+    """The compiler output of one source's library (after :func:`libs`)."""
+    part = build_log.split(f"== {source}\n", 1)
+    return part[1].split("\n== ", 1)[0] if len(part) == 2 else ""
 
 
 def launch(source: str, fn: str, argtypes, *args) -> None:

@@ -3,6 +3,8 @@ scripts."""
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -30,3 +32,16 @@ def time_gpu(fn, reps=REPS):
         evs.append((a, b))
     torch.cuda.synchronize()
     return float(np.median([a.elapsed_time(b) for a, b in evs]))
+
+
+def host_ms(fn, reps=200):
+    """Host wall time per call of fn() in ms over `reps` back-to-back calls,
+    the card synchronised before and after: what a caller waits per call
+    when the host's launches, not the device, set the pace."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3

@@ -15,15 +15,18 @@ from pycolmap_torch._cuda_build import i32, launch, ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SAMPLE_WINDOWS = [_P, _I, _I, _I] + [_P] * 5 + [_I, _I, _I, _P, _P]
+_SAMPLE_WINDOWS = [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P]
 _TOP2 = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
 
 
-def sample_windows(vol, ch0, y0, x0, wy, wx, win_y, win_x, out):
-    NC, LHp, Wp = vol.shape
-    launch("features/csrc/window_sampler.cu", "sift_sample_windows", _SAMPLE_WINDOWS,
-           ptr(vol), NC, LHp, Wp, i32(ch0), i32(y0), i32(x0), ptr(wy),
-           ptr(wx), ch0.shape[0], int(win_y), int(win_x), ptr(out))
+def sample_windows(vol, ch0, ys, xs, win_y, win_x, out):
+    LHp, Wp, NC = vol.shape
+    # the kernel reads taps, coordinates and writes samples as float2
+    if any(t.data_ptr() % 8 for t in (vol, ys, xs, out)):
+        raise ValueError("window sampler operands must be 8-byte aligned")
+    launch("features/csrc/window_sampler.cu", "sift_sample_windows",
+           _SAMPLE_WINDOWS, ptr(vol), NC, LHp, Wp, i32(ch0), ptr(ys), ptr(xs),
+           ch0.shape[0], int(win_y), int(win_x), ptr(out))
 
 
 def top2(d1, d2, n2, best, second, idx):
@@ -31,3 +34,11 @@ def top2(d1, d2, n2, best, second, idx):
     launch("features/csrc/top2.cu", "match_top2", _TOP2,
            ptr(d1), ptr(d2), i32(n2), B, N1, d2.shape[1], D, ptr(best),
            ptr(second), i32(idx))
+
+
+def sample_windows_occupancy() -> int:
+    """Resident blocks per SM of the window sampler kernel."""
+    blocks = ctypes.c_int(0)
+    launch("features/csrc/window_sampler.cu", "sift_sample_windows_occupancy",
+           [_P, _P], ctypes.byref(blocks))
+    return blocks.value

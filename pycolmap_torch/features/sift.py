@@ -237,13 +237,21 @@ def _detect_octave(gauss, dog, S: int, peak_threshold, edge_threshold,
 
 
 def _octave_gradients(gauss):
-    """Central-difference gradients as the channel-major flat volume
-    [2, L*H, W] the window sampler reads, zero-padded to its alignment.
-    Magnitude and angle are taken at the sampled points."""
+    """Central-difference gradients as the pair-interleaved volume
+    [LHp, Wp, 2] the window sampler reads, written once into the padded
+    volume (only the padding is zeroed besides). Magnitude and angle are
+    taken at the sampled points."""
     L, H, W = gauss.shape
-    gx = 0.5 * (torch.roll(gauss, -1, dims=2) - torch.roll(gauss, 1, dims=2))
-    gy = 0.5 * (torch.roll(gauss, -1, dims=1) - torch.roll(gauss, 1, dims=1))
-    return ws.pad_volume(torch.stack([gx, gy]).reshape(2, L * H, W))
+    lhp, wp = ws.padded_shape(L * H, W)
+    vol = gauss.new_empty((lhp, wp, 2))
+    vol[L * H:].zero_()
+    vol[:L * H, W:].zero_()
+    grad = vol[:L * H, :W].view(L, H, W, 2)
+    torch.mul(torch.roll(gauss, -1, dims=2) - torch.roll(gauss, 1, dims=2),
+              0.5, out=grad[..., 0])
+    torch.mul(torch.roll(gauss, -1, dims=1) - torch.roll(gauss, 1, dims=1),
+              0.5, out=grad[..., 1])
+    return vol
 
 
 def _max_scale_rel(S: int) -> float:
@@ -260,7 +268,7 @@ def _sample_grad(grad2, H, W, level_idx, sy, sx, support_px: float):
     window samples the whole volume as one window."""
     ys = torch.clamp(sy, 0.0, H - 1.001) + level_idx[:, None, None].to(sy.dtype) * H
     ch0 = torch.zeros(level_idx.shape, dtype=torch.int32, device=sy.device)
-    wins = ws.window_sizes(support_px) or tuple(grad2.shape[1:])
+    wins = ws.window_sizes(support_px) or tuple(grad2.shape[:2])
     return ws.sample_windows(grad2, ch0, ys, sx, *wins)
 
 
@@ -508,7 +516,7 @@ def _extract_core(
             gauss, dog, S, peak_threshold, edge_threshold, oct_budget
         )
         oh, ow = gauss.shape[1], gauss.shape[2]
-        grad = _octave_gradients(gauss)  # [2, LHp, Wp]
+        grad = _octave_gradients(gauss)  # [LHp, Wp, 2]
         A = None
         if affine_shape:
             A, mask = _affine_shapes(grad, oh, ow, S, x, y, level_idx,

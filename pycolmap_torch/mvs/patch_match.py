@@ -21,7 +21,10 @@ reference camera frame; the plane-induced warp into source view k is
 ``q_s ~ K_s (R_k r_q + t_k (n . r_q) / (d (n . r_p)))``, ``r = K_r^-1 q``.
 
 The step loop is plain PyTorch on the caller's device; on a CUDA device
-every cost evaluation launches ``csrc/pm_cost.cu``. Random draws come from
+every cost evaluation launches ``csrc/pm_cost.cu``. A candidate's cost is
+kept only at the pixels of the step's colour, so its evaluation covers
+only those (the kernel's parity launch); the per-step refresh of the
+current plane's costs covers every pixel. Random draws come from
 the caller's ``torch.Generator`` (the reference's ``jax.random`` keys have
 no counterpart), and the random depth candidates are drawn per pixel, as
 upstream and the reference's XLA path draw them: the reference's per-tile
@@ -149,9 +152,10 @@ def patch_match_kernel(
                             geom_max_cost)
     offs = torch.as_tensor(offsets, dtype=torch.float32, device=dev)
 
-    def view_costs(depth, normal):
+    def view_costs(depth, normal, parity=None):
         return pm_view_costs(srcs, src_depths, w_off, wr_off, depth, normal,
-                             stats, params, offs, geom=geom_consistency)
+                             stats, params, offs, geom=geom_consistency,
+                             parity=parity)
 
     def agg_cost(costs, vw):
         """Per-pixel view-weighted aggregation."""
@@ -171,7 +175,7 @@ def patch_match_kernel(
     def try_candidate(state, cand, color, vw):
         depth, normal, cost = state
         d_c, n_c = cand
-        c_c = agg_cost(view_costs(d_c, n_c), vw)
+        c_c = agg_cost(view_costs(d_c, n_c, color), vw)
         better = (c_c < cost) & (parity == color)
         return (
             torch.where(better, d_c, depth),

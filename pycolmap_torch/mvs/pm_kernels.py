@@ -27,15 +27,21 @@ geom_max_cost)``).
 |                     | ``pm_view_costs_plain``                           |
 | pm_view_costs_plain | the kernel's plain version                        |
 
+With ``parity`` (0 or 1) only the pixels with ``(y + x) % 2 == parity`` are
+evaluated and the others get 2.0, the invalid cost: a red/black step keeps
+a candidate's cost only at the pixels of its colour. ``None`` (the
+reference's contract) evaluates every pixel.
+
 The TPU kernel reads each source through a per-tile VMEM band (placed by
 ``band_origins``) and marks samples outside the band invalid; the port
 samples the whole source, so it has no band, no 8x128 padding and no band
 origins. It samples in exact f32 (the reference's ``pack_pairs`` bf16 pair
 packing only halves TPU lane gathers).
 
-``LAUNCHES`` counts kernel launches; ``PLAIN_ON_CUDA`` counts calls of the
-plain version on CUDA tensors (only ``chip_smoke.py``'s comparisons make
-those). ``reset_counts()`` zeroes both.
+``LAUNCHES`` counts kernel launches, full-field (``pm_cost``) and parity
+(``pm_cost_parity``) apart; ``PLAIN_ON_CUDA`` counts calls of the plain
+version on CUDA tensors (only ``chip_smoke.py``'s comparisons make those).
+``reset_counts()`` zeroes both.
 """
 
 from __future__ import annotations
@@ -57,12 +63,13 @@ _P_GEOMMAX = 22
 _P_KSI = 23  # Ks^-1: 1/fx, 1/fy, -cx/fx, -cy/fy
 _P_LEN = 32
 
-LAUNCHES = {"pm_cost": 0}
+LAUNCHES = {"pm_cost": 0, "pm_cost_parity": 0}
 PLAIN_ON_CUDA = {"pm_cost": 0}
 
 
 def reset_counts() -> None:
-    LAUNCHES["pm_cost"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
     PLAIN_ON_CUDA["pm_cost"] = 0
 
 
@@ -94,7 +101,7 @@ def pm_view_params(R_rel, t_rel, Ks_all, Kr, sigma_color, geom_w,
 
 
 def _check(srcs, src_depths, w_off, wr_off, depth, normal, stats, params,
-           offs, geom):
+           offs, geom, parity):
     K, H, W = srcs.shape
     nw = w_off.shape[0]
     shapes = {"srcs": (srcs, (K, H, W)), "w_off": (w_off, (nw, H, W)),
@@ -110,14 +117,18 @@ def _check(srcs, src_depths, w_off, wr_off, depth, normal, stats, params,
     if bad or H < 2 or W < 2:
         raise ValueError(f"pm_view_costs shapes: {bad} (K {K}, H {H}, W {W}, "
                          f"nw {nw})")
+    if parity not in (None, 0, 1):
+        raise ValueError(f"pm_view_costs parity must be None, 0 or 1, got "
+                         f"{parity!r}")
 
 
 def pm_view_costs_plain(srcs, src_depths, w_off, wr_off, depth, normal,
-                        stats, params, offs, geom=False):
+                        stats, params, offs, geom=False, parity=None):
     """The kernel's arithmetic in PyTorch, one window offset at a time over
     [K, H, W] planes, in the dtype of ``srcs``. In f32 it is the kernel's
     arithmetic operation for operation (the kernel is built without fused
-    multiply-adds). Arguments as :func:`pm_view_costs`."""
+    multiply-adds). Arguments as :func:`pm_view_costs`; with a parity it
+    evaluates every pixel and keeps the active ones."""
     if srcs.is_cuda:
         PLAIN_ON_CUDA["pm_cost"] += 1
     K, H, W = srcs.shape
@@ -180,7 +191,7 @@ def pm_view_costs_plain(srcs, src_depths, w_off, wr_off, depth, normal,
     cost = 1.0 - torch.clamp(ncc, -1.0, 1.0)
     cost = torch.where(wv_sum > 0.2 * w_sum, cost, 2.0)
     if not geom:
-        return cost
+        return _keep_parity(cost, parity)
 
     # forward-backward reprojection error at the center pixel
     geom_w, geom_max = col(_P_GEOMW), col(_P_GEOMMAX)
@@ -209,12 +220,24 @@ def pm_view_costs_plain(srcs, src_depths, w_off, wr_off, depth, normal,
     vr = krfy * (Xr1 / zr) + krcy
     err = torch.sqrt((ur - px) ** 2 + (vr - py) ** 2)
     okg = okc & (ds > 0) & (Xr2 > 0)
-    return cost + geom_w * torch.where(okg, torch.minimum(err, geom_max),
-                                       geom_max)
+    return _keep_parity(cost + geom_w * torch.where(
+        okg, torch.minimum(err, geom_max), geom_max), parity)
+
+
+def _keep_parity(cost, parity):
+    """cost [K, H, W] at the pixels with (y + x) % 2 == parity, 2.0 at the
+    others; every pixel for parity None."""
+    if parity is None:
+        return cost
+    H, W = cost.shape[1:]
+    dev = cost.device
+    active = (torch.arange(H, device=dev)[:, None]
+              + torch.arange(W, device=dev)[None, :]) % 2 == parity
+    return torch.where(active, cost, 2.0)
 
 
 def pm_view_costs(srcs, src_depths, w_off, wr_off, depth, normal, stats,
-                  params, offs, geom=False):
+                  params, offs, geom=False, parity=None):
     """Per-view PatchMatch window costs of one candidate plane field.
 
     srcs [K, H, W] f32 source images (resampled to the reference's size);
@@ -223,16 +246,17 @@ def pm_view_costs(srcs, src_depths, w_off, wr_off, depth, normal, stats,
     w_off * ref_off (weight times the shifted reference); depth [H, W];
     normal [3, H, W]; stats [3, H, W] (w_sum, ref_mean, ref_var); params
     [K, 32] view rows (:func:`pm_view_params`); offs [nw, 2] f32 window
-    offsets (dy, dx). Returns cost [K, H, W] f32."""
+    offsets (dy, dx); parity None, 0 or 1 (see the module). Returns cost
+    [K, H, W] f32."""
     _check(srcs, src_depths, w_off, wr_off, depth, normal, stats, params,
-           offs, geom)
+           offs, geom, parity)
     if not srcs.is_cuda:
         return pm_view_costs_plain(srcs, src_depths, w_off, wr_off, depth,
-                                   normal, stats, params, offs, geom)
+                                   normal, stats, params, offs, geom, parity)
     out = torch.empty(srcs.shape, device=srcs.device)
     c = lambda a: a.float().contiguous()  # noqa: E731
-    LAUNCHES["pm_cost"] += 1
+    LAUNCHES["pm_cost" if parity is None else "pm_cost_parity"] += 1
     _cuda.pm_view_costs(c(srcs), c(src_depths) if geom else None, c(w_off),
                         c(wr_off), c(depth), c(normal), c(stats), c(params),
-                        c(offs), bool(geom), out)
+                        c(offs), bool(geom), parity, out)
     return out

@@ -99,7 +99,7 @@ def _reference_costs(c, kind):
     return np.asarray(out)
 
 
-def _port_costs(c):
+def _port_costs(c, parity=None):
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
     offsets = pm._window_offsets(RADIUS, STEP)
     ref_off, w_off, w_sum, ref_mean, ref_var = pm.window_stats(
@@ -110,7 +110,8 @@ def _port_costs(c):
         t(c["srcs"]), t(c["src_depths"]) if c["geom"] else None, w_off,
         w_off * ref_off, t(c["depth"]), t(c["normal"]),
         torch.stack([w_sum, ref_mean, ref_var]), params,
-        torch.as_tensor(offsets, dtype=torch.float32), geom=c["geom"])
+        torch.as_tensor(offsets, dtype=torch.float32), geom=c["geom"],
+        parity=parity)
     return out.numpy()
 
 
@@ -173,7 +174,11 @@ def test_wrapper_checks_shapes_and_counts():
     c = _case("fronto")
     pmk.reset_counts()
     _port_costs(c)
-    assert pmk.LAUNCHES["pm_cost"] == 0 and pmk.PLAIN_ON_CUDA["pm_cost"] == 0
+    _port_costs(c, parity=1)
+    assert pmk.LAUNCHES == {"pm_cost": 0, "pm_cost_parity": 0}
+    assert pmk.PLAIN_ON_CUDA["pm_cost"] == 0
+    with pytest.raises(ValueError):
+        _port_costs(c, parity=2)
     z = torch.zeros
     with pytest.raises(ValueError):
         pmk.pm_view_costs(z(2, 8, 9), None, z(4, 8, 9), z(4, 8, 9), z(8, 9),
@@ -181,3 +186,57 @@ def test_wrapper_checks_shapes_and_counts():
     with pytest.raises(ValueError):
         pmk.pm_view_costs(z(2, 8, 9), None, z(4, 8, 9), z(4, 8, 9), z(8, 9),
                           z(3, 8, 9), z(3, 8, 9), z(2, 32), z(4, 2), geom=True)
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_plain_parity_keeps_active_pixels(scene, parity):
+    """With a parity the plain version equals the full field exactly at the
+    pixels with (y + x) % 2 == parity and is 2.0 at the others (geometric
+    term included)."""
+    c = _case(scene)
+    full = _port_costs(c)
+    got = _port_costs(c, parity=parity)
+    active = (np.arange(H)[:, None] + np.arange(W)[None, :]) % 2 == parity
+    np.testing.assert_array_equal(got[:, active], full[:, active])
+    assert np.all(got[:, ~active] == 2.0)
+    assert np.any(full[:, ~active] != 2.0)
+
+
+def test_patch_match_same_with_and_without_parity(monkeypatch):
+    """patch_match_kernel on a small scene gives the same depth, normal and
+    cost, bit for bit, when its candidates' costs cover every pixel (the
+    full-field function injected here) as with the parity path: a step
+    keeps a candidate only at the pixels of its colour."""
+    ref, srcs, rays, Kmat, R_rel, t_rel = _scene(H, W, K)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))  # noqa: E731
+    depth0 = np.full((H, W), 5.0, np.float32)
+    normal0 = -rays / np.linalg.norm(rays, axis=0)
+    parities = []
+
+    def run(geom):
+        args = (t(ref), t(srcs), t(rays), t(np.stack([Kmat] * K)), t(R_rel),
+                t(t_rel), t(depth0), t(normal0), 1.0, 10.0, 0.2, 0.6, 1,
+                RADIUS, STEP)
+        kw = dict(Kr=t(Kmat))
+        if geom:
+            kw.update(geom_consistency=True,
+                      src_depths=t(np.full((K, H, W), 5.0)))
+        return pm.patch_match_kernel(torch.Generator().manual_seed(4), *args,
+                                     **kw)
+
+    def full_field(*args, parity=None, **kw):
+        parities.append(parity)
+        return pmk.pm_view_costs(*args, **kw)
+
+    for geom in (False, True):
+        with_parity = run(geom)
+        with monkeypatch.context() as m:
+            m.setattr(pm, "pm_view_costs", full_field)
+            parities.clear()
+            without = run(geom)
+        # one refresh and seven candidates per step, two steps
+        assert parities == [None, 0, 0, 0, 0, 0, 0, 0,
+                            None, 1, 1, 1, 1, 1, 1, 1]
+        for a, b in zip(with_parity, without):
+            assert torch.equal(a, b)

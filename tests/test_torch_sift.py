@@ -59,9 +59,11 @@ def octave():
     gauss = jsift._build_octave(base, S)
     dog = gauss[1:] - gauss[:-1]
     det = jsift._detect_octave(gauss, dog, S, 0.02 / 3, 10.0, 256)
-    grad = jsift._octave_gradients(gauss)
+    grad = np.asarray(jsift._octave_gradients(gauss))
+    # the port's sampler reads the pair-interleaved [LHp, Wp, 2] volume
     return dict(img=img, base=np.asarray(base), gauss=np.asarray(gauss),
-                det=[np.asarray(a) for a in det], grad=np.asarray(grad),
+                det=[np.asarray(a) for a in det], grad=grad,
+                grad_il=np.ascontiguousarray(np.moveaxis(grad, 0, -1)),
                 delta=delta)
 
 
@@ -86,6 +88,13 @@ def test_build_octave(octave):
                                          jnp.float32))
     got = tsift._band_matrix(37, tsift._gaussian_kernel1d(1.3)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-8)
+
+
+def test_octave_gradients_interleaved(octave):
+    """The port writes the reference's channel-major gradient volume
+    interleaved, padding included, with the same values."""
+    got = tsift._octave_gradients(_t(octave["gauss"])).numpy()
+    np.testing.assert_allclose(got, octave["grad_il"], rtol=1e-6, atol=1e-7)
 
 
 def test_detect_octave(octave):
@@ -117,7 +126,7 @@ def test_orientations_and_descriptors(octave):
                                  *(jnp.asarray(a) if isinstance(a, np.ndarray)
                                    else a for a in args),
                                  jnp.asarray(k["mask"]), 2)
-    tt, tm = tsift._orientations(_t(octave["grad"]),
+    tt, tm = tsift._orientations(_t(octave["grad_il"]),
                                  *(_t(a) if isinstance(a, np.ndarray) else a
                                    for a in args), _t(k["mask"]), 2)
     jt, jm, tt, tm = (np.asarray(a) for a in (jt, jm, tt, tm))
@@ -130,7 +139,7 @@ def test_orientations_and_descriptors(octave):
             jnp.asarray(octave["grad"]), *(jnp.asarray(a) if isinstance(
                 a, np.ndarray) else a for a in args), jnp.asarray(theta), norm))
         got = tsift._descriptors(
-            _t(octave["grad"]), *(_t(a) if isinstance(a, np.ndarray) else a
+            _t(octave["grad_il"]), *(_t(a) if isinstance(a, np.ndarray) else a
                                   for a in args), _t(theta), norm).numpy()
         m = k["mask"]
         np.testing.assert_allclose(got[m], want[m], atol=1e-4)
@@ -143,7 +152,7 @@ def test_affine_shapes_and_affine_stages(octave):
     jA, jok = jsift._affine_shapes(jnp.asarray(octave["grad"]),
                                    *(jnp.asarray(a) if isinstance(a, np.ndarray)
                                      else a for a in args))
-    tA, tok = tsift._affine_shapes(_t(octave["grad"]),
+    tA, tok = tsift._affine_shapes(_t(octave["grad_il"]),
                                    *(_t(a) if isinstance(a, np.ndarray) else a
                                      for a in args))
     jA, jok, tA, tok = (np.asarray(a) for a in (jA, jok, tA, tok))
@@ -156,7 +165,7 @@ def test_affine_shapes_and_affine_stages(octave):
             a, np.ndarray) else a for a in base), jnp.asarray(jok), 2,
         affine=jnp.asarray(jA))
     tt, tm = tsift._orientations(
-        _t(octave["grad"]), *(_t(a) if isinstance(a, np.ndarray) else a
+        _t(octave["grad_il"]), *(_t(a) if isinstance(a, np.ndarray) else a
                               for a in base), _t(jok), 2, affine=_t(jA))
     jt, jm, tt, tm = (np.asarray(a) for a in (jt, jm, tt, tm))
     assert np.array_equal(tm, jm)
@@ -166,7 +175,7 @@ def test_affine_shapes_and_affine_stages(octave):
             a, np.ndarray) else a for a in base), jnp.asarray(jt[:, 0]), 0,
         affine=jnp.asarray(jA)))
     got = tsift._descriptors(
-        _t(octave["grad"]), *(_t(a) if isinstance(a, np.ndarray) else a
+        _t(octave["grad_il"]), *(_t(a) if isinstance(a, np.ndarray) else a
                               for a in base), _t(jt[:, 0]), 0,
         affine=_t(jA)).numpy()
     np.testing.assert_allclose(got[jok], want[jok], atol=1e-4)
