@@ -27,6 +27,8 @@ Phases (each raises on failure; the script then exits nonzero):
    observations; bench.py run_ba's sequence) through the kernels, with the
    launch counters zeroed just before the timed solves and read just after,
    once with the card's default bf16 CG matvec and once with the f32 one;
+   the bf16 matvec launches once per CG iteration for all buckets, the f32
+   one once per bucket;
 5. profile one more bench solve with torch.profiler: device time per
    kernel and the device's busy share;
 6. hold the window sampler (one launch per ``sample_windows`` call, its
@@ -34,18 +36,23 @@ Phases (each raises on failure; the script then exits nonzero):
    plain versions (float64) on the card: the sampler at octave 0's
    orientation and descriptor calls of a 960x1280 extract and at an
    irregular shape, top-2 at 8192 x 8192 and at a ragged batch; time
-   kernel, plain version, bound and one PyTorch call that computes the
-   same function, and the sampler's whole call;
+   kernel, plain version, bound (top-2: its 3xTF32 operations, the f32 SIMT
+   figure beside) and one PyTorch call that computes the same function,
+   and the sampler's whole call;
 7. extract SIFT at 240x320 on the card and on the CPU (plain versions) and
    compare the keypoint sets;
 8. the front end at bench.py run_sift's size (960x1280 uint8, default
    options): ms per image single and in batches of 4, keypoints per image,
    a cross-checked match against a 5-px shift, batched matching of 4 pairs;
-   the launch counters are zeroed just before and read just after;
+   the launch counters are zeroed just before and read just after; then
+   top-2 against its plain version and timed at the first pair's shape
+   and at the four pairs padded to powers of two in one batch;
 9. profile one full-width extract with torch.profiler;
 10. hold the bf16 CG matvec to its plain version (float64 on the same bf16
-    values) at the bench shape, with J captured from the main path, and at
-    irregular shapes (NP 3, 5, 8, 12, three cameras, ragged P); time it;
+    values) at the bench shape, with J captured from the main path, also in
+    its global-atomic mode, at irregular shapes (NP 3, 5, 8, 12, three
+    cameras, ragged P) and with an empty [4, 128] bucket beside two
+    non-empty ones, each call one launch; time it and its host wall;
 11. ``bundle_adjustment(reconstruction)`` at full width: the bench's
     128-image / 100k-point problem as a Reconstruction, written and read
     back as a COLMAP binary model, adjusted on the card with default
@@ -71,7 +78,8 @@ Phases (each raises on failure; the script then exits nonzero):
     in phase 16's solve, at an irregular three-model bundle of width 13
     (SIMPLE_PINHOLE, FULL_OPENCV and FOV near omega = 0, plus a camera whose
     selector names no listed model), at one bundle holding all 11 models,
-    and, with prepare, matvec and matvec16, at the mixed widths 6, 9 and 13;
+    and, with prepare, matvec and matvec16, at the mixed widths 6, 9 and 13
+    (matvec16 timed at phase 16's width 9);
 16. ``bundle_adjustment`` of a mixed-model model at full width: phase 11's
     128-image / 100k-point ring, even images through a SIMPLE_RADIAL camera
     and odd ones through an OPENCV camera, observations projected in
@@ -98,6 +106,7 @@ The last lines are one JSON object describing every kernel, the card's
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -126,6 +135,7 @@ try:
         Camera, Database, DatabaseTransaction, Image, Reconstruction, Track,
         TrackElement,
     )
+    from pycolmap_torch.sfm import _cuda as sfm_cuda
     from pycolmap_torch.sfm import ba_kernels as bk
     from pycolmap_torch.sfm import cg_kernel as ck
     from pycolmap_torch.estimators import (
@@ -151,6 +161,7 @@ except ImportError as e:  # run outside the repository
 # tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12  # dense tensor-core TF32
 
 BENCH = dict(num_images=128, num_points=100_000, obs_per_point=6,
              pose_noise=0.05, point_noise=0.10, refine_intrinsics=True,
@@ -216,6 +227,10 @@ TOL = {"resjac": 1e-5, "cost": 1e-5, "finish": 1e-5, "prepare": 3e-5,
        # version's own gap (check_pm_cost)
        "pm_cost": 2e-5}
 TOP2_MARGIN = 1e-5
+# where the bf16 matvec keeps its sums (csrc/schur.cu Mv16Sums), and the
+# image counts phase 10 also checks and times it at
+MATVEC16_SUMS = {0: "global atomics", 1: "block", 2: "warps"}
+MATVEC16_IMAGES = (256, 1024, 2048, 5120, 10240)
 SIFT_H, SIFT_W = 960, 1280  # bench.py run_sift's images
 # the kernels phase 2 chains as in an LM step (the bf16 matvec: phase 10)
 F32_KERNELS = ("resjac", "cost", "finish", "prepare", "matvec")
@@ -638,6 +653,16 @@ def bench_solve(cg_bf16):
         raise AssertionError(f"{tag}: kernels never launched on the main "
                              f"path: {missing}; {unused} launched "
                              f"{launches[unused]} times")
+    # the bf16 matvec launches once per CG iteration for all buckets, the
+    # f32 one once per bucket
+    cg_total = sum(r[2].cg_iterations for r in runs + ones)
+    name = "matvec16" if cg_bf16 else "matvec"
+    want = cg_total * (1 if cg_bf16 else len(solver._buckets))
+    log(f"bench {tag}: {name} launches {launches[name]} over {cg_total} CG "
+        f"iterations (expected {want})")
+    if launches[name] != want:
+        raise AssertionError(f"{tag}: {launches[name]} {name} launches, "
+                             f"expected {want}")
     if any(plain_on_cuda.values()):
         raise AssertionError(f"plain versions ran on CUDA tensors: "
                              f"{plain_on_cuda}")
@@ -814,7 +839,7 @@ def unit_rows(g, *shape):
     return torch.nn.functional.normalize(torch.randn(*shape, generator=g), dim=-1)
 
 
-def check_top2(tag, d1, d2, n1, n2, results=None):
+def check_top2(tag, d1, d2, n1, n2, results=None, phase="phase 6"):
     """Kernel vs plain (float64) over the rows < n1 of every pair."""
     kb, ks, ki = mk.top2_batch(d1, d2, n2)
     pb, ps, pi = mk.top2_plain(d1.double(), d2.double(), n2)
@@ -829,7 +854,7 @@ def check_top2(tag, d1, d2, n1, n2, results=None):
         raise AssertionError(f"[{tag}] top2: similarity error {err[1]:.3e} "
                              f"(tol {TOL['top2']:.0e}), {bad_idx} indices "
                              f"differ where the margin exceeds {TOP2_MARGIN}")
-    log(f"phase 6 top2 {tag}: B {d1.shape[0]}, N1 {d1.shape[1]}, N2 "
+    log(f"{phase} top2 {tag}: B {d1.shape[0]}, N1 {d1.shape[1]}, N2 "
         f"{d2.shape[1]}, n1 {n1.tolist()}, n2 {n2.tolist()}; max abs err "
         f"{err[0]:.3e}, index checks on {int(clear.sum())} rows")
     if results is None:
@@ -838,24 +863,34 @@ def check_top2(tag, d1, d2, n1, n2, results=None):
     pairs = list(zip(n1.tolist(), n2.tolist()))
     ops = sum(2 * a * b * D for a, b in pairs)
     nbytes = sum((a + b) * D * 4 + a * 12 for a, b in pairs)
-    t_ops = ops / F32_FLOPS * 1e3
+    # the kernel's work: three TF32 products (hi.hi', hi.lo', lo.hi') on
+    # the tensor cores; the first port's f32 SIMT figure stays beside it
+    t_ops = 3 * ops / TF32_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     # yardstick: two PyTorch calls, the full product and topk over it
     results[tag] = dict(
         max_abs_err=err[0], scaled_err=err[1],
         ms=time_gpu(lambda: mk.top2_batch(d1, d2, n2)),
+        call_host_ms=host_ms(lambda: mk.top2_batch(d1, d2, n2), 50),
         plain_ms=time_gpu(lambda: mk.top2_plain(d1, d2, n2), 5),
         library_ms=time_gpu(lambda: torch.topk(
             torch.matmul(d1, d2.transpose(1, 2)), 2, dim=2)),
         bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_note="3xTF32: 3 x 2 N1 N2 D flops at 495 TFLOP/s",
+        bound_ms_f32=max(ops / F32_FLOPS * 1e3, t_bytes),
         gflop=ops / 1e9,
+        split=mk.top2_split(d1.shape[0], d1.shape[1], d2.shape[1],
+                            torch.cuda.get_device_properties(0)
+                            .multi_processor_count),
     )
     r = results[tag]
-    log(f"phase 6 top2 {tag}: kernel {r['ms']:.4f} ms "
-        f"({r['gflop'] / r['ms']:.2f} TFLOP/s), plain {r['plain_ms']:.3f} ms, "
-        f"matmul+topk {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-        f"({r['bound_by']})")
+    log(f"{phase} top2 {tag}: kernel {r['ms']:.4f} ms "
+        f"({r['gflop'] / r['ms']:.2f} TFLOP/s of f32 products, split "
+        f"{r['split']}), host wall per call {r['call_host_ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.3f} ms, matmul+topk {r['library_ms']:.4f} "
+        f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, 3xTF32; f32 "
+        f"SIMT {r['bound_ms_f32']:.4f} ms)")
     return err
 
 
@@ -1029,9 +1064,39 @@ def front_end():
         f"{len(b)}, Jaccard {jac:.4f} (tol 0.99)")
     if jac < 0.99:
         raise AssertionError("card and CPU match sets disagree")
+    top2_res = phase8_top2(pairs)
     return launches, dict(single_ms=single_ms, batch_ms=batch_ms,
                           keypoints=float(np.mean(kps)), match_ms=match_ms,
-                          batch_match_ms=batch_match_ms)
+                          batch_match_ms=batch_match_ms), top2_res
+
+
+def phase8_top2(pairs):
+    """top-2 against its plain version and timed at phase 8's shapes (after
+    the main path's counts are read): the first pair as the single match
+    launches it, and the four pairs padded to powers of two in one batch,
+    as match_descriptors_batch launches them."""
+    dev = torch.device("cuda")
+    results = {}
+    units = [(fm._to_unit_float(a), fm._to_unit_float(b)) for a, b in pairs]
+    u1, u2 = units[0]
+    n1 = torch.tensor([len(u1)], device=dev)
+    check_top2("phase 8 pair", torch.from_numpy(u1)[None].to(dev),
+               torch.from_numpy(u2)[None].to(dev), n1,
+               torch.tensor([len(u2)], device=dev, dtype=torch.int32),
+               results, phase="phase 8")
+    n1p = max(256, 1 << (max(len(a) for a, _ in units) - 1).bit_length())
+    n2p = max(256, 1 << (max(len(b) for _, b in units) - 1).bit_length())
+    D1 = np.zeros((len(units), n1p, 128), np.float32)
+    D2 = np.zeros((len(units), n2p, 128), np.float32)
+    for k, (a, b) in enumerate(units):
+        D1[k, :len(a)], D2[k, :len(b)] = a, b
+    check_top2("phase 8 batch", torch.from_numpy(D1).to(dev),
+               torch.from_numpy(D2).to(dev),
+               torch.tensor([len(a) for a, _ in units], device=dev),
+               torch.tensor([len(b) for _, b in units], device=dev,
+                            dtype=torch.int32), results, phase="phase 8")
+    torch.cuda.empty_cache()
+    return results
 
 
 def profile_extract():
@@ -1075,10 +1140,10 @@ def capture_matvec16_inputs():
     calls = []
     wrapper = ck.schur_matvec16
 
-    def record(*args):
+    def record(*args, **kw):
         if not calls:
             calls.append(args)
-        return wrapper(*args)
+        return wrapper(*args, **kw)
 
     ck.schur_matvec16 = record
     try:
@@ -1114,7 +1179,13 @@ def check_matvec16(tag, buckets, J16_l, Vinv_l, x_pose, x_intr, I, C,
                    results=None, phase="phase 10"):
     """Kernel vs matvec16_plain in float64 on the same bf16 values."""
     NP = J16_l[0].shape[0] - 9
-    got = ck.schur_matvec16(buckets, J16_l, Vinv_l, x_pose, x_intr, I, C)
+    before = ck.LAUNCHES["matvec16"]
+    got = [t.clone() for t in
+           ck.schur_matvec16(buckets, J16_l, Vinv_l, x_pose, x_intr, I, C)]
+    if ck.LAUNCHES["matvec16"] != before + 1:
+        raise AssertionError(f"[{tag}] matvec16: "
+                             f"{ck.LAUNCHES['matvec16'] - before} launches "
+                             f"for {len(buckets)} buckets, expected 1")
 
     def plain(dt):
         mp = torch.zeros((I, 6), device=x_pose.device, dtype=dt)
@@ -1132,28 +1203,59 @@ def check_matvec16(tag, buckets, J16_l, Vinv_l, x_pose, x_intr, I, C,
     if not err[1] <= TOL["matvec16"]:
         raise AssertionError(f"[{tag}] matvec16: kernel vs plain scaled "
                              f"error {err[1]:.3e} > {TOL['matvec16']:.0e}")
+    # with the per-warp sums (no float atomics) a second call gives the
+    # same bits; it reuses one table, as the CG loop of an LM step does
+    config = sfm_cuda.matvec16_config(NP, I, C)
+    fixed = config["sums"] == ck.MATVEC16_SUMS_WARPS
+    launch = ck.matvec16_launch(buckets, J16_l, Vinv_l, I, C)
+
+    def call():
+        return ck.schur_matvec16(buckets, J16_l, Vinv_l, x_pose, x_intr, I, C,
+                                 launch=launch)
+
+    again = call()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    if fixed and not same:
+        raise AssertionError(f"[{tag}] matvec16: two calls differ")
     shapes = [tuple(b.mask.shape) for b in buckets]
     log(f"{phase} matvec16 {tag}: NP {NP}, I {I}, C {C}, buckets [T, P] "
-        f"{shapes}; scaled err {err[1]:.2e} (max abs {err[0]:.3e})")
+        f"{shapes}; sums {MATVEC16_SUMS[config['sums']]} "
+        f"({config['smem_bytes']} B shared, {config['blocks_per_sm']} "
+        f"blocks per SM); scaled err {err[1]:.2e} (max abs {err[0]:.3e}); "
+        f"a second call bit-equal: {same}")
     if results is None:
         return err
     results[tag] = dict(
-        max_abs_err=err[0], scaled_err=err[1],
-        ms=time_gpu(lambda: ck.schur_matvec16(buckets, J16_l, Vinv_l, x_pose,
-                                              x_intr, I, C)),
+        max_abs_err=err[0], scaled_err=err[1], I=I,
+        sums=MATVEC16_SUMS[config["sums"]],
+        ms=time_gpu(call), call_host_ms=host_ms(call),
         plain_ms=time_gpu(lambda: plain(torch.float32), 5),
         **matvec16_bound(buckets, J16_l, I, C),
     )
     r = results[tag]
-    log(f"{phase} matvec16 {tag}: kernel {r['ms']:.4f} ms, plain "
-        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-        f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)")
+    log(f"{phase} matvec16 {tag}: kernel {r['ms']:.4f} ms, host wall per "
+        f"call {r['call_host_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+        f"{r['bytes'] / 1e6:.1f} MB)")
     return err
+
+
+def ladder_widths(case):
+    """The case with each bucket padded to a multiple of 128 columns, as
+    bucketize pads (padded columns: mask 0, index 0, all-zero J)."""
+    def pad(t):
+        w = -(-t.shape[-1] // 128) * 128
+        return torch.nn.functional.pad(t, (0, w - t.shape[-1])).contiguous()
+
+    out = copy.copy(case)
+    out.buckets = [bk.Bucket(*(pad(t) for t in b)) for b in case.buckets]
+    return out
 
 
 def check_case_matvec16(tag, case, phase, results=None):
     """check_matvec16 on a case's own J (packed to bf16) and Vinv, as the
-    kernels of an LM step give them."""
+    kernels of an LM step give them, at ladder widths."""
+    case = ladder_widths(case)
     res_l, J_l = ck.res_and_jac(case.buckets, case.pts, case.quat,
                                 case.trans, case.intr, case.intr_free,
                                 case.model_id, case.loss_type,
@@ -1166,17 +1268,62 @@ def check_case_matvec16(tag, case, phase, results=None):
                           results=results, phase=phase)
 
 
+def spread_images(captured, I):
+    """The bench capture over I images (a multiple of 128): the columns of
+    each run of 1024 points see the bench's 128 images shifted by 128 (run
+    % (I / 128)), so co-visible images stay local as in a large scene; J16,
+    Vinv and the CG direction are the bench's, x_pose repeated per 128
+    images."""
+    buckets, J16_l, Vinv_l, x_pose, x_intr, I0, C = captured
+    out = []
+    for b in buckets:
+        col = torch.arange(b.img_idx.shape[1], device=b.img_idx.device)
+        shift = I0 * ((col // 1024) % (I // I0))
+        out.append(b._replace(img_idx=(b.img_idx + shift).int().contiguous()))
+    xp = x_pose.repeat(I // I0, 1).contiguous()
+    return out, J16_l, Vinv_l, xp, x_intr, I, C
+
+
 def bf16_matvec():
+    """Phase 10; returns the bench's numbers, with those at larger I under
+    "larger"."""
     dev = torch.device("cuda")
     results = {}
-    check_matvec16("bench", *capture_matvec16_inputs(), results=results)
+    captured = capture_matvec16_inputs()
+    check_matvec16("bench", *captured, results=results)
+    # larger reconstructions, each checked and timed: at NP 4 with one
+    # camera the per-warp sums up to ~150 images, the block's shared sums up
+    # to ~3,100, global atomics above
+    for I in MATVEC16_IMAGES:
+        check_matvec16(f"{I} images", *spread_images(captured, I),
+                       results=results)
+    del captured
     torch.cuda.empty_cache()
     # NP 3, 5, 8, 12 (SIMPLE_PINHOLE, RADIAL, OPENCV, FULL_OPENCV), three
-    # cameras, buckets of widths that are no multiple of 128
+    # cameras, buckets of widths 300, 1000 and 77 padded to the ladder's
     for model_id in (0, 3, 4, 6):
         case = irregular_cases(model_id, 0, dev, seed=20 + model_id)
         check_case_matvec16(f"irregular model {model_id}", case, "phase 10")
-    return results["bench"]
+    # one launch for an empty [4, 128] bucket (all-zero J, index 0) beside
+    # two non-empty ones
+    case = ladder_widths(irregular_cases(2, 0, dev, seed=29))
+    res_l, J_l = ck.res_and_jac(case.buckets, case.pts, case.quat,
+                                case.trans, case.intr, case.intr_free,
+                                case.model_id, case.loss_type,
+                                case.loss_scale)
+    Vinv_l = ck.schur_prepare(case.buckets, J_l, res_l, case.lam, case.I,
+                              case.C)[0]
+    zi = torch.zeros((4, 128), dtype=torch.int32, device=dev)
+    empty = case.buckets[0]._replace(img_idx=zi, cam_idx=zi,
+                                     mask=torch.zeros((4, 128), device=dev))
+    check_matvec16("empty + 2 buckets", [empty] + case.buckets[1:],
+                   [torch.zeros((9 + case.NP, 8, 128), dtype=torch.bfloat16,
+                                device=dev)]
+                   + [ck.pack_j_bf16(J) for J in J_l[1:]],
+                   [torch.zeros((6, 128), device=dev)] + Vinv_l[1:],
+                   case.x_pose, case.x_intr, case.I, case.C)
+    bench = results.pop("bench")
+    return dict(bench, larger=results)
 
 
 # ---------------------------------------------------------------------------
@@ -2041,10 +2188,13 @@ def mixed_kernels(captured):
     results = {}
     check_case(case, "phase 16 capture", results)
     # the bf16 matvec at the width and buckets phase 16's CG loop gives it
-    check_case_matvec16("phase 16 capture", case, "phase 15", {})
+    check_case_matvec16("phase 16 capture", case, "phase 15", results)
+    results["matvec16"] = results.pop("phase 16 capture")
     del case
     torch.cuda.empty_cache()
     for name, r in results.items():
+        if name == "matvec16":
+            continue  # logged by check_matvec16
         log(f"phase 15 {name} at phase 16's inputs (model_id {model_id}): "
             f"scaled err {r['scaled_err']:.2e} (max abs "
             f"{r['max_abs_err']:.3e}; plain f32 err "
@@ -2253,9 +2403,21 @@ def main():
             kernels=kernel_resources("mvs/csrc/pm_cost.cu"),
             blocks_per_sm={"full field": mvs_cuda.occupancy(False, 36),
                            "parity": mvs_cuda.occupancy(True, 36)}),
+        "matvec16": dict(
+            kernels={k: v for k, v in
+                     kernel_resources("sfm/csrc/schur.cu").items()
+                     if k.startswith("matvec16")},
+            # the bench's width and tables, and phase 16's
+            bench=sfm_cuda.matvec16_config(4, 128, 1),
+            width9=sfm_cuda.matvec16_config(9, 128, 2),
+            **{f"{i} images": sfm_cuda.matvec16_config(4, i, 1)
+               for i in MATVEC16_IMAGES}),
+        "top2": dict(kernels=kernel_resources("features/csrc/top2.cu"),
+                     **features_cuda.top2_resources(128)),
     }
     log(f"phase 1: registers, spills and resident blocks per SM (nw 36) of "
-        f"the sampler and the cost kernel: {json.dumps(resources)}")
+        f"the sampler and the cost kernel, and the bf16 matvec and top-2 "
+        f"kernels: {json.dumps(resources)}")
 
     # the probe's counts over phases 2-17, the user paths
     pg.reset_counts()
@@ -2301,7 +2463,7 @@ def main():
     # --- phases 6-9: the feature front end ----------------------------------
     feat = feature_kernels()
     sift_parity()
-    feat_launches, e2e = front_end()
+    feat_launches, e2e, feat8 = front_end()
     profile_extract()
     log(f"front end summary: {json.dumps(e2e)}")
 
@@ -2352,6 +2514,18 @@ def main():
     for name in SINGLE_BA:
         src, rep = KERNEL_INFO[name]
         r = results[name]
+        extra = {}
+        if name == "matvec16":  # phase 15's width 9 and the host wall
+            w9 = mixed_res["matvec16"]
+            extra = dict(call_host_ms=r["call_host_ms"], ms_width9=w9["ms"],
+                         bound_ms_width9=w9["bound_ms"],
+                         call_host_ms_width9=w9["call_host_ms"],
+                         max_scaled_err_width9=w9["scaled_err"],
+                         larger={k: {f: v[f] for f in ("sums", "ms",
+                                                       "bound_ms",
+                                                       "max_abs_err")}
+                                 for k, v in r["larger"].items()},
+                         resources=resources["matvec16"])
         # the f32 matvec runs in the f32-setting bench solve; every other
         # BA kernel's count is the default (bf16) solve's
         ln, ps = ((launches32, per_step32) if name == "matvec"
@@ -2364,6 +2538,7 @@ def main():
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
             library_note="no single PyTorch call computes this function",
+            **extra,
         ))
     # the sampler's row is its descriptor launch (the larger of the two per
     # octave); the orientation launch is logged in phase 6
@@ -2388,6 +2563,17 @@ def main():
         library_ms_orientation=o["library_ms"],
         bound_ms_orientation=o["bound_ms"],
         resources=resources["window_sampler"])
+    # top-2 at phase 8's pair and padded batch beside the 8192^2 row
+    kernels[-1].update(
+        bound_ms_f32=feat["8192x8192"]["bound_ms_f32"],
+        bound_note=feat["8192x8192"]["bound_note"],
+        split=feat["8192x8192"]["split"],
+        call_host_ms=feat["8192x8192"]["call_host_ms"],
+        resources=resources["top2"],
+        **{f"{k}_{tag}": feat8[f"phase 8 {tag}"][k]
+           for tag in ("pair", "batch")
+           for k in ("ms", "bound_ms", "bound_ms_f32", "library_ms",
+                     "plain_ms", "max_abs_err", "split", "call_host_ms")})
     # the cost kernel's row: the captured photometric call (the geometric
     # one is logged in phase 13)
     src, rep = KERNEL_INFO["pm_cost"]

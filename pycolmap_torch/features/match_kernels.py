@@ -12,6 +12,11 @@ Semantics (reference pallas_kernels.py:39-60): columns >= n2 read -2.0; on
 equal maxima the lowest column wins; ``second`` is the largest similarity of
 any other column, so an exact duplicate of the best gives second == best.
 
+On the card one launch covers the batch: each pair's rows are cut into
+tiles of ``TOP2_BM`` and each row tile's valid column tiles (``TOP2_BN``
+wide) into ``top2_split`` shares, one block each; the last block of a row
+tile merges the shares' states in order.
+
 ``LAUNCHES`` counts kernel launches; ``PLAIN_ON_CUDA`` counts calls of the
 plain version on CUDA tensors (only ``chip_smoke.py``'s comparisons make
 those). ``reset_counts()`` zeroes both.
@@ -25,6 +30,10 @@ from pycolmap_torch.features import _cuda
 
 LAUNCHES = {"top2": 0}
 PLAIN_ON_CUDA = {"top2": 0}
+TOP2_BM = 128  # rows per block (csrc/top2.cu BM)
+TOP2_BN = 128  # columns per tile (BN)
+TOP2_MAX_D = 160  # kMaxD: the staged rows of d1 fill shared memory
+_tickets = {}  # per device: the row tiles' tickets, 0 between launches
 
 
 def reset_counts() -> None:
@@ -52,11 +61,23 @@ def top2_plain(d1, d2, n2):
     return best, second, idx.to(torch.int32)
 
 
+def top2_split(B, N1, N2, sms):
+    """Column shares per row tile: the count that fills whole waves of
+    `sms` blocks best, with each block's staging of its rows of d1 costed
+    as half a column tile (the smallest count on a tie)."""
+    row_tiles = B * -(-N1 // TOP2_BM)
+    col_tiles = max(1, -(-N2 // TOP2_BN))
+    return min(range(1, col_tiles + 1),
+               key=lambda s: (-(-row_tiles * s // sms)
+                              * (-(-col_tiles // s) + 0.5), s))
+
+
 def top2_batch(d1, d2, n2):
     """d1 [B, N1, D], d2 [B, N2, D] f32 (unit-norm descriptors, D a
     multiple of 4 on the card), n2 [B] int valid columns per pair. Returns
     (best [B, N1], second [B, N1], idx [B, N1] int32). CUDA tensors launch
-    the kernel once for the whole batch; CPU tensors run the plain version.
+    the kernel once for the whole batch (D at most TOP2_MAX_D); CPU tensors
+    run the plain version.
     """
     if d1.dim() != 3 or d2.dim() != 3 or d1.shape[0] != d2.shape[0] \
             or d1.shape[2] != d2.shape[2]:
@@ -66,14 +87,26 @@ def top2_batch(d1, d2, n2):
     n2 = torch.as_tensor(n2, dtype=torch.int32, device=d1.device).reshape(B)
     if not d1.is_cuda:
         return top2_plain(d1, d2, n2)
-    if D % 4:
-        raise ValueError(f"top2 kernel needs D % 4 == 0, got D = {D}")
-    best = torch.empty((B, N1), device=d1.device)
-    second = torch.empty((B, N1), device=d1.device)
-    idx = torch.empty((B, N1), dtype=torch.int32, device=d1.device)
+    if D % 4 or not 4 <= D <= TOP2_MAX_D:
+        raise ValueError(f"top2 kernel needs D % 4 == 0 and 4 <= D <= "
+                         f"{TOP2_MAX_D}, got D = {D}")
+    dev = d1.device
+    best = torch.empty((B, N1), device=dev)
+    second = torch.empty((B, N1), device=dev)
+    idx = torch.empty((B, N1), dtype=torch.int32, device=dev)
+    if B == 0 or N1 == 0:
+        return best, second, idx
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = top2_split(B, N1, d2.shape[1], sms)
+    part = torch.empty(3 * split * B * N1 if split > 1 else 1, device=dev)
+    n_tickets = B * -(-N1 // TOP2_BM)
+    tickets = _tickets.get(dev)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = _tickets[dev] = torch.zeros(n_tickets, dtype=torch.int32,
+                                              device=dev)
     LAUNCHES["top2"] += 1
-    _cuda.top2(d1.contiguous(), d2.contiguous(), n2.contiguous(), best,
-               second, idx)
+    _cuda.top2(d1.contiguous(), d2.contiguous(), n2.contiguous(), split,
+               best, second, idx, part, tickets)
     return best, second, idx
 
 

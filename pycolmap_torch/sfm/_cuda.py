@@ -39,7 +39,8 @@ _SIGNATURES = {
     "schur.cu": {
         "ba_prepare": [_I] + [_P] * 5 + [_I] * 4 + [_P] * 5,
         "ba_matvec": [_I] + [_P] * 6 + [_I] * 4 + [_P] * 3,
-        "ba_matvec16": [_I] + [_P] * 6 + [_I] * 4 + [_P] * 3,
+        "ba_matvec16": [_I] + [_P] * 3 + [_I] * 3 + [_P, _I] + [_P] * 4,
+        "ba_matvec16_config": [_I] * 3 + [_P] * 4,
     },
     "gather.cu": {
         "ba_gather": [_P] * 4 + [_I] * 5 + [_P] * 3,
@@ -127,12 +128,46 @@ def matvec(NP, J, img_idx, cam_idx, vinv, xpose, xintr, I, C, out_pose,
           _ptr(out_intr))
 
 
-def matvec16(NP, J16, img_idx, cam_idx, vinv, xpose, xintr, I, C, out_pose,
-             out_intr):
-    T, P = img_idx.shape
-    _call("schur.cu", "ba_matvec16", NP, _ptr(J16, torch.bfloat16),
-          _i32(img_idx), _i32(cam_idx), _ptr(vinv), _ptr(xpose), _ptr(xintr),
-          T, P, I, C, _ptr(out_pose), _ptr(out_intr))
+class _Mv16Bucket(ctypes.Structure):
+    """Mv16Bucket in csrc/schur.cu: one row of the bucket table."""
+    _fields_ = [("J16", _P), ("img", _P), ("cam", _P), ("vinv", _P),
+                ("T", _I), ("P", _I), ("tile_p", _I), ("first_tile", _I)]
+
+
+class _Mv16Table(ctypes.Structure):
+    """Mv16Table in csrc/schur.cu (kMv16MaxBuckets rows)."""
+    _fields_ = [("b", _Mv16Bucket * 8), ("nb", _I), ("n_tiles", _I)]
+
+
+def matvec16_table(rows, n_tiles, buckets, J16_l, Vinv_l):
+    """The kernel's bucket table: the operands' pointers beside each row
+    (T, P, tile_p, first_tile) of cg_kernel.matvec16_table."""
+    tab = _Mv16Table(nb=len(rows), n_tiles=n_tiles)
+    for i, ((T, P, tp, first), b, J16, V) in enumerate(
+            zip(rows, buckets, J16_l, Vinv_l)):
+        tab.b[i] = _Mv16Bucket(_ptr(J16, torch.bfloat16), _i32(b.img_idx),
+                               _i32(b.cam_idx), _ptr(V), T, P, tp, first)
+    return tab
+
+
+def matvec16(NP, launch, xpose, xintr, I, C, out_pose, out_intr):
+    """One launch over `launch`'s table (cg_kernel.Matvec16Launch)."""
+    _call("schur.cu", "ba_matvec16", NP, ctypes.addressof(launch.table),
+          _ptr(xpose), _ptr(xintr), I, C, launch.sums, _ptr(launch.partials),
+          launch.max_clusters, _i32(launch.ticket), _ptr(out_pose),
+          _ptr(out_intr))
+
+
+def matvec16_config(NP, I, C):
+    """Where a matvec16 launch at width NP with I images and C cameras
+    keeps x and its sums (``sums``: 2 per warp, 1 per block, 0 global
+    atomics), its dynamic shared memory (bytes) and resident blocks per
+    SM."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    _call("schur.cu", "ba_matvec16_config", NP, I, C,
+          *(ctypes.byref(v) for v in vals))
+    return dict(sums=vals[0].value, smem_bytes=vals[1].value,
+                blocks_per_sm=vals[2].value)
 
 
 def gather(img_tab, cam_tab, img_idx, cam_idx, out_i, out_c):

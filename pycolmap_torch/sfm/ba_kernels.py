@@ -454,13 +454,14 @@ def _lm_solve_bucketed(
         rhs_intr = rhs_intr * intr_free
         damp_pose, damp_intr, precond = precond_factory(lam, udp, udi,
                                                         S_blocks)
-        if cg_bf16:  # one pack per LM step; the CG loop re-reads it
+        if cg_bf16:  # one pack (and kernel table) per LM step
             J16_l = [ck.pack_j_bf16(J) for J in J_l]
+            mv16 = ck.matvec16_launch(buckets, J16_l, Vinv_l, I, C)
 
         def matvec(x_pose, x_intr):
             if cg_bf16:
                 mp, mi = ck.schur_matvec16(buckets, J16_l, Vinv_l, x_pose,
-                                           x_intr, I, C)
+                                           x_intr, I, C, launch=mv16)
             else:
                 mp, mi = ck.schur_matvec(buckets, J_l, Vinv_l, x_pose,
                                          x_intr, I, C)

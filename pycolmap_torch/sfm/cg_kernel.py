@@ -31,7 +31,9 @@ where-select per observation, as the reference does.
 
 ``schur_matvec16`` reads J packed to bf16 by ``pack_j_bf16`` (the
 reference's layout and rounding), once per LM step; prepare, finish and the
-cost keep reading the f32 J, as in the reference.
+cost keep reading the f32 J, as in the reference. On the card it is one
+launch for all buckets, over a table of their tiles (``matvec16_table``)
+that ``matvec16_launch`` builds once per LM step.
 
 ``LAUNCHES`` counts kernel launches per kernel; ``PLAIN_ON_CUDA`` counts
 calls of a plain version on CUDA tensors (only ``chip_smoke.py``'s
@@ -386,12 +388,105 @@ def schur_matvec(buckets, J_l, Vinv_l, x_pose, x_intr, I, C):
                            x_intr, I, C)
 
 
-def schur_matvec16(buckets, J16_l, Vinv_l, x_pose, x_intr, I, C):
+# ---------------------------------------------------------------------------
+# the bf16 matvec: one launch over a table of every bucket
+# ---------------------------------------------------------------------------
+
+MATVEC16_TILE_SLOTS = 256  # kMv16Slots in csrc/schur.cu: T x columns a tile
+MATVEC16_MAX_T = 64  # kMv16MaxT: the bucket ladder's longest tracks
+MATVEC16_MAX_BUCKETS = 8  # kMv16MaxBuckets
+MATVEC16_CLUSTER = 8  # kMv16Cluster: blocks whose sums meet in DSMEM
+MATVEC16_SUMS_WARPS = 2  # kMv16SumsWarps: the fixed-order, per-warp sums
+
+
+def matvec16_tile_p(T):
+    """Columns per tile of a bucket of T slots: the largest power of two
+    with T tile_p <= 256, at most 128 (4 at the ladder's T = 64)."""
+    if not 1 <= T <= MATVEC16_MAX_T:
+        raise ValueError(f"matvec16 takes buckets of 1..{MATVEC16_MAX_T} "
+                         f"slots, got T = {T}")
+    return min(128, 1 << ((MATVEC16_TILE_SLOTS // T).bit_length() - 1))
+
+
+def matvec16_table(shapes):
+    """The kernel's bucket table from the buckets' [T, P]: per bucket
+    (T, P, tile_p, first_tile) in launch order, and the tile count. P must
+    be a multiple of 8 (bucketize pads to multiples of 128)."""
+    if not 1 <= len(shapes) <= MATVEC16_MAX_BUCKETS:
+        raise ValueError(f"matvec16 takes 1..{MATVEC16_MAX_BUCKETS} buckets, "
+                         f"got {len(shapes)}")
+    rows, first = [], 0
+    for T, P in shapes:
+        if P % 8:
+            raise ValueError(f"matvec16 takes buckets of a multiple of 8 "
+                             f"columns, got P = {P}")
+        tp = matvec16_tile_p(T)
+        rows.append((T, P, tp, first))
+        first += -(-P // tp)
+    return tuple(rows), first
+
+
+class Matvec16Launch:
+    """What the card's matvec16 needs beside x, for one set of bucket
+    operands (one LM step's J16 and Vinv): the bucket table (a ctypes
+    struct passed by value, holding the operands' pointers), where x and
+    the sums live, and for the per-warp sums the clusters' partial rows and
+    the ticket (0 between launches)."""
+
+    def __init__(self, buckets, J16_l, Vinv_l, I, C):
+        dev = J16_l[0].device
+        NP = J16_l[0].shape[0] - 9
+        ops = [t for b, J, V in zip(buckets, J16_l, Vinv_l)
+               for t in (b.img_idx, b.cam_idx, J, V)]
+        if any(t.data_ptr() % 16 for t in ops):
+            raise ValueError("matvec16 operands must be 16-byte aligned")
+        self.operands = (list(J16_l), list(Vinv_l), list(buckets))  # alive
+        self.rows, self.n_tiles = matvec16_table(
+            [tuple(b.img_idx.shape) for b in buckets])
+        self.table = _cuda.matvec16_table(self.rows, self.n_tiles, buckets,
+                                          J16_l, Vinv_l)
+        self.sums = _cuda.matvec16_config(NP, I, C)["sums"]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        # at most 8 blocks per SM (csrc kMv16MaxPerSm), 8 per cluster
+        self.max_clusters = -(-8 * sms // MATVEC16_CLUSTER)
+        warps = self.sums == MATVEC16_SUMS_WARPS
+        n = self.max_clusters * (I * 6 + C * NP) if warps else 1
+        self.partials = torch.empty(n, device=dev)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+
+
+def matvec16_launch(buckets, J16_l, Vinv_l, I, C):
+    """The :class:`Matvec16Launch` of one LM step's operands for
+    schur_matvec16 (None off the card, where the plain version needs
+    none)."""
+    if not _is_cuda(J16_l[0]):
+        return None
+    return Matvec16Launch(buckets, J16_l, Vinv_l, I, C)
+
+
+def schur_matvec16(buckets, J16_l, Vinv_l, x_pose, x_intr, I, C,
+                   launch=None):
     """Implicit S x over all buckets from bf16-packed J (see pack_j_bf16);
-    otherwise as schur_matvec."""
-    return _matvec_buckets("matvec16", _cuda.matvec16, matvec16_plain,
-                           J16_l[0].shape[0] - 9, buckets, J16_l, Vinv_l,
-                           x_pose, x_intr, I, C)
+    otherwise as schur_matvec. On the card one launch covers every bucket,
+    over `launch` (matvec16_launch of these operands, built here when
+    None). Bucket widths must be multiples of 8."""
+    NP = J16_l[0].shape[0] - 9
+    if not _is_cuda(J16_l[0]):
+        return _matvec_buckets("matvec16", None, matvec16_plain, NP, buckets,
+                               J16_l, Vinv_l, x_pose, x_intr, I, C)
+    if launch is None:
+        launch = Matvec16Launch(buckets, J16_l, Vinv_l, I, C)
+    elif not all(a is b for a, b in zip(launch.operands[0], J16_l)):
+        raise ValueError("schur_matvec16: launch was built for other operands")
+    dev = J16_l[0].device
+    x_pose = x_pose.contiguous()
+    x_intr = x_intr[:, :NP].contiguous()
+    mk = torch.empty if launch.sums == MATVEC16_SUMS_WARPS else torch.zeros
+    out_pose = mk((I, 6), device=dev)
+    out_intr = mk((C, NP), device=dev)
+    LAUNCHES["matvec16"] += 1
+    _cuda.matvec16(NP, launch, x_pose, x_intr, I, C, out_pose, out_intr)
+    return out_pose, out_intr
 
 
 # ---------------------------------------------------------------------------

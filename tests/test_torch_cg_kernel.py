@@ -23,6 +23,16 @@ NP = 4
 T, P, I, C = 4, 128, 6, 2
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One PyTorch intra-op thread per test: the suite runs test files in
+    parallel workers, whose thread pools would otherwise contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(seed):
     """numpy inputs of one bucket; ~30% mask holes, ~20% fixed points."""
     rng = np.random.default_rng(seed)
@@ -325,3 +335,104 @@ def test_schur_matvec16_matches_f32():
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy() / scale, r.numpy() / scale,
                                    atol=3e-2)
+
+
+# ---------------------------------------------------------------------------
+# the one-launch bf16 matvec's bucket table (csrc/schur.cu matvec16_kernel)
+# ---------------------------------------------------------------------------
+
+
+def test_matvec16_tiles():
+    """Tiles hold at most 256 slots: 128 columns up to T = 2, 4 at the
+    ladder's T = 64; tiles run bucket after bucket."""
+    assert [tck.matvec16_tile_p(t) for t in (1, 4, 5, 8, 12, 16, 32, 64)] \
+        == [128, 64, 32, 32, 16, 16, 8, 4]
+    with pytest.raises(ValueError):
+        tck.matvec16_tile_p(65)
+    rows, n = tck.matvec16_table([(4, 128), (8, 131072), (16, 88)])
+    assert rows == ((4, 128, 64, 0), (8, 131072, 32, 2),
+                    (16, 88, 16, 4098)) and n == 4104
+    with pytest.raises(ValueError):
+        tck.matvec16_table([(4, 128)] * 9)
+    with pytest.raises(ValueError):  # widths are multiples of 8
+        tck.matvec16_table([(16, 77)])
+
+
+def _matvec16_walk(rows, n_tiles, buckets, J16_l, Vinv_l, x_pose, x_intr, I,
+                   C, blocks=8, cluster=tck.MATVEC16_CLUSTER):
+    """The kernel's walk in plain PyTorch: `blocks` blocks take contiguous
+    runs of ceil(n_tiles / blocks) tiles; each sums its tiles' S x; the
+    blocks of a cluster add theirs in rank order, and the clusters' rows
+    are added in cluster order. Returns ([I, 6], [C, NP]) in the dtype of
+    Vinv."""
+    NP = J16_l[0].shape[0] - 9
+    dt, dev = Vinv_l[0].dtype, Vinv_l[0].device
+    starts = [r[3] for r in rows]
+    per = -(-n_tiles // blocks)
+    sums = []
+    for blk in range(blocks):
+        acc_p = torch.zeros((I, 6), dtype=dt, device=dev)
+        acc_i = torch.zeros((C, NP), dtype=dt, device=dev)
+        for tile in range(blk * per, min((blk + 1) * per, n_tiles)):
+            bi = max(i for i, f in enumerate(starts) if f <= tile)
+            T, P, tp, first = rows[bi]
+            cols = slice((tile - first) * tp, min((tile - first + 1) * tp, P))
+            b = buckets[bi]
+            part = b._replace(img_idx=b.img_idx[:, cols],
+                              cam_idx=b.cam_idx[:, cols])
+            op, oi = tck.matvec16_plain(part, J16_l[bi][:, :, cols],
+                                        Vinv_l[bi][:, cols], x_pose.to(dt),
+                                        x_intr[:, :NP].to(dt), I, C)
+            acc_p, acc_i = acc_p + op, acc_i + oi
+        sums.append((acc_p, acc_i))
+    out_p = torch.zeros((I, 6), dtype=dt, device=dev)
+    out_i = torch.zeros((C, NP), dtype=dt, device=dev)
+    for c in range(0, blocks, cluster):
+        part_p = sum(p for p, _ in sums[c:c + cluster])
+        part_i = sum(i for _, i in sums[c:c + cluster])
+        out_p, out_i = out_p + part_p, out_i + part_i
+    return out_p, out_i
+
+
+@pytest.mark.parametrize("NPm", [4, 9])
+def test_matvec16_walk_matches_pallas(NPm):
+    """The kernel's walk of its table (tiles dealt to blocks, block sums
+    added per cluster, cluster rows in order) equals schur_matvec16's plain
+    result and the reference's Pallas kernel (interpret mode), with the
+    bench's empty [4, 128] bucket beside a full one. Width 9 is the mixed
+    SIMPLE_RADIAL + OPENCV bundle's. Tolerance 2e-5 scaled, as the bf16
+    matvec's other tests."""
+    J, ii, ci, Vinv, x_pose, x_intr = _bf16_case(90 + NPm, NPm, 2, T16=8,
+                                                 P16=256, ragged=201)
+    J16_full = jck.pack_j_bf16(jnp.asarray(J))
+    J16_empty = jnp.zeros((9 + NPm, 8, 128), jnp.bfloat16)
+    z_idx = np.zeros((4, 128), np.int32)
+    V_empty = np.zeros((6, 128), np.float32)
+    ref = jck.schur_matvec16(
+        [jbk.Bucket(jnp.asarray(z_idx), jnp.asarray(z_idx), *([None] * 5)),
+         jbk.Bucket(jnp.asarray(ii), jnp.asarray(ci), *([None] * 5))],
+        [J16_empty, J16_full], [jnp.asarray(V_empty), jnp.asarray(Vinv)],
+        jnp.asarray(x_pose), jnp.asarray(x_intr), I, 2, interpret=True)
+    buckets = [_bucket16(z_idx, z_idx), _bucket16(ii, ci)]
+    J16_l = [_to_torch_bf16(J16_empty), _to_torch_bf16(J16_full)]
+    V_l = [torch.from_numpy(V_empty), torch.from_numpy(Vinv)]
+    tck.reset_counts()
+    plain = tck.schur_matvec16(buckets, J16_l, V_l, torch.from_numpy(x_pose),
+                               torch.from_numpy(x_intr), I, 2)
+    assert tck.LAUNCHES["matvec16"] == 0
+    rows, n_tiles = tck.matvec16_table([tuple(b.img_idx.shape)
+                                        for b in buckets])
+    assert rows == ((4, 128, 64, 0), (8, 256, 32, 2)) and n_tiles == 10
+    walk = _matvec16_walk(rows, n_tiles, buckets, J16_l,
+                             [v.double() for v in V_l],
+                             torch.from_numpy(x_pose).double(),
+                             torch.from_numpy(x_intr).double(), I, 2,
+                             blocks=4, cluster=2)  # runs of 3 tiles
+    scale = max(np.abs(np.asarray(ref[0])).max(),
+                np.abs(np.asarray(ref[1])).max(), 1.0)
+    for w, p, r in zip(walk, plain, ref):
+        assert w.shape == p.shape == r.shape
+        np.testing.assert_allclose(w.numpy() / scale, np.asarray(r) / scale,
+                                   atol=2e-5)
+        np.testing.assert_allclose(w.numpy() / scale, p.numpy() / scale,
+                                   atol=2e-5)
