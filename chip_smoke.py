@@ -15,20 +15,23 @@ Phases (each raises on failure; the script then exits nonzero):
 1. build every kernel of the port (``pycolmap_torch/*/csrc``) with nvcc,
    all sources in parallel, and print the build time, the card's name and
    power limit, and the registers, spills and resident blocks per SM of
-   the window sampler and the PatchMatch cost kernel;
+   the window sampler and the PatchMatch cost kernel, and the modes of the
+   Schur kernels;
 2. hold each bundle-adjustment kernel to its plain PyTorch version on the
    card, at the bench shapes and at an irregular shape (three cameras,
    several buckets, widths that are no multiple of 128, mask holes, points
    behind cameras, partly fixed intrinsics, all three losses, all 11 camera
-   models), and time both with CUDA events;
+   models; the Schur kernels' buckets padded to multiples of 8 columns),
+   prepare and the f32 matvec one launch each for all buckets, and time
+   both with CUDA events;
 3. solve a 32-image / 8192-point problem on the card and on the CPU (plain
    versions), 6 LM steps each with f32 CG matvecs, and compare the results;
 4. run the bench's resident solve (128 images, 100k points, ~600k
    observations; bench.py run_ba's sequence) through the kernels, with the
    launch counters zeroed just before the timed solves and read just after,
    once with the card's default bf16 CG matvec and once with the f32 one;
-   the bf16 matvec launches once per CG iteration for all buckets, the f32
-   one once per bucket;
+   prepare launches once per LM step and either matvec once per CG
+   iteration, each for all buckets;
 5. profile one more bench solve with torch.profiler: device time per
    kernel and the device's busy share;
 6. hold the window sampler (one launch per ``sample_windows`` call, its
@@ -49,10 +52,13 @@ Phases (each raises on failure; the script then exits nonzero):
    and at the four pairs padded to powers of two in one batch;
 9. profile one full-width extract with torch.profiler;
 10. hold the bf16 CG matvec to its plain version (float64 on the same bf16
-    values) at the bench shape, with J captured from the main path, also in
-    its global-atomic mode, at irregular shapes (NP 3, 5, 8, 12, three
-    cameras, ragged P) and with an empty [4, 128] bucket beside two
-    non-empty ones, each call one launch; time it and its host wall;
+    values) at the bench shape, with J captured from the main path, at
+    irregular shapes (NP 3, 5, 8, 12, three cameras, ragged P) and with an
+    empty [4, 128] bucket beside two non-empty ones, each call one launch;
+    time it and its host wall; then the bench's operands spread over
+    256-10,240 images (the modes where the sums live), each checked and
+    timed for the bf16 matvec, the f32 matvec and prepare (their f32 J and
+    residuals captured from the same LM step);
 11. ``bundle_adjustment(reconstruction)`` at full width: the bench's
     128-image / 100k-point problem as a Reconstruction, written and read
     back as a COLMAP binary model, adjusted on the card with default
@@ -79,7 +85,7 @@ Phases (each raises on failure; the script then exits nonzero):
     (SIMPLE_PINHOLE, FULL_OPENCV and FOV near omega = 0, plus a camera whose
     selector names no listed model), at one bundle holding all 11 models,
     and, with prepare, matvec and matvec16, at the mixed widths 6, 9 and 13
-    (matvec16 timed at phase 16's width 9);
+    (prepare and both matvecs timed at phase 16's width 9);
 16. ``bundle_adjustment`` of a mixed-model model at full width: phase 11's
     128-image / 100k-point ring, even images through a SIMPLE_RADIAL camera
     and odd ones through an OPENCV camera, observations projected in
@@ -211,8 +217,8 @@ KERNEL_INFO = {
 }
 # tolerance on max |kernel - plain| / max(1, max |plain|) per output, the
 # plain version evaluated in float64 (the CPU parity tests' tolerances).
-# The kernels compute in f32; the camera-row sums of prepare and matvec are
-# float atomics whose order varies run to run.
+# The kernels compute in f32; the Schur kernels' sums are float atomics
+# whose order varies run to run outside their fixed-order mode.
 TOL = {"resjac": 1e-5, "cost": 1e-5, "finish": 1e-5, "prepare": 3e-5,
        "matvec": 2e-5,
        "resjac_mixed": 1e-5, "cost_mixed": 1e-5, "finish_mixed": 1e-5,
@@ -227,9 +233,9 @@ TOL = {"resjac": 1e-5, "cost": 1e-5, "finish": 1e-5, "prepare": 3e-5,
        # version's own gap (check_pm_cost)
        "pm_cost": 2e-5}
 TOP2_MARGIN = 1e-5
-# where the bf16 matvec keeps its sums (csrc/schur.cu Mv16Sums), and the
-# image counts phase 10 also checks and times it at
-MATVEC16_SUMS = {0: "global atomics", 1: "block", 2: "warps"}
+# where a Schur kernel keeps its sums (csrc/schur.cu TileSums), and the
+# image counts phase 10 also checks and times them at
+SUMS = {0: "global atomics", 1: "block", 2: "fixed order"}
 MATVEC16_IMAGES = (256, 1024, 2048, 5120, 10240)
 SIFT_H, SIFT_W = 960, 1280  # bench.py run_sift's images
 # the kernels phase 2 chains as in an LM step (the bf16 matvec: phase 10)
@@ -342,16 +348,26 @@ def check_case(case, tag, results=None):
 
     res_k, J_k = k_resjac()
     c_k = ck.total_cost(b_l, pts, case.quat, case.trans, case.intr, m, lt, ls)
-    prep_k = ck.schur_prepare(b_l, J_k, res_k, lam, I, C)
-    Vinv_l, g_l = prep_k[0], prep_k[1]
-    mv_k = ck.schur_matvec(b_l, J_k, Vinv_l, x_pose, x_intr, I, C)
+    # the Schur kernels, one launch each for all buckets, take widths that
+    # are multiples of 8: their inputs get empty columns (mask 0, index 0,
+    # all-zero J and residuals), as bucketize pads
+    b8 = [pad_bucket(b, 8) for b in b_l]
+    J8 = [pad_cols(J, 8) for J in J_k]
+    r8 = [pad_cols(r, 8) for r in res_k]
+    prep_k = _one_launch("prepare", tag, lambda: ck.schur_prepare(
+        b8, J8, r8, lam, I, C))
+    Vinv8 = prep_k[0]
+    Vinv_l = [V[:, :b.mask.shape[1]].contiguous() for V, b in zip(Vinv8, b_l)]
+    g_l = [g[:, :b.mask.shape[1]].contiguous() for g, b in zip(prep_k[1], b_l)]
+    mv_k = _one_launch("matvec", tag, lambda: ck.schur_matvec(
+        b8, J8, Vinv8, x_pose, x_intr, I, C))
     fin_k = ck.backsub_and_cost(b_l, pts, J_k, Vinv_l, g_l, x_pose, x_intr,
                                 case.new_quat, case.new_trans, case.new_intr,
                                 m, lt, ls)
     kernel_out = {
         "resjac": res_k + J_k,
         "cost": [c_k],
-        "prepare": list(Vinv_l) + list(g_l) + list(prep_k[2:]),
+        "prepare": list(prep_k[0]) + list(prep_k[1]) + list(prep_k[2:]),
         "matvec": list(mv_k),
         "finish": list(fin_k[0]) + [fin_k[1]],
     }
@@ -374,7 +390,7 @@ def check_case(case, tag, results=None):
             acc_i = torch.zeros((I, 33), device=itab.device, dtype=dt)
             acc_c = torch.zeros((C, 2 * NP), device=itab.device, dtype=dt)
             vs, gs = [], []
-            for b, J, r in zip(bl, J_k, res_k):
+            for b, J, r in zip([_bucket_as(b, dt) for b in b8], J8, r8):
                 v, g, oi, oc = ck.prepare_plain(b, d(J), d(r), d(lam), I, C)
                 vs.append(v)
                 gs.append(g)
@@ -384,7 +400,7 @@ def check_case(case, tag, results=None):
         if name == "matvec":
             mp = torch.zeros((I, 6), device=itab.device, dtype=dt)
             mi = torch.zeros((C, NP), device=itab.device, dtype=dt)
-            for b, J, V in zip(bl, J_k, Vinv_l):
+            for b, J, V in zip([_bucket_as(b, dt) for b in b8], J8, Vinv8):
                 op, oi = ck.matvec_plain(b, d(J), d(V), d(x_pose), d(x_intr),
                                          I, C)
                 mp, mi = mp + op, mi + oi
@@ -417,8 +433,8 @@ def check_case(case, tag, results=None):
             "resjac": k_resjac,
             "cost": lambda: ck.total_cost(
                 b_l, pts, case.quat, case.trans, case.intr, m, lt, ls),
-            "prepare": lambda: ck.schur_prepare(b_l, J_k, res_k, lam, I, C),
-            "matvec": lambda: ck.schur_matvec(b_l, J_k, Vinv_l, x_pose,
+            "prepare": lambda: ck.schur_prepare(b8, J8, r8, lam, I, C),
+            "matvec": lambda: ck.schur_matvec(b8, J8, Vinv8, x_pose,
                                               x_intr, I, C),
             "finish": lambda: ck.backsub_and_cost(
                 b_l, pts, J_k, Vinv_l, g_l, x_pose, x_intr, case.new_quat,
@@ -653,15 +669,18 @@ def bench_solve(cg_bf16):
         raise AssertionError(f"{tag}: kernels never launched on the main "
                              f"path: {missing}; {unused} launched "
                              f"{launches[unused]} times")
-    # the bf16 matvec launches once per CG iteration for all buckets, the
-    # f32 one once per bucket
+    # prepare launches once per LM step, either matvec once per CG
+    # iteration, each for all buckets
     cg_total = sum(r[2].cg_iterations for r in runs + ones)
     name = "matvec16" if cg_bf16 else "matvec"
-    want = cg_total * (1 if cg_bf16 else len(solver._buckets))
+    want = {name: cg_total, "prepare": lm_steps}
     log(f"bench {tag}: {name} launches {launches[name]} over {cg_total} CG "
-        f"iterations (expected {want})")
-    if launches[name] != want:
-        raise AssertionError(f"{tag}: {launches[name]} {name} launches, "
+        f"iterations, prepare launches {launches['prepare']} over "
+        f"{lm_steps} LM steps, {len(solver._buckets)} buckets (expected "
+        f"{want})")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{tag}: launches "
+                             f"{ {k: launches[k] for k in want} }, "
                              f"expected {want}")
     if any(plain_on_cuda.values()):
         raise AssertionError(f"plain versions ran on CUDA tensors: "
@@ -1130,44 +1149,61 @@ def profile_extract():
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the bf16 CG matvec against its plain version
+# phase 10: the Schur kernels against their plain versions, and their modes
 # ---------------------------------------------------------------------------
 
 
-def capture_matvec16_inputs():
-    """The operands of the first bf16 CG matvec of one LM step of the bench
-    solve (the main path, through a recording wrapper)."""
-    calls = []
-    wrapper = ck.schur_matvec16
+def capture_schur_inputs():
+    """The operands of the first schur_prepare and the first bf16 CG matvec
+    of one LM step of the bench solve (the main path, through recording
+    wrappers): prepare's (buckets, J_l, res_l, lam, I, C) and the matvec's
+    (buckets, J16_l, Vinv_l, x_pose, x_intr, I, C)."""
+    calls = {}
+    wrappers = {"schur_prepare": ck.schur_prepare,
+                "schur_matvec16": ck.schur_matvec16}
 
-    def record(*args, **kw):
-        if not calls:
-            calls.append(args)
-        return wrapper(*args, **kw)
+    def recorder(name):
+        def record(*args, **kw):
+            calls.setdefault(name, args)
+            return wrappers[name](*args, **kw)
+        return record
 
-    ck.schur_matvec16 = record
+    for name in wrappers:
+        setattr(ck, name, recorder(name))
     try:
         solver = ResidentBundleSolver(make_synthetic_bundle(**BENCH),
                                       options(1), cg_iters=CG_ITERS,
                                       device="cuda")
         solver.solve()
     finally:
-        ck.schur_matvec16 = wrapper
-    return calls[0]
+        for name, fn in wrappers.items():
+            setattr(ck, name, fn)
+    return calls["schur_prepare"], calls["schur_matvec16"]
 
 
-def matvec16_bound(buckets, J16_l, I, C):
-    """Bytes: J16 (2 B a value), the index grids, Vinv, x in and S x out,
-    each once; operations: the f32 matvec's count on this data's
-    observations."""
-    NP = J16_l[0].shape[0] - 9
+def schur_bound(kind, buckets, J_l, I, C):
+    """Bytes: J (2 B a value in bf16, 4 in f32), the index grids, and Vinv
+    (matvecs) or the residuals (prepare) read once, x in and S x out
+    (matvecs) or Vinv, g_pt and the image and camera rows out (prepare);
+    operations: phase 2's counts (bound()) on this data's observations."""
+    bf16 = kind == "matvec16"
+    NP = (J_l[0].shape[0] if bf16 else J_l[0].shape[1]) - 9
     nk = 6 + NP
-    nbytes = 2 * (I * 6 + C * NP) * 4
+    if kind == "prepare":
+        nbytes = (I * 33 + C * 2 * NP) * 4
+    else:
+        nbytes = 2 * (I * 6 + C * NP) * 4
     ops = 0
-    for b, J16 in zip(buckets, J16_l):
+    for b, J in zip(buckets, J_l):
         T, P = b.mask.shape
-        nbytes += J16.numel() * 2 + 2 * T * P * 4 + 6 * P * 4
-        ops += float(b.mask.sum()) * (8 * nk + 24) + 20 * P
+        n_obs = float(b.mask.sum())
+        nbytes += J.numel() * J.element_size() + 2 * T * P * 4
+        if kind == "prepare":
+            nbytes += 2 * T * P * 4 + 9 * P * 4
+            ops += n_obs * (24 + 8 * nk + 36 + 30 + 21 * 10) + 60 * P
+        else:
+            nbytes += 6 * P * 4
+            ops += n_obs * (8 * nk + 24) + 20 * P
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
@@ -1175,86 +1211,140 @@ def matvec16_bound(buckets, J16_l, I, C):
                 bytes=nbytes)
 
 
-def check_matvec16(tag, buckets, J16_l, Vinv_l, x_pose, x_intr, I, C,
-                   results=None, phase="phase 10"):
-    """Kernel vs matvec16_plain in float64 on the same bf16 values."""
-    NP = J16_l[0].shape[0] - 9
-    before = ck.LAUNCHES["matvec16"]
-    got = [t.clone() for t in
-           ck.schur_matvec16(buckets, J16_l, Vinv_l, x_pose, x_intr, I, C)]
-    if ck.LAUNCHES["matvec16"] != before + 1:
-        raise AssertionError(f"[{tag}] matvec16: "
-                             f"{ck.LAUNCHES['matvec16'] - before} launches "
-                             f"for {len(buckets)} buckets, expected 1")
+def _one_launch(kind, tag, call):
+    """call() with a check that it launched `kind` once for all buckets."""
+    before = ck.LAUNCHES[kind]
+    out = call()
+    if ck.LAUNCHES[kind] != before + 1:
+        raise AssertionError(f"[{tag}] {kind}: {ck.LAUNCHES[kind] - before} "
+                             f"launches in one call, expected 1")
+    return out
 
-    def plain(dt):
-        mp = torch.zeros((I, 6), device=x_pose.device, dtype=dt)
-        mi = torch.zeros((C, NP), device=x_pose.device, dtype=dt)
-        for b, J16, V in zip(buckets, J16_l, Vinv_l):
-            op, oi = ck.matvec16_plain(b, J16, V.to(dt), x_pose.to(dt),
-                                       x_intr[:, :NP].to(dt), I, C)
-            mp, mi = mp + op, mi + oi
-        return mp, mi
 
+def _check_schur(kind, tag, call, plain, buckets, J_l, I, C, NP, results,
+                 phase):
+    """One Schur kernel (`call`: its wrapper on the card) against `plain`
+    (its plain version in a dtype) in float64, one launch per call, and in
+    the fixed-order mode the same bits from a second call; with `results`,
+    timed beside its plain version in f32 and its bound."""
+    got = [t.clone() for t in _one_launch(kind, tag, call)]
     errs = [scaled_err(g.reshape(-1), r.reshape(-1))
             for g, r in zip(got, plain(torch.float64))]
     err = (max(e[0] for e in errs), max(e[1] for e in errs))
     torch.cuda.synchronize()
-    if not err[1] <= TOL["matvec16"]:
-        raise AssertionError(f"[{tag}] matvec16: kernel vs plain scaled "
-                             f"error {err[1]:.3e} > {TOL['matvec16']:.0e}")
-    # with the per-warp sums (no float atomics) a second call gives the
-    # same bits; it reuses one table, as the CG loop of an LM step does
-    config = sfm_cuda.matvec16_config(NP, I, C)
-    fixed = config["sums"] == ck.MATVEC16_SUMS_WARPS
-    launch = ck.matvec16_launch(buckets, J16_l, Vinv_l, I, C)
-
-    def call():
-        return ck.schur_matvec16(buckets, J16_l, Vinv_l, x_pose, x_intr, I, C,
-                                 launch=launch)
-
+    if not err[1] <= TOL[kind]:
+        raise AssertionError(f"[{tag}] {kind}: kernel vs plain scaled error "
+                             f"{err[1]:.3e} > {TOL[kind]:.0e}")
+    config = sfm_cuda.tile_config(ck.TILE_KINDS.index(kind), NP, I, C)
     again = call()
     same = all(torch.equal(a, b) for a, b in zip(got, again))
-    if fixed and not same:
-        raise AssertionError(f"[{tag}] matvec16: two calls differ")
+    if config["sums"] == ck.SUMS_FIXED and not same:
+        raise AssertionError(f"[{tag}] {kind}: two calls differ")
     shapes = [tuple(b.mask.shape) for b in buckets]
-    log(f"{phase} matvec16 {tag}: NP {NP}, I {I}, C {C}, buckets [T, P] "
-        f"{shapes}; sums {MATVEC16_SUMS[config['sums']]} "
+    log(f"{phase} {kind} {tag}: NP {NP}, I {I}, C {C}, buckets [T, P] "
+        f"{shapes}; sums {SUMS[config['sums']]} "
         f"({config['smem_bytes']} B shared, {config['blocks_per_sm']} "
-        f"blocks per SM); scaled err {err[1]:.2e} (max abs {err[0]:.3e}); "
+        f"blocks per SM, {config['clusters']} clusters); scaled err "
+        f"{err[1]:.2e} (max abs {err[0]:.3e}); "
         f"a second call bit-equal: {same}")
     if results is None:
         return err
     results[tag] = dict(
         max_abs_err=err[0], scaled_err=err[1], I=I,
-        sums=MATVEC16_SUMS[config["sums"]],
+        sums=SUMS[config["sums"]], blocks_per_sm=config["blocks_per_sm"],
+        clusters=config["clusters"],
         ms=time_gpu(call), call_host_ms=host_ms(call),
         plain_ms=time_gpu(lambda: plain(torch.float32), 5),
-        **matvec16_bound(buckets, J16_l, I, C),
+        **schur_bound(kind, buckets, J_l, I, C),
     )
     r = results[tag]
-    log(f"{phase} matvec16 {tag}: kernel {r['ms']:.4f} ms, host wall per "
+    log(f"{phase} {kind} {tag}: kernel {r['ms']:.4f} ms, host wall per "
         f"call {r['call_host_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
         f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
         f"{r['bytes'] / 1e6:.1f} MB)")
     return err
 
 
+def check_matvec(kind, tag, buckets, J_l, Vinv_l, x_pose, x_intr, I, C,
+                 results=None, phase="phase 10"):
+    """The bf16 (`kind` "matvec16", J16 [9+NP, 2T, P]) or f32 ("matvec")
+    matvec vs its plain version in float64 on the same J values, with one
+    table for both calls, as the CG loop of an LM step uses it."""
+    bf16 = kind == "matvec16"
+    NP = (J_l[0].shape[0] if bf16 else J_l[0].shape[1]) - 9
+    wrapper = ck.schur_matvec16 if bf16 else ck.schur_matvec
+    launch = ck.matvec_launch(kind, buckets, J_l, Vinv_l, I, C)
+
+    def call():
+        return wrapper(buckets, J_l, Vinv_l, x_pose, x_intr, I, C,
+                       launch=launch)
+
+    def plain(dt):
+        mp = torch.zeros((I, 6), device=x_pose.device, dtype=dt)
+        mi = torch.zeros((C, NP), device=x_pose.device, dtype=dt)
+        for b, J, V in zip(buckets, J_l, Vinv_l):
+            args = (V.to(dt), x_pose.to(dt), x_intr[:, :NP].to(dt), I, C)
+            op, oi = (ck.matvec16_plain(b, J, *args) if bf16
+                      else ck.matvec_plain(b, J.to(dt), *args))
+            mp, mi = mp + op, mi + oi
+        return mp, mi
+
+    return _check_schur(kind, tag, call, plain, buckets, J_l, I, C, NP,
+                        results, phase)
+
+
+def check_prepare(tag, buckets, J_l, res_l, lam, I, C, results=None,
+                  phase="phase 10"):
+    """prepare vs its plain version in float64: every output, the
+    per-bucket Vinv and g_pt included."""
+    NP = J_l[0].shape[1] - 9
+
+    def call():
+        out = ck.schur_prepare(buckets, J_l, res_l, lam, I, C)
+        return list(out[0]) + list(out[1]) + list(out[2:])
+
+    def plain(dt):
+        acc_i = torch.zeros((I, 33), device=lam.device, dtype=dt)
+        acc_c = torch.zeros((C, 2 * NP), device=lam.device, dtype=dt)
+        vs, gs = [], []
+        for b, J, r in zip(buckets, J_l, res_l):
+            v, g, oi, oc = ck.prepare_plain(b, J.to(dt), r.to(dt),
+                                            lam.to(dt), I, C)
+            vs.append(v)
+            gs.append(g)
+            acc_i, acc_c = acc_i + oi, acc_c + oc
+        return vs + gs + [acc_i[:, :6], acc_c[:, :NP], acc_i[:, 6:12],
+                          acc_c[:, NP:], acc_i[:, 12:33]]
+
+    return _check_schur("prepare", tag, call, plain, buckets, J_l, I, C, NP,
+                        results, phase)
+
+
+def pad_cols(t, mult):
+    """t with zero columns appended to a multiple of `mult` (last dim)."""
+    w = -(-t.shape[-1] // mult) * mult
+    return torch.nn.functional.pad(t, (0, w - t.shape[-1])).contiguous()
+
+
+def pad_bucket(b, mult):
+    """A bucket padded to a multiple of `mult` columns, as bucketize pads
+    (padded columns: mask 0, index 0)."""
+    return bk.Bucket(*(pad_cols(t, mult) for t in b))
+
+
 def ladder_widths(case):
     """The case with each bucket padded to a multiple of 128 columns, as
     bucketize pads (padded columns: mask 0, index 0, all-zero J)."""
-    def pad(t):
-        w = -(-t.shape[-1] // 128) * 128
-        return torch.nn.functional.pad(t, (0, w - t.shape[-1])).contiguous()
-
     out = copy.copy(case)
-    out.buckets = [bk.Bucket(*(pad(t) for t in b)) for b in case.buckets]
+    out.buckets = [pad_bucket(b, 128) for b in case.buckets]
     return out
 
 
-def check_case_matvec16(tag, case, phase, results=None):
-    """check_matvec16 on a case's own J (packed to bf16) and Vinv, as the
-    kernels of an LM step give them, at ladder widths."""
+def check_case_schur(tag, case, phase, results=None):
+    """prepare, the f32 matvec and the bf16 matvec (check_prepare,
+    check_matvec) on a case's own J, residuals and Vinv, as the kernels of
+    an LM step give them, at ladder widths. `results`: per kernel, the
+    timings under `tag`. Returns each kernel's error."""
     case = ladder_widths(case)
     res_l, J_l = ck.res_and_jac(case.buckets, case.pts, case.quat,
                                 case.trans, case.intr, case.intr_free,
@@ -1262,68 +1352,89 @@ def check_case_matvec16(tag, case, phase, results=None):
                                 case.loss_scale)
     Vinv_l = ck.schur_prepare(case.buckets, J_l, res_l, case.lam, case.I,
                               case.C)[0]
-    return check_matvec16(tag, case.buckets,
-                          [ck.pack_j_bf16(J) for J in J_l], Vinv_l,
-                          case.x_pose, case.x_intr, case.I, case.C,
-                          results=results, phase=phase)
+    args = (case.x_pose, case.x_intr, case.I, case.C)
+    results = results or {}
+    return {
+        "prepare": check_prepare(tag, case.buckets, J_l, res_l, case.lam,
+                                 case.I, case.C, results.get("prepare"),
+                                 phase),
+        "matvec": check_matvec("matvec", tag, case.buckets, J_l, Vinv_l,
+                               *args, results=results.get("matvec"),
+                               phase=phase),
+        "matvec16": check_matvec("matvec16", tag, case.buckets,
+                                 [ck.pack_j_bf16(J) for J in J_l], Vinv_l,
+                                 *args, results=results.get("matvec16"),
+                                 phase=phase),
+    }
 
 
-def spread_images(captured, I):
-    """The bench capture over I images (a multiple of 128): the columns of
-    each run of 1024 points see the bench's 128 images shifted by 128 (run
-    % (I / 128)), so co-visible images stay local as in a large scene; J16,
-    Vinv and the CG direction are the bench's, x_pose repeated per 128
-    images."""
-    buckets, J16_l, Vinv_l, x_pose, x_intr, I0, C = captured
+def spread_images(buckets, x_pose, I0, I):
+    """Bench buckets over I images (a multiple of I0 = 128): the columns of
+    each run of 1024 points see the bench's images shifted by I0 (run %
+    (I / I0)), so co-visible images stay local as in a large scene; J,
+    residuals, Vinv and the CG direction stay the bench's, x_pose repeated
+    per I0 images. Returns (buckets, x_pose)."""
     out = []
     for b in buckets:
         col = torch.arange(b.img_idx.shape[1], device=b.img_idx.device)
         shift = I0 * ((col // 1024) % (I // I0))
         out.append(b._replace(img_idx=(b.img_idx + shift).int().contiguous()))
-    xp = x_pose.repeat(I // I0, 1).contiguous()
-    return out, J16_l, Vinv_l, xp, x_intr, I, C
+    return out, x_pose.repeat(I // I0, 1).contiguous()
 
 
-def bf16_matvec():
-    """Phase 10; returns the bench's numbers, with those at larger I under
-    "larger"."""
+def schur_kernels():
+    """Phase 10. Returns per Schur kernel its numbers at the bench's
+    captured operands, with those at larger I under "larger"."""
     dev = torch.device("cuda")
-    results = {}
-    captured = capture_matvec16_inputs()
-    check_matvec16("bench", *captured, results=results)
+    (buckets, J_l, res_l, lam, I0, C), mv16 = capture_schur_inputs()
+    J16_l, Vinv_l, x_pose, x_intr = mv16[1:5]
+    results = {k: {} for k in ck.TILE_KINDS}
+
+    def check_all(tag, b_l, xp, I):
+        check_matvec("matvec16", tag, b_l, J16_l, Vinv_l, xp, x_intr, I, C,
+                     results=results["matvec16"])
+        check_matvec("matvec", tag, b_l, J_l, Vinv_l, xp, x_intr, I, C,
+                     results=results["matvec"])
+        check_prepare(tag, b_l, J_l, res_l, lam, I, C,
+                      results=results["prepare"])
+
+    check_all("bench", buckets, x_pose, I0)
     # larger reconstructions, each checked and timed: at NP 4 with one
-    # camera the per-warp sums up to ~150 images, the block's shared sums up
-    # to ~3,100, global atomics above
+    # camera each kernel moves from its fixed-order or block sums to global
+    # atomics as the images grow
     for I in MATVEC16_IMAGES:
-        check_matvec16(f"{I} images", *spread_images(captured, I),
-                       results=results)
-    del captured
+        check_all(f"{I} images", *spread_images(buckets, x_pose, I0, I), I)
+    del J_l, res_l, J16_l, Vinv_l
     torch.cuda.empty_cache()
     # NP 3, 5, 8, 12 (SIMPLE_PINHOLE, RADIAL, OPENCV, FULL_OPENCV), three
-    # cameras, buckets of widths 300, 1000 and 77 padded to the ladder's
+    # cameras, buckets of widths 300, 1000 and 77 padded to the ladder's;
+    # 20 images: each kernel sums in its fixed order
     for model_id in (0, 3, 4, 6):
         case = irregular_cases(model_id, 0, dev, seed=20 + model_id)
-        check_case_matvec16(f"irregular model {model_id}", case, "phase 10")
+        check_case_schur(f"irregular model {model_id}", case, "phase 10")
     # one launch for an empty [4, 128] bucket (all-zero J, index 0) beside
     # two non-empty ones
     case = ladder_widths(irregular_cases(2, 0, dev, seed=29))
-    res_l, J_l = ck.res_and_jac(case.buckets, case.pts, case.quat,
+    res_c, J_c = ck.res_and_jac(case.buckets, case.pts, case.quat,
                                 case.trans, case.intr, case.intr_free,
                                 case.model_id, case.loss_type,
                                 case.loss_scale)
-    Vinv_l = ck.schur_prepare(case.buckets, J_l, res_l, case.lam, case.I,
+    Vinv_c = ck.schur_prepare(case.buckets, J_c, res_c, case.lam, case.I,
                               case.C)[0]
     zi = torch.zeros((4, 128), dtype=torch.int32, device=dev)
     empty = case.buckets[0]._replace(img_idx=zi, cam_idx=zi,
                                      mask=torch.zeros((4, 128), device=dev))
-    check_matvec16("empty + 2 buckets", [empty] + case.buckets[1:],
-                   [torch.zeros((9 + case.NP, 8, 128), dtype=torch.bfloat16,
-                                device=dev)]
-                   + [ck.pack_j_bf16(J) for J in J_l[1:]],
-                   [torch.zeros((6, 128), device=dev)] + Vinv_l[1:],
-                   case.x_pose, case.x_intr, case.I, case.C)
-    bench = results.pop("bench")
-    return dict(bench, larger=results)
+    check_matvec("matvec16", "empty + 2 buckets", [empty] + case.buckets[1:],
+                 [torch.zeros((9 + case.NP, 8, 128), dtype=torch.bfloat16,
+                              device=dev)]
+                 + [ck.pack_j_bf16(J) for J in J_c[1:]],
+                 [torch.zeros((6, 128), device=dev)] + Vinv_c[1:],
+                 case.x_pose, case.x_intr, case.I, case.C)
+    out = {}
+    for kind, r in results.items():
+        bench = r.pop("bench")
+        out[kind] = dict(bench, larger=r)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2177,9 +2288,9 @@ def mixed_model_bundle_adjustment(tmp, single):
 
 
 def mixed_kernels(captured):
-    """Phase 15: the mixed kernels and the bf16 matvec vs their float64
-    plain versions at the inputs captured in phase 16 (the mixed kernels
-    timed), then at irregular shapes."""
+    """Phase 15: the mixed kernels and the Schur kernels (prepare and both
+    matvecs) vs their float64 plain versions at the inputs captured in
+    phase 16 (all timed), then at irregular shapes."""
     dev = torch.device("cuda")
     (buckets, pts, quat, trans, intr, intr_free, model_id, loss_type,
      loss_scale) = captured
@@ -2187,14 +2298,13 @@ def mixed_kernels(captured):
                 trans, intr, intr_free, model_id, loss_type, loss_scale, 0)
     results = {}
     check_case(case, "phase 16 capture", results)
-    # the bf16 matvec at the width and buckets phase 16's CG loop gives it
-    check_case_matvec16("phase 16 capture", case, "phase 15", results)
-    results["matvec16"] = results.pop("phase 16 capture")
+    # the Schur kernels at the width and buckets phase 16's LM step gives
+    # them, each with its mode and table
+    schur = {k: {} for k in ck.TILE_KINDS}
+    check_case_schur("phase 16 capture", case, "phase 15", schur)
     del case
     torch.cuda.empty_cache()
     for name, r in results.items():
-        if name == "matvec16":
-            continue  # logged by check_matvec16
         log(f"phase 15 {name} at phase 16's inputs (model_id {model_id}): "
             f"scaled err {r['scaled_err']:.2e} (max abs "
             f"{r['max_abs_err']:.3e}; plain f32 err "
@@ -2209,11 +2319,12 @@ def mixed_kernels(captured):
         case = irregular_cases(models, loss, dev, seed=40 + len(models),
                                omega=omega)
         errs = check_case(case, f"irregular {models}")
-        e16 = check_case_matvec16(f"irregular {models}", case, "phase 15")
+        errs.update({f"{k} (ladder widths)": v for k, v in check_case_schur(
+            f"irregular {models}", case, "phase 15").items()})
         log(f"phase 15 irregular {models} (NP {case.NP}, {case.C} cameras, "
             f"loss {loss}): " + ", ".join(f"{k} {v[1]:.2e}"
-                                          for k, v in errs.items())
-            + f", matvec16 {e16[1]:.2e}")
+                                          for k, v in errs.items()))
+    results["schur"] = {k: v["phase 16 capture"] for k, v in schur.items()}
     return results
 
 
@@ -2403,21 +2514,23 @@ def main():
             kernels=kernel_resources("mvs/csrc/pm_cost.cu"),
             blocks_per_sm={"full field": mvs_cuda.occupancy(False, 36),
                            "parity": mvs_cuda.occupancy(True, 36)}),
-        "matvec16": dict(
+        # the Schur kernels' registers, and their modes at the bench's
+        # width and tables, at phase 16's and at phase 10's image counts
+        **{kind: dict(
             kernels={k: v for k, v in
                      kernel_resources("sfm/csrc/schur.cu").items()
-                     if k.startswith("matvec16")},
-            # the bench's width and tables, and phase 16's
-            bench=sfm_cuda.matvec16_config(4, 128, 1),
-            width9=sfm_cuda.matvec16_config(9, 128, 2),
-            **{f"{i} images": sfm_cuda.matvec16_config(4, i, 1)
-               for i in MATVEC16_IMAGES}),
+                     if k.startswith(f"{kind}_kernel<")},
+            bench=sfm_cuda.tile_config(ki, 4, 128, 1),
+            width9=sfm_cuda.tile_config(ki, 9, 128, 2),
+            **{f"{i} images": sfm_cuda.tile_config(ki, 4, i, 1)
+               for i in MATVEC16_IMAGES})
+           for ki, kind in enumerate(ck.TILE_KINDS)},
         "top2": dict(kernels=kernel_resources("features/csrc/top2.cu"),
                      **features_cuda.top2_resources(128)),
     }
     log(f"phase 1: registers, spills and resident blocks per SM (nw 36) of "
-        f"the sampler and the cost kernel, and the bf16 matvec and top-2 "
-        f"kernels: {json.dumps(resources)}")
+        f"the sampler and the cost kernel, and the Schur and top-2 kernels: "
+        f"{json.dumps(resources)}")
 
     # the probe's counts over phases 2-17, the user paths
     pg.reset_counts()
@@ -2467,8 +2580,9 @@ def main():
     profile_extract()
     log(f"front end summary: {json.dumps(e2e)}")
 
-    # --- phases 10-12: the bf16 matvec and the known-pose entry points -----
-    results["matvec16"] = bf16_matvec()
+    # --- phases 10-12: the Schur kernels and the known-pose entry points ---
+    schur = schur_kernels()
+    results["matvec16"] = schur["matvec16"]
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         known_pose = dict(bundle_adjustment=model_bundle_adjustment(Path(tmp)))
@@ -2515,17 +2629,24 @@ def main():
         src, rep = KERNEL_INFO[name]
         r = results[name]
         extra = {}
-        if name == "matvec16":  # phase 15's width 9 and the host wall
-            w9 = mixed_res["matvec16"]
-            extra = dict(call_host_ms=r["call_host_ms"], ms_width9=w9["ms"],
+        if name in ck.TILE_KINDS:
+            # phase 10's mode, host wall and larger reconstructions, phase
+            # 15's width 9 (matvec16's row is phase 10's; the f32 kernels'
+            # rows are phase 2's, and phase 10's time at the main path's
+            # operands is ms_captured)
+            p10, w9 = schur[name], mixed_res["schur"][name]
+            extra = dict(mode=p10["sums"], blocks_per_sm=p10["blocks_per_sm"],
+                         ms_captured=p10["ms"],
+                         call_host_ms=p10["call_host_ms"], ms_width9=w9["ms"],
                          bound_ms_width9=w9["bound_ms"],
                          call_host_ms_width9=w9["call_host_ms"],
                          max_scaled_err_width9=w9["scaled_err"],
-                         larger={k: {f: v[f] for f in ("sums", "ms",
-                                                       "bound_ms",
+                         mode_width9=w9["sums"],
+                         larger={k: {f: v[f] for f in ("sums", "blocks_per_sm",
+                                                       "ms", "bound_ms",
                                                        "max_abs_err")}
-                                 for k, v in r["larger"].items()},
-                         resources=resources["matvec16"])
+                                 for k, v in p10["larger"].items()},
+                         resources=resources[name])
         # the f32 matvec runs in the f32-setting bench solve; every other
         # BA kernel's count is the default (bf16) solve's
         ln, ps = ((launches32, per_step32) if name == "matvec"

@@ -9,8 +9,6 @@ from __future__ import annotations
 
 import ctypes
 
-import torch
-
 from pycolmap_torch._cuda_build import i32 as _i32
 from pycolmap_torch._cuda_build import launch
 from pycolmap_torch._cuda_build import ptr as _ptr
@@ -24,6 +22,7 @@ _MIXED = [_I, _I]
 _RESJAC = [_P] * 9 + [_I, _I, _I, _F, _P, _P, _P]
 _COST = [_P] * 7 + [_I, _I, _I, _F, _P, _P]
 _FINISH = [_P] * 13 + [_I, _I, _I, _F, _P, _P, _P]
+_TILE_MATVEC = [_I] + [_P] * 3 + [_I] * 3 + [_P, _I] + [_P] * 4
 # C signatures of the launchers (see the extern "C" functions in csrc/*.cu)
 _SIGNATURES = {
     "resjac.cu": {
@@ -37,10 +36,10 @@ _SIGNATURES = {
         "ba_finish_mixed": _MIXED + _FINISH,
     },
     "schur.cu": {
-        "ba_prepare": [_I] + [_P] * 5 + [_I] * 4 + [_P] * 5,
-        "ba_matvec": [_I] + [_P] * 6 + [_I] * 4 + [_P] * 3,
-        "ba_matvec16": [_I] + [_P] * 3 + [_I] * 3 + [_P, _I] + [_P] * 4,
-        "ba_matvec16_config": [_I] * 3 + [_P] * 4,
+        "ba_prepare": [_I] + [_P] * 2 + [_I] * 3 + [_P, _I] + [_P] * 4,
+        "ba_matvec": _TILE_MATVEC,
+        "ba_matvec16": _TILE_MATVEC,
+        "ba_tile_config": [_I] * 4 + [_P] * 5,
     },
     "gather.cu": {
         "ba_gather": [_P] * 4 + [_I] * 5 + [_P] * 3,
@@ -112,62 +111,70 @@ def finish_mixed(NP, models, *args):
     _finish("ba_finish_mixed", (NP, models), *args)
 
 
-def prepare(NP, J, res, img_idx, cam_idx, lam, I, C, vinv, gpt, acc_img,
-            acc_cam):
-    T, P = img_idx.shape
-    _call("schur.cu", "ba_prepare", NP, _ptr(J), _ptr(res), _i32(img_idx),
-          _i32(cam_idx), _ptr(lam), T, P, I, C, _ptr(vinv), _ptr(gpt),
-          _ptr(acc_img), _ptr(acc_cam))
+class _TileBucket(ctypes.Structure):
+    """TileBucket in csrc/schur.cu: one row of the bucket table."""
+    _fields_ = [("J", _P), ("res", _P), ("img", _P), ("cam", _P),
+                ("vinv", _P), ("gpt", _P), ("T", _I), ("P", _I),
+                ("tile_p", _I), ("first_tile", _I)]
 
 
-def matvec(NP, J, img_idx, cam_idx, vinv, xpose, xintr, I, C, out_pose,
-           out_intr):
-    T, P = img_idx.shape
-    _call("schur.cu", "ba_matvec", NP, _ptr(J), _i32(img_idx), _i32(cam_idx),
-          _ptr(vinv), _ptr(xpose), _ptr(xintr), T, P, I, C, _ptr(out_pose),
-          _ptr(out_intr))
+class _TileTable(ctypes.Structure):
+    """TileTable in csrc/schur.cu (kTileMaxBuckets rows)."""
+    _fields_ = [("b", _TileBucket * 8), ("nb", _I), ("n_tiles", _I)]
 
 
-class _Mv16Bucket(ctypes.Structure):
-    """Mv16Bucket in csrc/schur.cu: one row of the bucket table."""
-    _fields_ = [("J16", _P), ("img", _P), ("cam", _P), ("vinv", _P),
-                ("T", _I), ("P", _I), ("tile_p", _I), ("first_tile", _I)]
-
-
-class _Mv16Table(ctypes.Structure):
-    """Mv16Table in csrc/schur.cu (kMv16MaxBuckets rows)."""
-    _fields_ = [("b", _Mv16Bucket * 8), ("nb", _I), ("n_tiles", _I)]
-
-
-def matvec16_table(rows, n_tiles, buckets, J16_l, Vinv_l):
-    """The kernel's bucket table: the operands' pointers beside each row
-    (T, P, tile_p, first_tile) of cg_kernel.matvec16_table."""
-    tab = _Mv16Table(nb=len(rows), n_tiles=n_tiles)
-    for i, ((T, P, tp, first), b, J16, V) in enumerate(
-            zip(rows, buckets, J16_l, Vinv_l)):
-        tab.b[i] = _Mv16Bucket(_ptr(J16, torch.bfloat16), _i32(b.img_idx),
-                               _i32(b.cam_idx), _ptr(V), T, P, tp, first)
+def tile_table(rows, n_tiles, buckets, J_l, j_dtype, vinv_l, res_l=None,
+               gpt_l=None):
+    """The kernels' bucket table: the operands' pointers beside each row
+    (T, P, tile_p, first_tile) of cg_kernel.tile_table. J of j_dtype (bf16
+    for matvec16, else f32); res and gpt only for prepare."""
+    tab = _TileTable(nb=len(rows), n_tiles=n_tiles)
+    for i, ((T, P, tp, first), b, J, V) in enumerate(
+            zip(rows, buckets, J_l, vinv_l)):
+        tab.b[i] = _TileBucket(
+            _ptr(J, j_dtype), _ptr(res_l[i]) if res_l else None,
+            _i32(b.img_idx), _i32(b.cam_idx), _ptr(V),
+            _ptr(gpt_l[i]) if gpt_l else None, T, P, tp, first)
     return tab
 
 
-def matvec16(NP, launch, xpose, xintr, I, C, out_pose, out_intr):
-    """One launch over `launch`'s table (cg_kernel.Matvec16Launch)."""
-    _call("schur.cu", "ba_matvec16", NP, ctypes.addressof(launch.table),
-          _ptr(xpose), _ptr(xintr), I, C, launch.sums, _ptr(launch.partials),
+def _matvec(fn, NP, launch, xpose, xintr, I, C, out_pose, out_intr):
+    _call("schur.cu", fn, NP, ctypes.addressof(launch.table), _ptr(xpose),
+          _ptr(xintr), I, C, launch.sums, _ptr(launch.partials),
           launch.max_clusters, _i32(launch.ticket), _ptr(out_pose),
           _ptr(out_intr))
 
 
-def matvec16_config(NP, I, C):
-    """Where a matvec16 launch at width NP with I images and C cameras
-    keeps x and its sums (``sums``: 2 per warp, 1 per block, 0 global
-    atomics), its dynamic shared memory (bytes) and resident blocks per
-    SM."""
-    vals = [ctypes.c_int(0) for _ in range(3)]
-    _call("schur.cu", "ba_matvec16_config", NP, I, C,
+def matvec16(*args):
+    """One launch of the bf16 matvec over a table (cg_kernel.TileLaunch)."""
+    _matvec("ba_matvec16", *args)
+
+
+def matvec(*args):
+    """One launch of the f32 matvec over a table (cg_kernel.TileLaunch)."""
+    _matvec("ba_matvec", *args)
+
+
+def prepare(NP, launch, lam, I, C, acc_img, acc_cam):
+    """One launch of the LM preparation over a table (cg_kernel.TileLaunch);
+    lam a 0-d f32 tensor on the card."""
+    _call("schur.cu", "ba_prepare", NP, ctypes.addressof(launch.table),
+          _ptr(lam), I, C, launch.sums, _ptr(launch.partials),
+          launch.max_clusters, _i32(launch.ticket), _ptr(acc_img),
+          _ptr(acc_cam))
+
+
+def tile_config(kind, NP, I, C):
+    """Where a launch of kernel `kind` (0 matvec16, 1 matvec, 2 prepare)
+    at width NP with I images and C cameras keeps its sums (``sums``: 2
+    fixed order, 1 per block, 0 global atomics), its dynamic shared memory
+    (bytes), resident blocks per SM and, in the fixed order, resident
+    clusters."""
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    _call("schur.cu", "ba_tile_config", kind, NP, I, C,
           *(ctypes.byref(v) for v in vals))
     return dict(sums=vals[0].value, smem_bytes=vals[1].value,
-                blocks_per_sm=vals[2].value)
+                blocks_per_sm=vals[2].value, clusters=vals[3].value)
 
 
 def gather(img_tab, cam_tab, img_idx, cam_idx, out_i, out_c):

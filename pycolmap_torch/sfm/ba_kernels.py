@@ -454,17 +454,20 @@ def _lm_solve_bucketed(
         rhs_intr = rhs_intr * intr_free
         damp_pose, damp_intr, precond = precond_factory(lam, udp, udi,
                                                         S_blocks)
-        if cg_bf16:  # one pack (and kernel table) per LM step
+        # one pack (bf16) and one kernel table per LM step
+        if cg_bf16:
             J16_l = [ck.pack_j_bf16(J) for J in J_l]
-            mv16 = ck.matvec16_launch(buckets, J16_l, Vinv_l, I, C)
+            mv = ck.matvec_launch("matvec16", buckets, J16_l, Vinv_l, I, C)
+        else:
+            mv = ck.matvec_launch("matvec", buckets, J_l, Vinv_l, I, C)
 
         def matvec(x_pose, x_intr):
             if cg_bf16:
                 mp, mi = ck.schur_matvec16(buckets, J16_l, Vinv_l, x_pose,
-                                           x_intr, I, C, launch=mv16)
+                                           x_intr, I, C, launch=mv)
             else:
                 mp, mi = ck.schur_matvec(buckets, J_l, Vinv_l, x_pose,
-                                         x_intr, I, C)
+                                         x_intr, I, C, launch=mv)
             return ((damp_pose * x_pose + mp) * pose_free,
                     (damp_intr * x_intr + mi) * intr_free)
 

@@ -1,20 +1,21 @@
 """The bundle-adjustment kernels of the LM step, with their wrappers.
 
 Port of ``pycolmap_tpu/sfm/cg_kernel.py``. Each wrapper keeps the return
-contract of its reference twin and, per bucket, either launches the CUDA
-kernel (``sfm/csrc``, bound by ``sfm/_cuda.py``) for CUDA tensors
-or runs the plain PyTorch version beside it for CPU tensors. There is no
+contract of its reference twin and either launches the CUDA kernel
+(``sfm/csrc``, bound by ``sfm/_cuda.py``; once per bucket, or once for all
+buckets for the Schur kernels) for CUDA tensors or runs the plain PyTorch
+version beside it, per bucket, for CPU tensors. There is no
 fallback: a CUDA tensor goes to the kernel or the launch raises.
 
-| wrapper            | CUDA kernel          | reference Pallas kernel          |
-|--------------------|----------------------|----------------------------------|
-| res_and_jac        | resjac.cu            | resjac_bucket (cg_kernel.py:625) |
-| total_cost         | cost.cu cost_kernel  | cost_bucket (:708)               |
-| backsub_and_cost   | cost.cu finish_kernel| finish_bucket (:821)             |
-| schur_prepare      | schur.cu prepare     | schur_prepare_bucket (:1088)     |
-| schur_matvec       | schur.cu matvec      | cg_matvec_bucket (:183)          |
-| schur_matvec16     | schur.cu matvec16    | cg_matvec16_bucket (:352)        |
-| gather_params_bucket | gather.cu          | gather_params_bucket (:466)      |
+| wrapper              | CUDA kernel               | reference Pallas kernel          |
+|----------------------|---------------------------|----------------------------------|
+| res_and_jac          | resjac.cu                 | resjac_bucket (cg_kernel.py:625) |
+| total_cost           | cost.cu cost_kernel       | cost_bucket (:708)               |
+| backsub_and_cost     | cost.cu finish_kernel     | finish_bucket (:821)             |
+| schur_prepare        | schur.cu prepare_kernel   | schur_prepare_bucket (:1088)     |
+| schur_matvec         | schur.cu matvec_kernel    | cg_matvec_bucket (:183)          |
+| schur_matvec16       | schur.cu matvec16_kernel  | cg_matvec16_bucket (:352)        |
+| gather_params_bucket | gather.cu                 | gather_params_bucket (:466)      |
 
 Inside, parameter tables stay ``[I, 7]`` (quat | trans) and ``[C, NP]``;
 the reference's 128-lane transposed tables are a TPU layout.
@@ -30,10 +31,13 @@ Schur kernels read J at its width and need no variant. The plain versions
 where-select per observation, as the reference does.
 
 ``schur_matvec16`` reads J packed to bf16 by ``pack_j_bf16`` (the
-reference's layout and rounding), once per LM step; prepare, finish and the
-cost keep reading the f32 J, as in the reference. On the card it is one
-launch for all buckets, over a table of their tiles (``matvec16_table``)
-that ``matvec16_launch`` builds once per LM step.
+reference's layout and rounding), once per LM step; prepare, the f32
+matvec, finish and the cost read the f32 J, as in the reference. On the
+card each of the three Schur wrappers is one launch for all buckets, over
+a table of their tiles (``tile_table``, in a :class:`TileLaunch`): the
+matvecs' is built once per LM step (``matvec_launch``), prepare's per
+call. The kernels take buckets of a multiple of 8 columns (bucketize pads
+to multiples of 128); the plain versions take any width.
 
 ``LAUNCHES`` counts kernel launches per kernel; ``PLAIN_ON_CUDA`` counts
 calls of a plain version on CUDA tensors (only ``chip_smoke.py``'s
@@ -334,159 +338,174 @@ def schur_prepare(buckets, J_l, res_l, lam, I, C):
     """LM preparation over all buckets: (Vinv_l, g_pt_l, rhs_pose [I, 6],
     rhs_intr [C, NP], U_diag_pose [I, 6], U_diag_intr [C, NP],
     S_blocks [I, 21]). Free masks stay with the caller. lam: 0-d tensor on
-    the buckets' device (the kernel reads it there: no host sync)."""
+    the buckets' device (the kernel reads it there: no host sync). On the
+    card one launch covers every bucket (bucket widths multiples of 8)."""
     NP = J_l[0].shape[1] - 9
     dev = J_l[0].device
-    acc_i = torch.zeros((I, 33), device=dev)
-    acc_c = torch.zeros((C, 2 * NP), device=dev)
     lam = torch.as_tensor(lam, dtype=torch.float32, device=dev).reshape(())
-    Vinv_l, g_pt_l = [], []
-    for b, J, res in zip(buckets, J_l, res_l):
-        if _is_cuda(J):
-            P = J.shape[-1]
-            vinv = torch.empty((6, P), device=dev)
-            gpt = torch.empty((3, P), device=dev)
-            LAUNCHES["prepare"] += 1
-            _cuda.prepare(NP, J, res, b.img_idx, b.cam_idx, lam, I, C, vinv,
-                          gpt, acc_i, acc_c)
-        else:
+    if _is_cuda(J_l[0]):
+        Vinv_l = [torch.empty((6, J.shape[-1]), device=dev) for J in J_l]
+        g_pt_l = [torch.empty((3, J.shape[-1]), device=dev) for J in J_l]
+        launch = TileLaunch("prepare", buckets, J_l, Vinv_l, I, C,
+                            res_l=res_l, gpt_l=g_pt_l)
+        mk = torch.empty if launch.sums == SUMS_FIXED else torch.zeros
+        acc_i = mk((I, 33), device=dev)
+        acc_c = mk((C, 2 * NP), device=dev)
+        LAUNCHES["prepare"] += 1
+        _cuda.prepare(NP, launch, lam, I, C, acc_i, acc_c)
+    else:
+        acc_i = torch.zeros((I, 33), device=dev)
+        acc_c = torch.zeros((C, 2 * NP), device=dev)
+        Vinv_l, g_pt_l = [], []
+        for b, J, res in zip(buckets, J_l, res_l):
             vinv, gpt, oi, oc = prepare_plain(b, J, res, lam, I, C)
+            Vinv_l.append(vinv)
+            g_pt_l.append(gpt)
             acc_i = acc_i + oi
             acc_c = acc_c + oc
-        Vinv_l.append(vinv)
-        g_pt_l.append(gpt)
     return (Vinv_l, g_pt_l, acc_i[:, :6], acc_c[:, :NP], acc_i[:, 6:12],
             acc_c[:, NP:], acc_i[:, 12:33])
 
 
-def _matvec_buckets(name, launch, plain, NP, buckets, J_l, Vinv_l, x_pose,
-                    x_intr, I, C):
-    """Sum one matvec kernel (or its plain version) over all buckets."""
+def _matvec_buckets(plain, NP, buckets, J_l, Vinv_l, x_pose, x_intr, I, C):
+    """Sum one matvec's plain version over all buckets."""
     dev = J_l[0].device
-    x_pose = x_pose.contiguous()
-    x_intr = x_intr[:, :NP].contiguous()
+    x_intr = x_intr[:, :NP]
     out_pose = torch.zeros((I, 6), device=dev)
     out_intr = torch.zeros((C, NP), device=dev)
     for b, J, Vinv in zip(buckets, J_l, Vinv_l):
-        if _is_cuda(J):
-            LAUNCHES[name] += 1
-            launch(NP, J.contiguous(), b.img_idx, b.cam_idx, Vinv, x_pose,
-                   x_intr, I, C, out_pose, out_intr)
-        else:
-            op, oi = plain(b, J, Vinv, x_pose, x_intr, I, C)
-            out_pose = out_pose + op
-            out_intr = out_intr + oi
+        op, oi = plain(b, J, Vinv, x_pose, x_intr, I, C)
+        out_pose = out_pose + op
+        out_intr = out_intr + oi
     return out_pose, out_intr
 
 
-def schur_matvec(buckets, J_l, Vinv_l, x_pose, x_intr, I, C):
+def _schur_matvec(kind, plain, NP, buckets, J_l, Vinv_l, x_pose, x_intr, I,
+                  C, launch):
+    if not _is_cuda(J_l[0]):
+        return _matvec_buckets(plain, NP, buckets, J_l, Vinv_l, x_pose,
+                               x_intr, I, C)
+    if launch is None:
+        launch = TileLaunch(kind, buckets, J_l, Vinv_l, I, C)
+    elif launch.kind != kind or not all(
+            a is b for a, b in zip(launch.operands, J_l)):
+        raise ValueError(f"{kind}: launch was built for other operands")
+    dev = J_l[0].device
+    x_pose = x_pose.contiguous()
+    x_intr = x_intr[:, :NP].contiguous()
+    mk = torch.empty if launch.sums == SUMS_FIXED else torch.zeros
+    out_pose = mk((I, 6), device=dev)
+    out_intr = mk((C, NP), device=dev)
+    LAUNCHES[kind] += 1
+    getattr(_cuda, kind)(NP, launch, x_pose, x_intr, I, C, out_pose, out_intr)
+    return out_pose, out_intr
+
+
+def schur_matvec(buckets, J_l, Vinv_l, x_pose, x_intr, I, C, launch=None):
     """Implicit S x over all buckets (no damping or free masking: the
     caller owns those). x_pose [I, 6]; x_intr [C, NP]. Returns
-    (out_pose [I, 6], out_intr [C, NP])."""
-    return _matvec_buckets("matvec", _cuda.matvec, matvec_plain,
-                           J_l[0].shape[1] - 9, buckets, J_l, Vinv_l, x_pose,
-                           x_intr, I, C)
-
-
-# ---------------------------------------------------------------------------
-# the bf16 matvec: one launch over a table of every bucket
-# ---------------------------------------------------------------------------
-
-MATVEC16_TILE_SLOTS = 256  # kMv16Slots in csrc/schur.cu: T x columns a tile
-MATVEC16_MAX_T = 64  # kMv16MaxT: the bucket ladder's longest tracks
-MATVEC16_MAX_BUCKETS = 8  # kMv16MaxBuckets
-MATVEC16_CLUSTER = 8  # kMv16Cluster: blocks whose sums meet in DSMEM
-MATVEC16_SUMS_WARPS = 2  # kMv16SumsWarps: the fixed-order, per-warp sums
-
-
-def matvec16_tile_p(T):
-    """Columns per tile of a bucket of T slots: the largest power of two
-    with T tile_p <= 256, at most 128 (4 at the ladder's T = 64)."""
-    if not 1 <= T <= MATVEC16_MAX_T:
-        raise ValueError(f"matvec16 takes buckets of 1..{MATVEC16_MAX_T} "
-                         f"slots, got T = {T}")
-    return min(128, 1 << ((MATVEC16_TILE_SLOTS // T).bit_length() - 1))
-
-
-def matvec16_table(shapes):
-    """The kernel's bucket table from the buckets' [T, P]: per bucket
-    (T, P, tile_p, first_tile) in launch order, and the tile count. P must
-    be a multiple of 8 (bucketize pads to multiples of 128)."""
-    if not 1 <= len(shapes) <= MATVEC16_MAX_BUCKETS:
-        raise ValueError(f"matvec16 takes 1..{MATVEC16_MAX_BUCKETS} buckets, "
-                         f"got {len(shapes)}")
-    rows, first = [], 0
-    for T, P in shapes:
-        if P % 8:
-            raise ValueError(f"matvec16 takes buckets of a multiple of 8 "
-                             f"columns, got P = {P}")
-        tp = matvec16_tile_p(T)
-        rows.append((T, P, tp, first))
-        first += -(-P // tp)
-    return tuple(rows), first
-
-
-class Matvec16Launch:
-    """What the card's matvec16 needs beside x, for one set of bucket
-    operands (one LM step's J16 and Vinv): the bucket table (a ctypes
-    struct passed by value, holding the operands' pointers), where x and
-    the sums live, and for the per-warp sums the clusters' partial rows and
-    the ticket (0 between launches)."""
-
-    def __init__(self, buckets, J16_l, Vinv_l, I, C):
-        dev = J16_l[0].device
-        NP = J16_l[0].shape[0] - 9
-        ops = [t for b, J, V in zip(buckets, J16_l, Vinv_l)
-               for t in (b.img_idx, b.cam_idx, J, V)]
-        if any(t.data_ptr() % 16 for t in ops):
-            raise ValueError("matvec16 operands must be 16-byte aligned")
-        self.operands = (list(J16_l), list(Vinv_l), list(buckets))  # alive
-        self.rows, self.n_tiles = matvec16_table(
-            [tuple(b.img_idx.shape) for b in buckets])
-        self.table = _cuda.matvec16_table(self.rows, self.n_tiles, buckets,
-                                          J16_l, Vinv_l)
-        self.sums = _cuda.matvec16_config(NP, I, C)["sums"]
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        # at most 8 blocks per SM (csrc kMv16MaxPerSm), 8 per cluster
-        self.max_clusters = -(-8 * sms // MATVEC16_CLUSTER)
-        warps = self.sums == MATVEC16_SUMS_WARPS
-        n = self.max_clusters * (I * 6 + C * NP) if warps else 1
-        self.partials = torch.empty(n, device=dev)
-        self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
-
-
-def matvec16_launch(buckets, J16_l, Vinv_l, I, C):
-    """The :class:`Matvec16Launch` of one LM step's operands for
-    schur_matvec16 (None off the card, where the plain version needs
-    none)."""
-    if not _is_cuda(J16_l[0]):
-        return None
-    return Matvec16Launch(buckets, J16_l, Vinv_l, I, C)
+    (out_pose [I, 6], out_intr [C, NP]). On the card one launch covers
+    every bucket, over `launch` (matvec_launch("matvec", ...) of these
+    operands, built here when None). Bucket widths must be multiples of
+    8."""
+    return _schur_matvec("matvec", matvec_plain, J_l[0].shape[1] - 9,
+                         buckets, J_l, Vinv_l, x_pose, x_intr, I, C, launch)
 
 
 def schur_matvec16(buckets, J16_l, Vinv_l, x_pose, x_intr, I, C,
                    launch=None):
     """Implicit S x over all buckets from bf16-packed J (see pack_j_bf16);
-    otherwise as schur_matvec. On the card one launch covers every bucket,
-    over `launch` (matvec16_launch of these operands, built here when
-    None). Bucket widths must be multiples of 8."""
-    NP = J16_l[0].shape[0] - 9
-    if not _is_cuda(J16_l[0]):
-        return _matvec_buckets("matvec16", None, matvec16_plain, NP, buckets,
-                               J16_l, Vinv_l, x_pose, x_intr, I, C)
-    if launch is None:
-        launch = Matvec16Launch(buckets, J16_l, Vinv_l, I, C)
-    elif not all(a is b for a, b in zip(launch.operands[0], J16_l)):
-        raise ValueError("schur_matvec16: launch was built for other operands")
-    dev = J16_l[0].device
-    x_pose = x_pose.contiguous()
-    x_intr = x_intr[:, :NP].contiguous()
-    mk = torch.empty if launch.sums == MATVEC16_SUMS_WARPS else torch.zeros
-    out_pose = mk((I, 6), device=dev)
-    out_intr = mk((C, NP), device=dev)
-    LAUNCHES["matvec16"] += 1
-    _cuda.matvec16(NP, launch, x_pose, x_intr, I, C, out_pose, out_intr)
-    return out_pose, out_intr
+    otherwise as schur_matvec (`launch`: matvec_launch("matvec16", ...))."""
+    return _schur_matvec("matvec16", matvec16_plain, J16_l[0].shape[0] - 9,
+                         buckets, J16_l, Vinv_l, x_pose, x_intr, I, C, launch)
+
+
+# ---------------------------------------------------------------------------
+# the Schur kernels' bucket table: one launch over every bucket
+# ---------------------------------------------------------------------------
+
+TILE_KINDS = ("matvec16", "matvec", "prepare")  # csrc/schur.cu TileKind
+TILE_SLOTS = 256  # kTileSlots: T x columns a tile
+TILE_MAX_T = 64  # kTileMaxT: the bucket ladder's longest tracks
+TILE_MAX_BUCKETS = 8  # kTileMaxBuckets
+TILE_CLUSTER = 8  # kTileCluster: blocks whose sums meet in DSMEM
+SUMS_FIXED = 2  # kSumsFixed: sums without atomics, in a fixed order
+
+
+def tile_p(T):
+    """Columns per tile of a bucket of T slots: the largest power of two
+    with T tile_p <= 256, at most 128 (4 at the ladder's T = 64)."""
+    if not 1 <= T <= TILE_MAX_T:
+        raise ValueError(f"the Schur kernels take buckets of 1..{TILE_MAX_T} "
+                         f"slots, got T = {T}")
+    return min(128, 1 << ((TILE_SLOTS // T).bit_length() - 1))
+
+
+def tile_table(shapes):
+    """The Schur kernels' bucket table from the buckets' [T, P]: per bucket
+    (T, P, tile_p, first_tile) in launch order, and the tile count. P must
+    be a multiple of 8 (bucketize pads to multiples of 128)."""
+    if not 1 <= len(shapes) <= TILE_MAX_BUCKETS:
+        raise ValueError(f"the Schur kernels take 1..{TILE_MAX_BUCKETS} "
+                         f"buckets, got {len(shapes)}")
+    rows, first = [], 0
+    for T, P in shapes:
+        if P % 8:
+            raise ValueError(f"the Schur kernels take buckets of a multiple "
+                             f"of 8 columns, got P = {P}")
+        tp = tile_p(T)
+        rows.append((T, P, tp, first))
+        first += -(-P // tp)
+    return tuple(rows), first
+
+
+class TileLaunch:
+    """What a Schur kernel on the card needs beside its per-call inputs,
+    for one set of bucket operands: the kernel (`kind`, one of
+    TILE_KINDS), the bucket table (a ctypes struct passed by value, holding
+    the operands' pointers), where the sums live, and for the fixed-order
+    sums the clusters' partial rows and the ticket (0 between launches). A
+    matvec's is built once per LM step; prepare builds one per call, with
+    its residuals in and its Vinv and g_pt out."""
+
+    def __init__(self, kind, buckets, J_l, Vinv_l, I, C, res_l=None,
+                 gpt_l=None):
+        dev = J_l[0].device
+        bf16 = kind == "matvec16"
+        NP = (J_l[0].shape[0] if bf16 else J_l[0].shape[1]) - 9
+        ops = [t for b, J, V in zip(buckets, J_l, Vinv_l)
+               for t in (b.img_idx, b.cam_idx, J, V)]
+        ops += list(res_l or ()) + list(gpt_l or ())
+        if any(t.data_ptr() % 16 for t in ops):
+            raise ValueError(f"{kind} operands must be 16-byte aligned")
+        self.kind = kind
+        self.operands = list(J_l)
+        self._alive = (Vinv_l, buckets, res_l, gpt_l)
+        self.rows, self.n_tiles = tile_table(
+            [tuple(b.img_idx.shape) for b in buckets])
+        self.table = _cuda.tile_table(
+            self.rows, self.n_tiles, buckets, J_l,
+            torch.bfloat16 if bf16 else torch.float32, Vinv_l, res_l, gpt_l)
+        self.sums = _cuda.tile_config(TILE_KINDS.index(kind), NP, I,
+                                      C)["sums"]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        # at most 8 blocks per SM (csrc kTileMaxPerSm), 8 per cluster
+        self.max_clusters = -(-8 * sms // TILE_CLUSTER)
+        n_acc = (I * 33 + C * 2 * NP if kind == "prepare"
+                 else I * 6 + C * NP)
+        fixed = self.sums == SUMS_FIXED
+        self.partials = torch.empty(self.max_clusters * n_acc if fixed else 1,
+                                    device=dev)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+
+
+def matvec_launch(kind, buckets, J_l, Vinv_l, I, C):
+    """The :class:`TileLaunch` of one LM step's operands for schur_matvec
+    (kind "matvec", f32 J) or schur_matvec16 ("matvec16", bf16 J); None off
+    the card, where the plain version needs none."""
+    if not _is_cuda(J_l[0]):
+        return None
+    return TileLaunch(kind, buckets, J_l, Vinv_l, I, C)
 
 
 # ---------------------------------------------------------------------------

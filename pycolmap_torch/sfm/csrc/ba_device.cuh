@@ -3,7 +3,7 @@
 // COLMAP camera distortions templated on the scalar type, the per-model
 // residual and Jacobian, the camera policies (one model, or a mixed-model
 // bundle's per-observation switch), the robust losses, and the in-block
-// reductions and scatters.
+// reductions.
 //
 // Layouts (all row-major, f32 unless noted), shared with the plain PyTorch
 // versions in pycolmap_torch/sfm/cg_kernel.py:
@@ -459,7 +459,7 @@ __device__ __forceinline__ float robust_cost(float sq, int loss, float scale) {
 }
 
 // ---------------------------------------------------------------------------
-// in-block reductions and scatters
+// in-block reductions
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -480,44 +480,11 @@ __device__ __forceinline__ float block_sum(float x) {
   return x;
 }
 
-// Scatter of n values into row `row` of an accumulator; zeros are skipped
-// (padded track slots carry all-zero Jacobians and index 0, and would
-// otherwise pile their no-op adds onto row 0).
-template <int N>
-__device__ __forceinline__ void scatter_row(float* acc, int row, int stride, const float* vals) {
-  float* r = acc + (size_t)row * stride;
-#pragma unroll
-  for (int c = 0; c < N; ++c)
-    if (vals[c] != 0.f) atomicAdd(r + c, vals[c]);
-}
-
-// Flush one pending per-thread camera row (row < 0: nothing pending). When
-// every pending lane of the warp holds the same camera (always so with one
-// camera, as in the bench), the warp reduces first and one lane adds: N
-// atomics per warp instead of 32 N onto the same addresses. All 32 lanes
-// must call it.
-template <int N>
-__device__ __forceinline__ void flush_cam_row(float* acc, int row, int stride, float* vals) {
-  unsigned pending = __ballot_sync(0xffffffffu, row >= 0);
-  if (pending == 0u) return;
-  int lead = __shfl_sync(0xffffffffu, row, __ffs(pending) - 1);
-  if (__all_sync(0xffffffffu, row < 0 || row == lead)) {
-#pragma unroll
-    for (int c = 0; c < N; ++c) vals[c] = warp_sum(row >= 0 ? vals[c] : 0.f);
-    if ((threadIdx.x & 31) == 0) scatter_row<N>(acc, lead, stride, vals);
-  } else if (row >= 0) {
-    scatter_row<N>(acc, row, stride, vals);
-  }
-}
-
 // cudaGetErrorString for the Python wrappers; each library defines it once.
 #define BA_DEFINE_ERROR_STRING                              \
   extern "C" const char* kernel_error_string(int code) {    \
     return cudaGetErrorString((cudaError_t)code);           \
   }
-
-// Shared-memory accumulators above this size use the global-atomic variant.
-#define BA_MAX_SMEM_BYTES (160 * 1024)
 
 inline int ba_sm_count() {
   static int n = 0;

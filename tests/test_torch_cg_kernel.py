@@ -338,60 +338,111 @@ def test_schur_matvec16_matches_f32():
 
 
 # ---------------------------------------------------------------------------
-# the one-launch bf16 matvec's bucket table (csrc/schur.cu matvec16_kernel)
+# the Schur kernels' bucket table (csrc/schur.cu: matvec16_kernel,
+# matvec_kernel and prepare_kernel, one launch over every bucket's tiles)
 # ---------------------------------------------------------------------------
 
 
 def test_matvec16_tiles():
     """Tiles hold at most 256 slots: 128 columns up to T = 2, 4 at the
     ladder's T = 64; tiles run bucket after bucket."""
-    assert [tck.matvec16_tile_p(t) for t in (1, 4, 5, 8, 12, 16, 32, 64)] \
+    assert [tck.tile_p(t) for t in (1, 4, 5, 8, 12, 16, 32, 64)] \
         == [128, 64, 32, 32, 16, 16, 8, 4]
     with pytest.raises(ValueError):
-        tck.matvec16_tile_p(65)
-    rows, n = tck.matvec16_table([(4, 128), (8, 131072), (16, 88)])
+        tck.tile_p(65)
+    rows, n = tck.tile_table([(4, 128), (8, 131072), (16, 88)])
     assert rows == ((4, 128, 64, 0), (8, 131072, 32, 2),
                     (16, 88, 16, 4098)) and n == 4104
     with pytest.raises(ValueError):
-        tck.matvec16_table([(4, 128)] * 9)
+        tck.tile_table([(4, 128)] * 9)
     with pytest.raises(ValueError):  # widths are multiples of 8
-        tck.matvec16_table([(16, 77)])
+        tck.tile_table([(16, 77)])
 
 
-def _matvec16_walk(rows, n_tiles, buckets, J16_l, Vinv_l, x_pose, x_intr, I,
-                   C, blocks=8, cluster=tck.MATVEC16_CLUSTER):
-    """The kernel's walk in plain PyTorch: `blocks` blocks take contiguous
-    runs of ceil(n_tiles / blocks) tiles; each sums its tiles' S x; the
-    blocks of a cluster add theirs in rank order, and the clusters' rows
-    are added in cluster order. Returns ([I, 6], [C, NP]) in the dtype of
-    Vinv."""
-    NP = J16_l[0].shape[0] - 9
-    dt, dev = Vinv_l[0].dtype, Vinv_l[0].device
+@pytest.mark.parametrize("esize", [2, 4], ids=["bf16", "f32"])
+def test_tile_widths(esize):
+    """For every T the ladder may give (1..64), in both J types (bf16 for
+    matvec16, f32 for prepare and the f32 matvec): the widest power-of-two
+    tile of at most 256 slots and 128 columns; each J row piece at least
+    the kernels' smallest copy (8 bytes of bf16, 16 of f32) and each index
+    row piece 16 bytes or more."""
+    for T in range(1, tck.TILE_MAX_T + 1):
+        tp = tck.tile_p(T)
+        assert tp & (tp - 1) == 0 and 4 <= tp <= 128
+        assert T * tp <= tck.TILE_SLOTS
+        assert tp == 128 or T * 2 * tp > tck.TILE_SLOTS  # the widest
+        assert tp * esize >= (8 if esize == 2 else 16) and tp * 4 >= 16
+    assert tck.tile_p(64) * esize == 4 * esize
+    assert tck.tile_p(8) * esize == 32 * esize  # the bench's long bucket
+
+
+@pytest.mark.parametrize("shapes, why", [
+    ([], "no bucket"),
+    ([(4, 128)] * 9, "more buckets than the table holds"),
+    ([(0, 128)], "T = 0"),
+    ([(65, 128)], "T above the ladder's 64"),
+    ([(8, 131072), (16, 1004)], "a width no multiple of 8"),
+])
+def test_tile_table_rejects(shapes, why):
+    with pytest.raises(ValueError):
+        tck.tile_table(shapes)
+
+
+def test_tile_launch_needs_the_card():
+    """Off the card no table is built: the plain versions need none."""
+    J, ii, ci, Vinv, _, _ = _bf16_case(5, 4, 1)
+    assert tck.matvec_launch("matvec", [_bucket16(ii, ci)],
+                             [torch.from_numpy(J)],
+                             [torch.from_numpy(Vinv)], I, 1) is None
+
+
+def _walk_tiles(rows, n_tiles, blocks, cluster):
+    """The kernels' walk of a table: `blocks` blocks take contiguous runs
+    of ceil(n_tiles / blocks) tiles, yielded per block as (bucket, columns)
+    in tile order; blocks come in clusters of `cluster`."""
     starts = [r[3] for r in rows]
     per = -(-n_tiles // blocks)
-    sums = []
     for blk in range(blocks):
-        acc_p = torch.zeros((I, 6), dtype=dt, device=dev)
-        acc_i = torch.zeros((C, NP), dtype=dt, device=dev)
+        tiles = []
         for tile in range(blk * per, min((blk + 1) * per, n_tiles)):
             bi = max(i for i, f in enumerate(starts) if f <= tile)
             T, P, tp, first = rows[bi]
-            cols = slice((tile - first) * tp, min((tile - first + 1) * tp, P))
+            tiles.append((bi, slice((tile - first) * tp,
+                                    min((tile - first + 1) * tp, P))))
+        yield tiles
+
+
+def _cluster_order(sums, cluster):
+    """Block sums added per cluster in rank order, the clusters' rows in
+    cluster order (tile_finish)."""
+    out = None
+    for c in range(0, len(sums), cluster):
+        part = [sum(x[k] for x in sums[c:c + cluster])
+                for k in range(len(sums[0]))]
+        out = part if out is None else [o + q for o, q in zip(out, part)]
+    return out
+
+
+def _matvec_walk(plain, rows, n_tiles, buckets, J_l, Vinv_l, x_pose, x_intr,
+                 I, C, blocks=8, cluster=tck.TILE_CLUSTER):
+    """A matvec kernel's walk in plain PyTorch (`plain`: matvec_plain on f32
+    J or matvec16_plain on bf16 J; both layouts keep columns last): each
+    block sums its tiles' S x, then _cluster_order. Returns ([I, 6],
+    [C, NP]) in the dtype of Vinv."""
+    NP = x_intr.shape[1]
+    dt = Vinv_l[0].dtype
+    sums = []
+    for tiles in _walk_tiles(rows, n_tiles, blocks, cluster):
+        acc = [torch.zeros((I, 6), dtype=dt), torch.zeros((C, NP), dtype=dt)]
+        for bi, cols in tiles:
             b = buckets[bi]
             part = b._replace(img_idx=b.img_idx[:, cols],
                               cam_idx=b.cam_idx[:, cols])
-            op, oi = tck.matvec16_plain(part, J16_l[bi][:, :, cols],
-                                        Vinv_l[bi][:, cols], x_pose.to(dt),
-                                        x_intr[:, :NP].to(dt), I, C)
-            acc_p, acc_i = acc_p + op, acc_i + oi
-        sums.append((acc_p, acc_i))
-    out_p = torch.zeros((I, 6), dtype=dt, device=dev)
-    out_i = torch.zeros((C, NP), dtype=dt, device=dev)
-    for c in range(0, blocks, cluster):
-        part_p = sum(p for p, _ in sums[c:c + cluster])
-        part_i = sum(i for _, i in sums[c:c + cluster])
-        out_p, out_i = out_p + part_p, out_i + part_i
-    return out_p, out_i
+            op, oi = plain(part, J_l[bi][..., cols], Vinv_l[bi][:, cols],
+                           x_pose.to(dt), x_intr.to(dt), I, C)
+            acc = [acc[0] + op, acc[1] + oi]
+        sums.append(acc)
+    return tuple(_cluster_order(sums, cluster))
 
 
 @pytest.mark.parametrize("NPm", [4, 9])
@@ -420,14 +471,14 @@ def test_matvec16_walk_matches_pallas(NPm):
     plain = tck.schur_matvec16(buckets, J16_l, V_l, torch.from_numpy(x_pose),
                                torch.from_numpy(x_intr), I, 2)
     assert tck.LAUNCHES["matvec16"] == 0
-    rows, n_tiles = tck.matvec16_table([tuple(b.img_idx.shape)
-                                        for b in buckets])
+    rows, n_tiles = tck.tile_table([tuple(b.img_idx.shape)
+                                    for b in buckets])
     assert rows == ((4, 128, 64, 0), (8, 256, 32, 2)) and n_tiles == 10
-    walk = _matvec16_walk(rows, n_tiles, buckets, J16_l,
-                             [v.double() for v in V_l],
-                             torch.from_numpy(x_pose).double(),
-                             torch.from_numpy(x_intr).double(), I, 2,
-                             blocks=4, cluster=2)  # runs of 3 tiles
+    walk = _matvec_walk(tck.matvec16_plain, rows, n_tiles, buckets, J16_l,
+                        [v.double() for v in V_l],
+                        torch.from_numpy(x_pose).double(),
+                        torch.from_numpy(x_intr).double(), I, 2,
+                        blocks=4, cluster=2)  # runs of 3 tiles
     scale = max(np.abs(np.asarray(ref[0])).max(),
                 np.abs(np.asarray(ref[1])).max(), 1.0)
     for w, p, r in zip(walk, plain, ref):
@@ -436,3 +487,130 @@ def test_matvec16_walk_matches_pallas(NPm):
                                    atol=2e-5)
         np.testing.assert_allclose(w.numpy() / scale, p.numpy() / scale,
                                    atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the f32 matvec and prepare over their tables
+# ---------------------------------------------------------------------------
+
+
+def _f32_table_case(NPm, seed):
+    """The bench's empty [4, 128] bucket beside a ragged [8, 256] one (f32
+    J and residuals, masked), two cameras; the reference's Bucket and the
+    port's."""
+    J, ii, ci, _, x_pose, x_intr = _bf16_case(seed, NPm, 2, T16=8, P16=256,
+                                              ragged=201)
+    rng = np.random.default_rng(seed + 1)
+    res = rng.normal(size=(2, 8, 256)).astype(np.float32)
+    res *= (J != 0).any(axis=1)
+    z_idx = np.zeros((4, 128), np.int32)
+    ops = dict(
+        J=[np.zeros((2, 9 + NPm, 4, 128), np.float32), J],
+        res=[np.zeros((2, 4, 128), np.float32), res],
+        idx=[(z_idx, z_idx), (ii, ci)],
+        x_pose=x_pose, x_intr=x_intr,
+    )
+    jb = [jbk.Bucket(jnp.asarray(a), jnp.asarray(c), *([None] * 5))
+          for a, c in ops["idx"]]
+    tb = [_bucket16(a, c) for a, c in ops["idx"]]
+    return ops, jb, tb
+
+
+def _scaled_max(arrays):
+    return max(max(float(np.abs(np.asarray(a)).max()) for a in arrays), 1.0)
+
+
+@pytest.mark.parametrize("NPm", [4, 9])
+def test_f32_matvec_walk_matches_pallas(NPm):
+    """The f32 matvec kernel's walk of its table (tiles dealt to blocks, block sums added per cluster, cluster rows in order) against
+    the reference's Pallas cg_matvec_bucket (interpret mode) and
+    schur_matvec's plain result, with the bench's empty [4, 128] bucket
+    beside a full one. Width 9 is the mixed SIMPLE_RADIAL + OPENCV
+    bundle's. Tolerance 2e-5 scaled (tests/test_cg_kernel.py:64)."""
+    ops, jb, tb = _f32_table_case(NPm, 110 + NPm)
+    rng = np.random.default_rng(120 + NPm)
+    V_l = [rng.normal(size=(6, J.shape[-1])).astype(np.float32)
+           for J in ops["J"]]
+    ref = jck.schur_matvec(jb, [jnp.asarray(J) for J in ops["J"]],
+                           [jnp.asarray(V) for V in V_l],
+                           jnp.asarray(ops["x_pose"]),
+                           jnp.asarray(ops["x_intr"]), I, 2, interpret=True)
+    J_l = [torch.from_numpy(J) for J in ops["J"]]
+    tV = [torch.from_numpy(V) for V in V_l]
+    xp, xi = torch.from_numpy(ops["x_pose"]), torch.from_numpy(ops["x_intr"])
+    tck.reset_counts()
+    plain = tck.schur_matvec(tb, J_l, tV, xp, xi, I, 2)
+    assert tck.LAUNCHES["matvec"] == 0
+    rows, n_tiles = tck.tile_table([tuple(b.img_idx.shape) for b in tb])
+    assert rows == ((4, 128, 64, 0), (8, 256, 32, 2)) and n_tiles == 10
+    walk = _matvec_walk(tck.matvec_plain, rows, n_tiles, tb,
+                        [J.double() for J in J_l], [v.double() for v in tV],
+                        xp.double(), xi.double(), I, 2,
+                        blocks=4, cluster=2)  # runs of 3 tiles
+    scale = _scaled_max(ref)
+    for w, p, r in zip(walk, plain, ref):
+        assert w.shape == p.shape == r.shape
+        np.testing.assert_allclose(w.numpy() / scale, np.asarray(r) / scale,
+                                   atol=2e-5)
+        np.testing.assert_allclose(w.numpy() / scale, p.numpy() / scale,
+                                   atol=2e-5)
+
+
+def _prepare_walk(rows, n_tiles, buckets, J_l, res_l, lam, I, C, blocks,
+                  cluster):
+    """prepare_kernel's walk in plain PyTorch: per tile, its columns' Vinv
+    and g_pt (each column lies whole in one tile) and its image and camera
+    sums; each block sums its tiles', then _cluster_order."""
+    NP = J_l[0].shape[1] - 9
+    dt = J_l[0].dtype
+    Vinv_l = [torch.zeros((6, J.shape[-1]), dtype=dt) for J in J_l]
+    g_l = [torch.zeros((3, J.shape[-1]), dtype=dt) for J in J_l]
+    sums = []
+    for tiles in _walk_tiles(rows, n_tiles, blocks, cluster):
+        acc = [torch.zeros((I, 33), dtype=dt),
+               torch.zeros((C, 2 * NP), dtype=dt)]
+        for bi, cols in tiles:
+            b = buckets[bi]
+            part = b._replace(img_idx=b.img_idx[:, cols],
+                              cam_idx=b.cam_idx[:, cols])
+            v, g, oi, oc = tck.prepare_plain(part, J_l[bi][..., cols],
+                                             res_l[bi][..., cols], lam, I, C)
+            Vinv_l[bi][:, cols] = v
+            g_l[bi][:, cols] = g
+            acc = [acc[0] + oi, acc[1] + oc]
+        sums.append(acc)
+    acc_i, acc_c = _cluster_order(sums, cluster)
+    return (Vinv_l, g_l, acc_i[:, :6], acc_c[:, :NP], acc_i[:, 6:12],
+            acc_c[:, NP:], acc_i[:, 12:33])
+
+
+@pytest.mark.parametrize("NPm", [4, 9])
+def test_prepare_walk_matches_pallas(NPm):
+    """prepare_kernel's walk of its table against the reference's Pallas
+    schur_prepare_bucket (interpret mode) and schur_prepare's plain result,
+    with the bench's empty [4, 128] bucket beside a full one; width 9 is
+    the mixed SIMPLE_RADIAL + OPENCV bundle's. Tolerance 3e-5 scaled
+    (tests/test_cg_kernel.py:176)."""
+    ops, jb, tb = _f32_table_case(NPm, 130 + NPm)
+    lam = 0.37
+    ref = jck.schur_prepare(jb, [jnp.asarray(J) for J in ops["J"]],
+                            [jnp.asarray(r) for r in ops["res"]],
+                            jnp.float32(lam), I, 2, interpret=True)
+    J_l = [torch.from_numpy(J) for J in ops["J"]]
+    r_l = [torch.from_numpy(r) for r in ops["res"]]
+    tck.reset_counts()
+    plain = tck.schur_prepare(tb, J_l, r_l, torch.tensor(lam), I, 2)
+    assert tck.LAUNCHES["prepare"] == 0
+    rows, n_tiles = tck.tile_table([tuple(b.img_idx.shape) for b in tb])
+    walk = _prepare_walk(rows, n_tiles, tb, [J.double() for J in J_l],
+                         [r.double() for r in r_l],
+                         torch.tensor(lam, dtype=torch.float64), I, 2,
+                         blocks=4, cluster=2)
+    for k in (0, 1):  # per-bucket Vinv, g_pt
+        for w, p, r in zip(walk[k], plain[k], ref[k]):
+            _close_scaled(w, r, 3e-5)
+            _close_scaled(w, p, 3e-5)
+    for w, p, r in zip(walk[2:], plain[2:], ref[2:]):
+        assert w.shape == p.shape == r.shape
+        _close_scaled(w, r, 3e-5)
+        _close_scaled(w, p, 3e-5)
