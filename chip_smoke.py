@@ -15,25 +15,29 @@ Phases (each raises on failure; the script then exits nonzero):
 1. build every kernel of the port (``pycolmap_torch/*/csrc``) with nvcc,
    all sources in parallel, and print the build time, the card's name and
    power limit, and the registers, spills and resident blocks per SM of
-   the window sampler and the PatchMatch cost kernel, and the modes of the
-   Schur kernels;
+   the window sampler, the PatchMatch cost kernel and every cost and
+   finish instance, and the modes of the Schur kernels;
 2. hold each bundle-adjustment kernel to its plain PyTorch version on the
    card, at the bench shapes and at an irregular shape (three cameras,
    several buckets, widths that are no multiple of 128, mask holes, points
    behind cameras, partly fixed intrinsics, all three losses, all 11 camera
    models; the Schur kernels' buckets padded to multiples of 8 columns),
-   prepare and the f32 matvec one launch each for all buckets, and time
-   both with CUDA events;
+   and at a ragged one (an empty [4, 128] bucket, tracks of lengths 1..T,
+   tiles of padding columns only); cost, finish, prepare and the f32
+   matvec one launch each for all buckets; the cost bit-equal over
+   repeated calls and to finish's at a zero step with every point fixed;
+   time cost and finish with CUDA events, with each wrapper call's host
+   wall and device ops;
 3. solve a 32-image / 8192-point problem on the card and on the CPU (plain
    versions), 6 LM steps each with f32 CG matvecs, and compare the results;
 4. run the bench's resident solve (128 images, 100k points, ~600k
    observations; bench.py run_ba's sequence) through the kernels, with the
    launch counters zeroed just before the timed solves and read just after,
    once with the card's default bf16 CG matvec and once with the f32 one;
-   prepare launches once per LM step and either matvec once per CG
-   iteration, each for all buckets;
+   prepare and finish launch once per LM step, either matvec once per CG
+   iteration and the cost once per solve, each for all buckets;
 5. profile one more bench solve with torch.profiler: device time per
-   kernel and the device's busy share;
+   kernel, device ops per LM step and the device's busy share;
 6. hold the window sampler (one launch per ``sample_windows`` call, its
    window origins computed in the kernel) and the top-2 matcher to their
    plain versions (float64) on the card: the sampler at octave 0's
@@ -80,19 +84,21 @@ Phases (each raises on failure; the script then exits nonzero):
     before phase 13, which checks the inputs it captures);
 15. hold the mixed-model variants of the resjac, cost and finish kernels
     (bundles whose cameras span several camera models) to their plain
-    versions in float64, with phase 2's tolerances: at the inputs captured
-    in phase 16's solve, at an irregular three-model bundle of width 13
-    (SIMPLE_PINHOLE, FULL_OPENCV and FOV near omega = 0, plus a camera whose
-    selector names no listed model), at one bundle holding all 11 models,
-    and, with prepare, matvec and matvec16, at the mixed widths 6, 9 and 13
-    (prepare and both matvecs timed at phase 16's width 9);
+    versions in float64, with phase 2's tolerances and checks: at the
+    inputs captured in phase 16's solve, at an irregular three-model bundle
+    of width 13 (SIMPLE_PINHOLE, FULL_OPENCV and FOV near omega = 0, plus a
+    camera whose selector names no listed model), at one bundle holding
+    all 11 models, and, with prepare, matvec and matvec16, at the mixed
+    widths 6, 9 and 13, irregular and ragged (prepare and both matvecs
+    timed at phase 16's width 9);
 16. ``bundle_adjustment`` of a mixed-model model at full width: phase 11's
     128-image / 100k-point ring, even images through a SIMPLE_RADIAL camera
     and odd ones through an OPENCV camera, observations projected in
     float64 through each camera plus 0.5 px noise, written and read back as
-    a binary model, default options with the bf16 matvec; compared with
-    phase 11's single-model solve of the same size; then a 32-image model
-    on the card and on the CPU (phase 16 runs before phase 15);
+    a binary model, default options with the bf16 matvec, finish once per
+    LM step and the cost once; compared with phase 11's single-model solve
+    of the same size; then a 32-image model on the card and on the CPU
+    (phase 16 runs before phase 15);
 17. hold the per-observation parameter gather to its plain version
     (exactly equal) at phase 16's bucket shapes and at a ragged shape, and
     time it beside ``index_select``;
@@ -346,8 +352,12 @@ def check_case(case, tag, results=None):
         return ck.res_and_jac(b_l, pts, case.quat, case.trans, case.intr,
                               case.intr_free, m, lt, ls)
 
+    def kname(name):
+        return ck._kernel_name(name, m) if name in ck.KERNELS[:3] else name
+
     res_k, J_k = k_resjac()
-    c_k = ck.total_cost(b_l, pts, case.quat, case.trans, case.intr, m, lt, ls)
+    c_k = _one_launch(kname("cost"), tag, lambda: ck.total_cost(
+        b_l, pts, case.quat, case.trans, case.intr, m, lt, ls))
     # the Schur kernels, one launch each for all buckets, take widths that
     # are multiples of 8: their inputs get empty columns (mask 0, index 0,
     # all-zero J and residuals), as bucketize pads
@@ -361,9 +371,9 @@ def check_case(case, tag, results=None):
     g_l = [g[:, :b.mask.shape[1]].contiguous() for g, b in zip(prep_k[1], b_l)]
     mv_k = _one_launch("matvec", tag, lambda: ck.schur_matvec(
         b8, J8, Vinv8, x_pose, x_intr, I, C))
-    fin_k = ck.backsub_and_cost(b_l, pts, J_k, Vinv_l, g_l, x_pose, x_intr,
-                                case.new_quat, case.new_trans, case.new_intr,
-                                m, lt, ls)
+    fin_k = _one_launch(kname("finish"), tag, lambda: ck.backsub_and_cost(
+        b_l, pts, J_k, Vinv_l, g_l, x_pose, x_intr, case.new_quat,
+        case.new_trans, case.new_intr, m, lt, ls))
     kernel_out = {
         "resjac": res_k + J_k,
         "cost": [c_k],
@@ -411,9 +421,6 @@ def check_case(case, tag, results=None):
                for b, J, V, g in zip(bl, J_k, Vinv_l, g_l)]
         return [o[0] for o in out] + [sum(o[1] for o in out)]
 
-    def kname(name):
-        return ck._kernel_name(name, m) if name in ck.KERNELS[:3] else name
-
     errs = {}
     for name in F32_KERNELS:
         worst = (0.0, 0.0)
@@ -427,18 +434,23 @@ def check_case(case, tag, results=None):
                 f"{worst[1]:.3e} > {TOL[kname(name)]:.0e} (max abs "
                 f"{worst[0]:.3e})")
     torch.cuda.synchronize()
+    cost_bits(case, tag, J_k, Vinv_l, g_l, c_k)
 
     if results is not None:
+        # cost and finish as the LM step calls them: NP-narrow intrinsics,
+        # finish's table built once for its calls
+        intr_np = case.intr[:, :NP].contiguous()
+        fl = ck.finish_launch(b_l, pts, J_k, Vinv_l, g_l)
         kern = {
             "resjac": k_resjac,
             "cost": lambda: ck.total_cost(
-                b_l, pts, case.quat, case.trans, case.intr, m, lt, ls),
+                b_l, pts, case.quat, case.trans, intr_np, m, lt, ls),
             "prepare": lambda: ck.schur_prepare(b8, J8, r8, lam, I, C),
             "matvec": lambda: ck.schur_matvec(b8, J8, Vinv8, x_pose,
                                               x_intr, I, C),
             "finish": lambda: ck.backsub_and_cost(
                 b_l, pts, J_k, Vinv_l, g_l, x_pose, x_intr, case.new_quat,
-                case.new_trans, case.new_intr, m, lt, ls),
+                case.new_trans, case.new_intr, m, lt, ls, launch=fl),
         }
         for name in F32_KERNELS:
             plain32 = max(
@@ -451,23 +463,109 @@ def check_case(case, tag, results=None):
                 max_abs_err=errs[kname(name)][0],
                 scaled_err=errs[kname(name)][1], **bound(name, case),
             )
+        for name in ("cost", "finish"):
+            r = results[kname(name)]
+            r.update(call_host_ms=host_ms(kern[name]),
+                     device_ops=device_ops(kern[name]))
+            # no sum, add or fill beside the kernel
+            if (r["device_ops"] or 0) > 1:
+                raise AssertionError(f"[{tag}] {kname(name)}: "
+                                     f"{r['device_ops']} device ops in one "
+                                     f"call, expected 1")
+        results[kname("finish")]["build_host_ms"] = host_ms(
+            lambda: ck.finish_launch(b_l, pts, J_k, Vinv_l, g_l))
     return errs
+
+
+def cost_bits(case, tag, J_l, Vinv_l, g_l, c_k):
+    """The cost repeats to the bit over calls; finish repeats its points and
+    cost over calls with one table; finish at a zero step with every point
+    fixed and the parameters unchanged returns the points and the cost's
+    bits (both kernels add the same slot costs in the same order)."""
+    b_l, pts, m = case.buckets, case.pts, case.model_id
+    lt, ls, NP = case.loss_type, case.loss_scale, case.NP
+    again = [ck.total_cost(b_l, pts, case.quat, case.trans, case.intr, m, lt,
+                           ls) for _ in range(3)]
+    if not all(torch.equal(a, c_k) for a in again):
+        raise AssertionError(f"[{tag}] cost: repeated calls differ: "
+                             f"{[float(a) for a in again]} vs {float(c_k)}")
+    fl = ck.finish_launch(b_l, pts, J_l, Vinv_l, g_l)
+
+    def fin(bl=b_l, launch=fl, **kw):
+        a = {**dict(x_pose=case.x_pose, x_intr=case.x_intr, q=case.new_quat,
+                    t=case.new_trans, k=case.new_intr), **kw}
+        out = ck.backsub_and_cost(bl, pts, J_l, Vinv_l, g_l, a["x_pose"],
+                                  a["x_intr"], a["q"], a["t"], a["k"], m, lt,
+                                  ls, launch=launch)
+        return [p.clone() for p in out[0]], out[1].clone()
+
+    (p1, f1), (p2, f2) = fin(), fin()
+    if not (torch.equal(f1, f2) and all(map(torch.equal, p1, p2))):
+        raise AssertionError(f"[{tag}] finish: repeated calls differ")
+    fixed = [b._replace(point_free=torch.zeros_like(b.point_free))
+             for b in b_l]
+    p0, f0 = fin(fixed, None, x_pose=torch.zeros_like(case.x_pose),
+                 x_intr=torch.zeros_like(case.x_intr), q=case.quat,
+                 t=case.trans, k=case.intr[:, :NP])
+    if not (torch.equal(f0, c_k) and all(map(torch.equal, p0, pts))):
+        raise AssertionError(f"[{tag}] finish at a zero step: cost "
+                             f"{float(f0)!r} vs total_cost {float(c_k)!r}, "
+                             f"points equal "
+                             f"{all(map(torch.equal, p0, pts))}")
+
+
+def cost_note(r):
+    """Cost and finish's extra numbers for a log line (else '')."""
+    if "bound_ms_full" not in r:
+        return ""
+    return (f"; every slot {r['bound_ms_full']:.4f} ms "
+            f"({r['bytes_full'] / 1e6:.1f} MB); host wall per call "
+            f"{r['call_host_ms']:.4f} ms, device ops per call "
+            f"{r['device_ops'] or 'not recorded'}"
+            + (f"; table per LM step {r['build_host_ms']:.4f} ms"
+               if "build_host_ms" in r else ""))
+
+
+def device_ops(fn, tries=3):
+    """Device operations (kernels, copies, fills) one call of fn() puts on
+    the card, counted by torch.profiler; None if none of `tries` profiles
+    recorded device activity (in phase 15 of this script none did)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+        if n:
+            return n
+    return None
 
 
 def bound(name, case):
     """Least time for the kernel's work on this case: the larger of its
     bytes (each input read once, each output written once) over HBM rate
     and its f32 operations over the f32 rate. Operations count only the
-    observations this data holds (masked slots are skipped or zero)."""
+    observations this data holds (masked slots are skipped or zero). Cost
+    and finish: the bytes this data needs (every mask, the indices, xy and
+    J of the live slots, the points of the columns with a live slot, and
+    finish's per-column values and new points); `bound_ms_full` counts
+    every slot, as before."""
     NP, I, C = case.NP, case.I, case.C
     nj, nk = 9 + NP, 6 + NP
     f = 4  # bytes per f32 / i32
     nbytes = 0
+    live_bytes = 0
     ops = 0
     for b in case.buckets:
         T, P = b.mask.shape
         TP = T * P
-        n_obs = float(b.mask.sum())
+        n_obs = float((b.mask != 0).sum())
         idx = 2 * TP * f
         j_bytes = 2 * nj * TP * f
         if name == "resjac":
@@ -475,9 +573,13 @@ def bound(name, case):
             ops += n_obs * (120 + 40 * nj)
         elif name == "cost":
             nbytes += idx + 3 * TP * f + 3 * P * f
+            live_cols = float((b.mask != 0).any(0).sum())
+            live_bytes += TP * f + 4 * n_obs * f + 3 * live_cols * f
             ops += n_obs * 80
         elif name == "finish":
             nbytes += j_bytes + idx + 3 * TP * f + (3 + 1 + 6 + 3 + 3) * P * f
+            live_bytes += (TP * f + (2 * nj + 4) * n_obs * f
+                           + (3 + 1 + 6 + 3 + 3) * P * f)
             ops += n_obs * (4 * nk + 12 + 80) + 40 * P
         elif name == "prepare":
             nbytes += j_bytes + 2 * TP * f + idx + 9 * P * f
@@ -492,11 +594,18 @@ def bound(name, case):
         nbytes += 2 * (I * 6 + C * NP) * f
     else:
         nbytes += tables
+        live_bytes += tables
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes)
+    if name not in ("cost", "finish"):
+        return dict(bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bytes=nbytes)
+    t_live = live_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_live, t_ops),
+                bound_by="bytes" if t_live >= t_ops else "operations",
+                bytes=live_bytes, bound_ms_full=max(t_bytes, t_ops),
+                bytes_full=nbytes)
 
 
 def camera_table(rng, model_id, omega):
@@ -531,10 +640,14 @@ def camera_table(rng, model_id, omega):
     return intr, intr_free
 
 
-def irregular_cases(model_id, loss_type, dev, seed, omega=0.8):
+def irregular_cases(model_id, loss_type, dev, seed, omega=0.8, ragged=False):
     """The cameras of camera_table, buckets of T = 4, 8, 16 at widths that
     are no multiple of 128, mask holes, two images behind their points,
-    partly fixed intrinsics and points."""
+    partly fixed intrinsics and points. `ragged`: as bucketize pads, an
+    empty [4, 128] bucket, then [8, 1000] and [16, 77] buckets whose
+    columns hold tracks of lengths 1..T in turn (so tiles hold live slot
+    rows up to different depths), the [8, 1000] one's last 200 columns
+    padding (whole tiles of padding: mask 0, index 0, point 0, fixed)."""
     rng = np.random.default_rng(seed)
     I = 20
     quat = rng.normal(size=(I, 4)).astype(np.float32)
@@ -547,15 +660,24 @@ def irregular_cases(model_id, loss_type, dev, seed, omega=0.8):
     intr, intr_free = camera_table(rng, model_id, omega)
     C = intr.shape[0]
     buckets = []
-    for T, P in ((4, 300), (8, 1000), (16, 77)):
-        mask = (rng.uniform(size=(T, P)) > 0.3).astype(np.float32)
+    shapes = (((4, 128, 0), (8, 1000, 800), (16, 77, 77)) if ragged
+              else ((4, 300, 300), (8, 1000, 1000), (16, 77, 77)))
+    for T, P, n_real in shapes:
+        if ragged:
+            lens = np.where(np.arange(P) < n_real, 1 + np.arange(P) % T, 0)
+            mask = np.arange(T)[:, None] < lens[None]
+        else:  # mask holes; a masked slot keeps its random index
+            lens = np.ones(P)
+            mask = rng.uniform(size=(T, P)) > 0.3
+        pad = mask if ragged else np.ones((T, P), bool)
         b = bk.Bucket(
-            img_idx=rng.integers(0, I, (T, P)).astype(np.int32),
-            cam_idx=rng.integers(0, C, (T, P)).astype(np.int32),
-            xy=rng.uniform(0, 640, (2, T, P)).astype(np.float32),
-            mask=mask,
-            points=rng.normal(size=(3, P)).astype(np.float32),
-            point_free=(rng.uniform(size=P) > 0.2).astype(np.float32),
+            img_idx=(rng.integers(0, I, (T, P)) * pad).astype(np.int32),
+            cam_idx=(rng.integers(0, C, (T, P)) * pad).astype(np.int32),
+            xy=(rng.uniform(0, 640, (2, T, P)) * pad).astype(np.float32),
+            mask=mask.astype(np.float32),
+            points=(rng.normal(size=(3, P)) * (lens > 0)).astype(np.float32),
+            point_free=((rng.uniform(size=P) > 0.2) & (lens > 0))
+            .astype(np.float32),
             point_rows=np.arange(P, dtype=np.int32),
         )
         buckets.append(bk.bucket_to(b, dev))
@@ -669,15 +791,17 @@ def bench_solve(cg_bf16):
         raise AssertionError(f"{tag}: kernels never launched on the main "
                              f"path: {missing}; {unused} launched "
                              f"{launches[unused]} times")
-    # prepare launches once per LM step, either matvec once per CG
-    # iteration, each for all buckets
+    # prepare and finish launch once per LM step, either matvec once per
+    # CG iteration and the cost once per solve, each for all buckets
     cg_total = sum(r[2].cg_iterations for r in runs + ones)
     name = "matvec16" if cg_bf16 else "matvec"
-    want = {name: cg_total, "prepare": lm_steps}
+    want = {name: cg_total, "prepare": lm_steps, "finish": lm_steps,
+            "cost": len(runs + ones)}
     log(f"bench {tag}: {name} launches {launches[name]} over {cg_total} CG "
-        f"iterations, prepare launches {launches['prepare']} over "
-        f"{lm_steps} LM steps, {len(solver._buckets)} buckets (expected "
-        f"{want})")
+        f"iterations, prepare {launches['prepare']} and finish "
+        f"{launches['finish']} over {lm_steps} LM steps, cost "
+        f"{launches['cost']} over {len(runs + ones)} solves, "
+        f"{len(solver._buckets)} buckets (expected {want})")
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"{tag}: launches "
                              f"{ {k: launches[k] for k in want} }, "
@@ -710,9 +834,13 @@ def profile_solve(solver):
                        getattr(e, "self_cuda_time_total", 0.0))
 
     busy = sum(dev_us(e) for e in rows) * 1e-6
-    log(f"profile: {s.num_iterations} LM steps in {wall * 1e3:.2f} ms wall; "
-        f"device busy {busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%), "
-        f"{sum(e.count for e in rows)} device ops")
+    ops = sum(e.count for e in rows)
+    cg = solver.last_result.cg_iterations
+    log(f"profile: {s.num_iterations} LM steps, {cg} CG iterations in "
+        f"{wall * 1e3:.2f} ms wall; device busy {busy * 1e3:.2f} ms "
+        f"({100 * busy / wall:.1f}%), {ops} device ops "
+        f"({ops / max(s.num_iterations, 1):.1f} per LM step, "
+        f"{ops / max(cg, 1):.1f} per CG iteration)")
     for e in sorted(rows, key=dev_us, reverse=True)[:15]:
         log(f"profile:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:5d}  "
             f"{e.key[:90]}")
@@ -2281,6 +2409,12 @@ def mixed_model_bundle_adjustment(tmp, single):
     if any(plain_on_cuda.values()):
         raise AssertionError(f"phase 16: plain versions ran on CUDA tensors: "
                              f"{plain_on_cuda}")
+    # finish once per LM step, the cost once per solve
+    want = {"finish_mixed": lm, "cost_mixed": len(problems)}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"phase 16: launches "
+                             f"{ {k: launches[k] for k in want} }, expected "
+                             f"{want}")
     out = dict(read_s=t3 - t2, entry_s=t5 - t4, lm=lm, lm_per_s=rate,
                err0=err0, err1=err1, single_lm_per_s=single_rate,
                launches=launches, per_step=per_step, **split)
@@ -2310,7 +2444,7 @@ def mixed_kernels(captured):
             f"{r['max_abs_err']:.3e}; plain f32 err "
             f"{r['plain32_scaled_err']:.2e}); kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)")
+            f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)" + cost_note(r))
     # widths 6, 9, 13 (13: FOV near omega = 0), and every model at once;
     # each case has one camera whose selector names no listed model
     for models, loss, omega in (((2, 3), 0, 0.8), ((2, 4), 1, 0.8),
@@ -2321,6 +2455,15 @@ def mixed_kernels(captured):
         errs = check_case(case, f"irregular {models}")
         errs.update({f"{k} (ladder widths)": v for k, v in check_case_schur(
             f"irregular {models}", case, "phase 15").items()})
+        if len(models) < 11:
+            # widths 6, 9, 13: tracks of lengths 1..T, at phase 2's ragged
+            # loss (SOFT_L1). At TRIVIAL the width-6 case's cost is
+            # ill-conditioned in f32: its f32 plain version misses float64
+            # by 3.5e-5, as the kernel does (PERF.md)
+            errs.update({f"{k} (ragged)": v for k, v in check_case(
+                irregular_cases(models, 1, dev, seed=50 + len(models),
+                                omega=omega, ragged=True),
+                f"ragged {models}").items()})
         log(f"phase 15 irregular {models} (NP {case.NP}, {case.C} cameras, "
             f"loss {loss}): " + ", ".join(f"{k} {v[1]:.2e}"
                                           for k, v in errs.items()))
@@ -2457,6 +2600,31 @@ def ba_kernel_registers(build_log):
     return out
 
 
+def cost_resources():
+    """ptxas registers and spill bytes of every cost and finish instance
+    (sfm/csrc/cost.cu), by kernel and camera policy, with its resident
+    blocks per SM and dynamic shared memory."""
+    import re
+
+    out, name = {}, None
+    for ln in _cuda_build.source_log("sfm/csrc/cost.cu").splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(cost|finish)"
+                      r"_kernelI\d+(Single|Mixed)ILi(\d+)E", ln)
+        if m:
+            name = (m[1], m[2], int(m[3]))
+            out[name] = {}
+        elif "Compiling entry function" in ln:
+            name = None
+        elif name and "spill stores" in ln:
+            v = re.findall(r"(\d+) bytes spill (stores|loads)", ln)
+            out[name].update({f"spill_{k}": int(b) for b, k in v})
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(ln.split("Used ")[1].split()[0])
+    for (kind, pol, n), r in out.items():
+        r.update(sfm_cuda.cost_config(kind == "finish", pol == "Mixed", n))
+    return {f"{k} {p}<{n}>": r for (k, p, n), r in out.items()}
+
+
 def kernel_resources(source):
     """ptxas registers and spill bytes of each kernel of one source, by
     kernel name (template arguments as <a,b,...>)."""
@@ -2478,6 +2646,15 @@ def kernel_resources(source):
         elif name and "Used" in ln and "registers" in ln:
             out[name]["registers"] = int(ln.split("Used ")[1].split()[0])
     return out
+
+
+def cost_row(r, resources, kind, policy):
+    """Cost and finish's extra fields of their JSON row: the every-slot
+    bound, host wall and device ops per call, the per-LM-step table's host
+    wall (finish), and the instance's registers, spills and occupancy."""
+    keys = ("bound_ms_full", "call_host_ms", "device_ops", "build_host_ms")
+    return dict({k: r[k] for k in keys if k in r}, launches_per_call=1,
+                resources=resources[f"{kind} {policy}"])
 
 
 def main():
@@ -2528,9 +2705,10 @@ def main():
         "top2": dict(kernels=kernel_resources("features/csrc/top2.cu"),
                      **features_cuda.top2_resources(128)),
     }
+    resources["cost"] = cost_resources()
     log(f"phase 1: registers, spills and resident blocks per SM (nw 36) of "
-        f"the sampler and the cost kernel, and the Schur and top-2 kernels: "
-        f"{json.dumps(resources)}")
+        f"the sampler and the cost kernel, and the Schur and top-2 kernels, "
+        f"and every cost and finish instance: {json.dumps(resources)}")
 
     # the probe's counts over phases 2-17, the user paths
     pg.reset_counts()
@@ -2545,6 +2723,12 @@ def main():
                                               seed=model_id), "irregular")
             log(f"phase 2 irregular model {model_id} loss {loss_type}: "
                 + ", ".join(f"{k} {v[1]:.2e}" for k, v in errs.items()))
+    # tracks of lengths 1..T, an empty bucket and tiles of padding only
+    for model_id in (2, 6):
+        errs = check_case(irregular_cases(model_id, 1, dev, seed=50 + model_id,
+                                          ragged=True), "ragged")
+        log(f"phase 2 ragged model {model_id}: "
+            + ", ".join(f"{k} {v[1]:.2e}" for k, v in errs.items()))
     case, _ = bench_case(dev)
     results = {}
     check_case(case, "bench", results)
@@ -2555,7 +2739,7 @@ def main():
             f"(max abs {r['max_abs_err']:.3e}; plain f32 err "
             f"{r['plain32_scaled_err']:.2e}); kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)")
+            f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)" + cost_note(r))
 
     # --- phase 3: card vs CPU ----------------------------------------------
     medium_parity()
@@ -2647,6 +2831,8 @@ def main():
                                                        "max_abs_err")}
                                  for k, v in p10["larger"].items()},
                          resources=resources[name])
+        if name in ("cost", "finish"):
+            extra = cost_row(r, resources["cost"], name, "Single<2>")
         # the f32 matvec runs in the f32-setting bench solve; every other
         # BA kernel's count is the default (bf16) solve's
         ln, ps = ((launches32, per_step32) if name == "matvec"
@@ -2731,6 +2917,8 @@ def main():
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
             library_note="no single PyTorch call computes this function",
+            **(cost_row(r, resources["cost"], name[:-6], "Mixed<9>")
+               if name != "resjac_mixed" else {}),
         ))
     # the gather has no caller on the main path (neither has the TPU
     # kernel's): its launches there are 0; phase 17 launches it itself

@@ -30,9 +30,8 @@ from pycolmap_torch.sfm.bundle_adjustment import (
 
 _INT_FIELDS = ("obs_image_idx", "obs_camera_idx", "obs_point_idx")
 # reference options with no counterpart in the port: the JAX mesh selector
-# (BA) and the reference's thread and GPU selectors (features)
+# (BA and the pipeline)
 _DROPPED_OPTIONS = ("devices",)
-_DROPPED_FEATURE_OPTIONS = ("num_threads", "use_gpu", "gpu_index")
 # PatchMatch's GPU selector: the port's entry points take ``device``
 _DROPPED_PM_OPTIONS = ("gpu_index",)
 
@@ -71,8 +70,7 @@ def ba_options_from_dict(values: Mapping) -> BundleAdjustmentOptions:
 
 def _feature_options(cls, values: Mapping):
     opts = cls()
-    opts.mergedict({k: v for k, v in values.items()
-                    if k not in _DROPPED_FEATURE_OPTIONS})
+    opts.mergedict(dict(values))
     return opts
 
 

@@ -32,6 +32,11 @@ class SiftMatchingOptions(BaseOptions):
     cross_check: bool = True
     max_num_matches: int = 32768
     guided_matching: bool = False
+    # accepted and unused, as the reference accepts them: the entry points
+    # take ``device``
+    num_threads: int = -1
+    use_gpu: bool = True
+    gpu_index: str = "-1"
 
 
 def _pad_rows(a, m):

@@ -64,6 +64,11 @@ class SiftExtractionOptions(BaseOptions):
     dsp_num_scales: int = 10
     normalization: Normalization = Normalization.L1_ROOT
     max_num_orientations: int = 2
+    # accepted and unused, as the reference accepts them: the entry points
+    # take ``device``
+    num_threads: int = -1
+    use_gpu: bool = True
+    gpu_index: str = "-1"
 
 
 _SIGMA0 = 1.6  # base blur of octave level 0

@@ -20,8 +20,10 @@ _F = ctypes.c_float
 # single-model ones take the model id; resjac also takes the first model
 _MIXED = [_I, _I]
 _RESJAC = [_P] * 9 + [_I, _I, _I, _F, _P, _P, _P]
-_COST = [_P] * 7 + [_I, _I, _I, _F, _P, _P]
-_FINISH = [_P] * 13 + [_I, _I, _I, _F, _P, _P, _P]
+# table, quat, trans, intr (finish: xpose, xintr), loss, scale, partials,
+# ticket, out, stream
+_COST = [_P] * 4 + [_I, _F] + [_P] * 4
+_FINISH = [_P] * 6 + [_I, _F] + [_P] * 4
 _TILE_MATVEC = [_I] + [_P] * 3 + [_I] * 3 + [_P, _I] + [_P] * 4
 # C signatures of the launchers (see the extern "C" functions in csrc/*.cu)
 _SIGNATURES = {
@@ -34,6 +36,7 @@ _SIGNATURES = {
         "ba_finish": [_I] + _FINISH,
         "ba_cost_mixed": _MIXED + _COST,
         "ba_finish_mixed": _MIXED + _FINISH,
+        "ba_cost_config": [_I] * 3 + [_P] * 3,
     },
     "schur.cu": {
         "ba_prepare": [_I] + [_P] * 2 + [_I] * 3 + [_P, _I] + [_P] * 4,
@@ -65,21 +68,17 @@ def _resjac(fn, head, itab, intr, ifree, img_idx, cam_idx, xy, mask, pts,
           _ptr(pfree), T, P, loss, scale, _ptr(res), _ptr(J))
 
 
-def _cost(fn, head, itab, intr, img_idx, cam_idx, xy, mask, pts, loss, scale,
-          partials):
-    T, P = img_idx.shape
-    _call("cost.cu", fn, *head, _ptr(itab), _ptr(intr), _i32(img_idx),
-          _i32(cam_idx), _ptr(xy), _ptr(mask), _ptr(pts), T, P, loss, scale,
-          _ptr(partials))
+def _cost(fn, head, launch, quat, trans, intr, loss, scale, out):
+    _call("cost.cu", fn, *head, ctypes.addressof(launch.table), _ptr(quat),
+          _ptr(trans), _ptr(intr), loss, scale, _ptr(launch.partials),
+          _i32(launch.ticket), _ptr(out))
 
 
-def _finish(fn, head, J, vinv, gpt, img_idx, cam_idx, xy, mask, pts, pfree,
-            xpose, xintr, nitab, nintr, loss, scale, new_pts, partials):
-    T, P = img_idx.shape
-    _call("cost.cu", fn, *head, _ptr(J), _ptr(vinv), _ptr(gpt),
-          _i32(img_idx), _i32(cam_idx), _ptr(xy), _ptr(mask), _ptr(pts),
-          _ptr(pfree), _ptr(xpose), _ptr(xintr), _ptr(nitab), _ptr(nintr),
-          T, P, loss, scale, _ptr(new_pts), _ptr(partials))
+def _finish(fn, head, launch, quat, trans, intr, xpose, xintr, loss, scale,
+            out):
+    _call("cost.cu", fn, *head, ctypes.addressof(launch.table), _ptr(quat),
+          _ptr(trans), _ptr(intr), _ptr(xpose), _ptr(xintr), loss, scale,
+          _ptr(launch.partials), _i32(launch.ticket), _ptr(out))
 
 
 def resjac(model, *args):
@@ -87,10 +86,12 @@ def resjac(model, *args):
 
 
 def cost(model, *args):
+    """One launch of the cost over a table (cg_kernel.CostLaunch)."""
     _cost("ba_cost", (model,), *args)
 
 
 def finish(model, *args):
+    """One launch of finish over a table (cg_kernel.CostLaunch)."""
     _finish("ba_finish", (model,), *args)
 
 
@@ -109,6 +110,47 @@ def cost_mixed(NP, models, *args):
 
 def finish_mixed(NP, models, *args):
     _finish("ba_finish_mixed", (NP, models), *args)
+
+
+class _CostBucket(ctypes.Structure):
+    """CostBucket in csrc/cost.cu: one row of cost and finish's table."""
+    _fields_ = [("J", _P), ("vinv", _P), ("gpt", _P), ("img", _P),
+                ("cam", _P), ("xy", _P), ("mask", _P), ("pts", _P),
+                ("pfree", _P), ("new_pts", _P), ("T", _I), ("P", _I),
+                ("tile_p", _I), ("first_tile", _I)]
+
+
+class _CostTable(ctypes.Structure):
+    """CostTable in csrc/cost.cu (kCostMaxBuckets rows)."""
+    _fields_ = [("b", _CostBucket * 16), ("nb", _I), ("n_tiles", _I)]
+
+
+def cost_table(rows, n_tiles, buckets, pts_l, J_l=None, vinv_l=None,
+               gpt_l=None, new_pts_l=None):
+    """Cost and finish's bucket table: the operands' pointers beside each
+    row (T, P, tile_p, first_tile) of cg_kernel.cost_table; J, Vinv, g_pt,
+    the free flags and the new points only for finish."""
+    fin = J_l is not None
+    tab = _CostTable(nb=len(rows), n_tiles=n_tiles)
+    for i, ((T, P, tp, first), b, pts) in enumerate(zip(rows, buckets,
+                                                        pts_l)):
+        tab.b[i] = _CostBucket(
+            _ptr(J_l[i]) if fin else None, _ptr(vinv_l[i]) if fin else None,
+            _ptr(gpt_l[i]) if fin else None, _i32(b.img_idx),
+            _i32(b.cam_idx), _ptr(b.xy), _ptr(b.mask), _ptr(pts),
+            _ptr(b.point_free) if fin else None,
+            _ptr(new_pts_l[i]) if fin else None, T, P, tp, first)
+    return tab
+
+
+def cost_config(finish, mixed, ident):
+    """Resident blocks per SM and dynamic shared memory (bytes) of the cost
+    (finish False) or finish kernel for model id `ident`, or (mixed) at
+    mixed width `ident`."""
+    vals = [ctypes.c_int(0) for _ in range(2)]
+    _call("cost.cu", "ba_cost_config", int(finish), int(mixed), ident,
+          *(ctypes.byref(v) for v in vals))
+    return dict(blocks_per_sm=vals[0].value, smem_bytes=vals[1].value)
 
 
 class _TileBucket(ctypes.Structure):

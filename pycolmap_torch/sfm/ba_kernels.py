@@ -454,12 +454,14 @@ def _lm_solve_bucketed(
         rhs_intr = rhs_intr * intr_free
         damp_pose, damp_intr, precond = precond_factory(lam, udp, udi,
                                                         S_blocks)
-        # one pack (bf16) and one kernel table per LM step
+        # one pack (bf16) and one kernel table per LM step, for the
+        # matvecs and for finish
         if cg_bf16:
             J16_l = [ck.pack_j_bf16(J) for J in J_l]
             mv = ck.matvec_launch("matvec16", buckets, J16_l, Vinv_l, I, C)
         else:
             mv = ck.matvec_launch("matvec", buckets, J_l, Vinv_l, I, C)
+        fin = ck.finish_launch(buckets, pts, J_l, Vinv_l, g_pt_l)
 
         def matvec(x_pose, x_intr):
             if cg_bf16:
@@ -514,6 +516,7 @@ def _lm_solve_bucketed(
         new_pts, new_cost = ck.backsub_and_cost(
             buckets, pts, J_l, Vinv_l, g_pt_l, x_pose, x_intr,
             new_quat, new_trans, new_intr, model_id, loss_type, loss_scale,
+            launch=fin,
         )
 
         # --- accept/reject -----------------------------------------------

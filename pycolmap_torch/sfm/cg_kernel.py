@@ -2,8 +2,8 @@
 
 Port of ``pycolmap_tpu/sfm/cg_kernel.py``. Each wrapper keeps the return
 contract of its reference twin and either launches the CUDA kernel
-(``sfm/csrc``, bound by ``sfm/_cuda.py``; once per bucket, or once for all
-buckets for the Schur kernels) for CUDA tensors or runs the plain PyTorch
+(``sfm/csrc``, bound by ``sfm/_cuda.py``; once per bucket for resjac, once
+for all buckets for the others) for CUDA tensors or runs the plain PyTorch
 version beside it, per bucket, for CPU tensors. There is no
 fallback: a CUDA tensor goes to the kernel or the launch raises.
 
@@ -39,6 +39,14 @@ matvecs' is built once per LM step (``matvec_launch``), prepare's per
 call. The kernels take buckets of a multiple of 8 columns (bucketize pads
 to multiples of 128); the plain versions take any width.
 
+``total_cost`` and ``backsub_and_cost`` are one launch each for all
+buckets of any width, over a table of the same tiles (``cost_table``, in
+a :class:`CostLaunch`): finish's is built once per LM step
+(``finish_launch``), the cost's per call. Both sum their total on the card
+in a fixed order (one partial per tile, added in tile order), so a call
+repeats to the bit, and finish at x = 0 with every point fixed returns the
+cost's bits.
+
 ``LAUNCHES`` counts kernel launches per kernel; ``PLAIN_ON_CUDA`` counts
 calls of a plain version on CUDA tensors (only ``chip_smoke.py``'s
 comparisons make those). ``reset_counts()`` zeroes both.
@@ -57,7 +65,6 @@ KERNELS = ("resjac", "cost", "finish", "prepare", "matvec", "matvec16",
            "resjac_mixed", "cost_mixed", "finish_mixed", "gather")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)
-BLOCK = 256  # BA_BLOCK in csrc/ba_device.cuh: one cost partial per block
 
 
 def reset_counts() -> None:
@@ -107,10 +114,6 @@ def _launch(name, model, NP, *args):
         getattr(_cuda, key)(*head, *args)
     else:
         getattr(_cuda, key)(model, *args)
-
-
-def _blocks(P):
-    return (P + BLOCK - 1) // BLOCK
 
 
 # ---------------------------------------------------------------------------
@@ -285,50 +288,60 @@ def res_and_jac(buckets, pts_list, quat, trans, intr, intr_free, model_id,
 
 def total_cost(buckets, pts_list, quat, trans, intr, model_id, loss_type,
                loss_scale):
-    """Robust total cost over all buckets (0-d tensor)."""
+    """Robust total cost over all buckets (0-d tensor). On the card one
+    launch covers every bucket (a :class:`CostLaunch` built per call)."""
     model, NP = _model(model_id)
+    if buckets and _is_cuda(pts_list[0]):
+        launch = CostLaunch("cost", buckets, pts_list)
+        out = torch.empty((), device=pts_list[0].device)
+        _launch("cost", model, NP, launch, quat.contiguous(),
+                trans.contiguous(), intr[:, :NP].contiguous(),
+                int(loss_type), float(loss_scale), out)
+        return out
     itab = _itab(quat, trans)
     intr = intr[:, :NP].contiguous()
     cost = torch.zeros((), device=quat.device)
     for b, pts in zip(buckets, pts_list):
-        if _is_cuda(pts):
-            partials = torch.empty(_blocks(pts.shape[1]), device=pts.device)
-            _launch("cost", model, NP, itab, intr, b.img_idx, b.cam_idx, b.xy,
-                    b.mask, pts.contiguous(), int(loss_type),
-                    float(loss_scale), partials)
-            cost = cost + torch.sum(partials)
-        else:
-            cost = cost + cost_plain(b, pts, itab, intr, model,
-                                     int(loss_type), float(loss_scale))
+        cost = cost + cost_plain(b, pts, itab, intr, model, int(loss_type),
+                                 float(loss_scale))
     return cost
 
 
 def backsub_and_cost(buckets, pts_list, J_l, Vinv_l, g_pt_l, x_pose, x_intr,
                      new_quat, new_trans, new_intr, model_id, loss_type,
-                     loss_scale):
+                     loss_scale, launch=None):
     """Point back-substitution + robust cost at the updated parameters.
-    x_intr is [C, NP]. Returns (new_pts_list, new_cost)."""
+    x_intr is [C, NP]. Returns (new_pts_list, new_cost). On the card one
+    launch covers every bucket, over `launch` (finish_launch of these
+    operands, built here when None); the new points are the launch's
+    buffers, which each call with it writes anew."""
     model, NP = _model(model_id)
     x_pose = x_pose.contiguous()
     x_intr = x_intr[:, :NP].contiguous()
-    nitab = _itab(new_quat, new_trans)
     nintr = new_intr[:, :NP].contiguous()
+    if buckets and _is_cuda(pts_list[0]):
+        ops = _finish_operands(pts_list, J_l, Vinv_l, g_pt_l)
+        if launch is None:
+            launch = CostLaunch("finish", buckets, pts_list, J_l, Vinv_l,
+                                g_pt_l)
+        elif launch.kind != "finish" or len(launch.operands) != len(ops) \
+                or not all(a is b for a, b in zip(launch.operands, ops)):
+            raise ValueError("finish: launch was built for other operands")
+        if any(J.shape[1] != 9 + NP for J in J_l):
+            raise ValueError(f"finish: J of width {J_l[0].shape[1]} for a "
+                             f"model of {NP} parameters")
+        out = torch.empty((), device=x_pose.device)
+        _launch("finish", model, NP, launch, new_quat.contiguous(),
+                new_trans.contiguous(), nintr, x_pose, x_intr,
+                int(loss_type), float(loss_scale), out)
+        return list(launch.new_pts), out
+    nitab = _itab(new_quat, new_trans)
     new_pts_l = []
     cost = torch.zeros((), device=x_pose.device)
     for b, pts, J, Vinv, g_pt in zip(buckets, pts_list, J_l, Vinv_l, g_pt_l):
-        if _is_cuda(pts):
-            P = pts.shape[1]
-            new_pts = torch.empty((3, P), device=pts.device)
-            partials = torch.empty(_blocks(P), device=pts.device)
-            _launch("finish", model, NP, J, Vinv, g_pt, b.img_idx,
-                    b.cam_idx, b.xy, b.mask, pts.contiguous(), b.point_free,
-                    x_pose, x_intr, nitab, nintr, int(loss_type),
-                    float(loss_scale), new_pts, partials)
-            part = torch.sum(partials)
-        else:
-            new_pts, part = finish_plain(b, pts, J, Vinv, g_pt, x_pose,
-                                         x_intr, nitab, nintr, model,
-                                         int(loss_type), float(loss_scale))
+        new_pts, part = finish_plain(b, pts, J, Vinv, g_pt, x_pose, x_intr,
+                                     nitab, nintr, model, int(loss_type),
+                                     float(loss_scale))
         new_pts_l.append(new_pts)
         cost = cost + part
     return new_pts_l, cost
@@ -506,6 +519,96 @@ def matvec_launch(kind, buckets, J_l, Vinv_l, I, C):
     if not _is_cuda(J_l[0]):
         return None
     return TileLaunch(kind, buckets, J_l, Vinv_l, I, C)
+
+
+# ---------------------------------------------------------------------------
+# cost and finish's bucket table: one launch over every bucket
+# ---------------------------------------------------------------------------
+
+COST_MAX_BUCKETS = 16  # kCostMaxBuckets in csrc/cost.cu
+_TICKETS = {}  # device -> cost and finish's ticket (csrc/cost.cu)
+
+
+def cost_table(shapes):
+    """Cost and finish's bucket table from the buckets' [T, P]: per bucket
+    (T, P, tile_p, first_tile) in launch order, and the tile count. The
+    tiles are the Schur kernels' (tile_p), but any width P >= 0 is taken,
+    and up to 16 buckets."""
+    if not 1 <= len(shapes) <= COST_MAX_BUCKETS:
+        raise ValueError(f"cost and finish take 1..{COST_MAX_BUCKETS} "
+                         f"buckets, got {len(shapes)}")
+    rows, first = [], 0
+    for T, P in shapes:
+        if P < 0:
+            raise ValueError(f"bucket width P = {P}")
+        tp = tile_p(T)
+        rows.append((T, P, tp, first))
+        first += -(-P // tp)
+    return tuple(rows), first
+
+
+def _ticket(dev):
+    """The ticket of cost and finish's fixed-order sum on `dev`: 0 between
+    launches (each launch's last block resets it), so the launches of one
+    stream share it and a call needs no fill."""
+    t = _TICKETS.get(dev)
+    if t is None:
+        t = _TICKETS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
+
+
+def _finish_operands(pts_l, J_l, Vinv_l, g_pt_l):
+    return [*pts_l, *J_l, *Vinv_l, *g_pt_l]
+
+
+class CostLaunch:
+    """What the cost (`kind` "cost") or finish ("finish") kernel on the
+    card needs beside its per-call inputs, for one set of bucket operands:
+    the bucket table (a ctypes struct holding the operands' pointers), one
+    partial sum per tile, the ticket and, for finish, the new points [3, P]
+    per bucket, which every launch writes. Finish's is built once per LM
+    step (J, Vinv and g_pt come from that step's prepare), the cost's per
+    call."""
+
+    def __init__(self, kind, buckets, pts_l, J_l=None, Vinv_l=None,
+                 g_pt_l=None):
+        fin = kind == "finish"
+        dev = pts_l[0].device
+        self.kind = kind
+        self.rows, self.n_tiles = cost_table(
+            [tuple(b.mask.shape) for b in buckets])
+        self.operands = (_finish_operands(pts_l, J_l, Vinv_l, g_pt_l)
+                         if fin else list(pts_l))
+        pts_l = [p.contiguous() for p in pts_l]
+        for i, (b, pts) in enumerate(zip(buckets, pts_l)):
+            T, P = b.mask.shape
+            want = [(pts, (3, P)), (b.img_idx, (T, P)), (b.cam_idx, (T, P)),
+                    (b.xy, (2, T, P))]
+            if fin:
+                want += [(J_l[i], (2, J_l[0].shape[1], T, P)),
+                         (Vinv_l[i], (6, P)), (g_pt_l[i], (3, P)),
+                         (b.point_free, (P,))]
+            for t, shape in want:
+                if tuple(t.shape) != shape:
+                    raise ValueError(f"{kind}: bucket {i} operand of shape "
+                                     f"{tuple(t.shape)}, expected {shape}")
+        self.new_pts = ([torch.empty((3, b.mask.shape[1]), device=dev)
+                         for b in buckets] if fin else None)
+        self._alive = (buckets, pts_l, J_l, Vinv_l, g_pt_l)
+        self.table = _cuda.cost_table(self.rows, self.n_tiles, buckets,
+                                      pts_l, J_l, Vinv_l, g_pt_l,
+                                      self.new_pts)
+        self.partials = torch.empty(max(self.n_tiles, 1), device=dev)
+        self.ticket = _ticket(dev)
+
+
+def finish_launch(buckets, pts_l, J_l, Vinv_l, g_pt_l):
+    """The :class:`CostLaunch` of one LM step's operands for
+    backsub_and_cost; None off the card, where the plain version needs
+    none."""
+    if not _is_cuda(pts_l[0]):
+        return None
+    return CostLaunch("finish", buckets, pts_l, J_l, Vinv_l, g_pt_l)
 
 
 # ---------------------------------------------------------------------------

@@ -12,15 +12,15 @@
 //   pts   [3, P]   pfree [P]                  res [2, T, P]
 //   J     [2, 9+NP, T, P]: 6 pose | NP intrinsics | 3 point columns
 //   vinv  [6, P] packed symmetric (00,01,02,11,12,22)   gpt [3, P]
-// One thread owns one point column p and loops over its T track slots, so
-// every [.., T, P] plane is read coalesced along P and per-point sums over
-// the track stay in registers.
+// In resjac.cu one thread owns one point column p and loops over its T
+// track slots, so every [.., T, P] plane is read coalesced along P; cost.cu
+// and schur.cu give each thread one or more slots of a tile of columns.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#define BA_BLOCK 256  // threads per block; cg_kernel.py sizes partials by it
+#define BA_BLOCK 256  // threads per block of resjac.cu and cost.cu
 
 // ---------------------------------------------------------------------------
 // forward-mode dual numbers: the distortion derivatives the reference takes

@@ -15,6 +15,7 @@ from pycolmap_tpu.ops import ba_math as jbm
 from pycolmap_tpu.ops.camera_models import MAX_PARAMS
 from pycolmap_tpu.sfm import ba_kernels as jbk
 from pycolmap_tpu.sfm import cg_kernel as jck
+from pycolmap_torch.ops.camera_models import solver_num_params
 from pycolmap_torch.sfm import ba_kernels as tbk
 from pycolmap_torch.sfm import cg_kernel as tck
 
@@ -614,3 +615,270 @@ def test_prepare_walk_matches_pallas(NPm):
         assert w.shape == p.shape == r.shape
         _close_scaled(w, r, 3e-5)
         _close_scaled(w, p, 3e-5)
+
+
+# ---------------------------------------------------------------------------
+# cost and finish over their table (csrc/cost.cu: cost_kernel and
+# finish_kernel, one launch over every bucket's tiles of any width)
+# ---------------------------------------------------------------------------
+
+
+def test_cost_table_rows():
+    """The Schur kernels' tiles at any width, buckets of no tile included;
+    up to 16 buckets."""
+    rows, n = tck.cost_table([(4, 128), (8, 131072), (16, 77), (8, 0),
+                              (64, 5)])
+    assert rows == ((4, 128, 64, 0), (8, 131072, 32, 2), (16, 77, 16, 4098),
+                    (8, 0, 32, 4103), (64, 5, 4, 4103)) and n == 4105
+    assert tck.cost_table([(8, 0)]) == (((8, 0, 32, 0),), 0)
+    assert len(tck.cost_table([(4, 128)] * 16)[0]) == 16
+
+
+@pytest.mark.parametrize("shapes, why", [
+    ([], "no bucket"),
+    ([(4, 128)] * 17, "more buckets than the table holds"),
+    ([(0, 128)], "T = 0"),
+    ([(65, 128)], "T above the ladder's 64"),
+    ([(8, 256), (4, -1)], "a negative width"),
+])
+def test_cost_table_rejects(shapes, why):
+    with pytest.raises(ValueError):
+        tck.cost_table(shapes)
+
+
+def test_cost_launch_needs_the_card():
+    """Off the card finish builds no table (the plain versions need none),
+    and a table of host tensors is refused."""
+    case = _case(60)
+    tb = _tb(case)
+    J = torch.zeros((2, 9 + NP, T, P))
+    V, g = torch.zeros((6, P)), torch.zeros((3, P))
+    assert tck.finish_launch([tb], [tb.points], [J], [V], [g]) is None
+    with pytest.raises(ValueError, match="CUDA"):
+        tck.CostLaunch("cost", [tb], [tb.points])
+    with pytest.raises(ValueError, match="CUDA"):
+        tck.CostLaunch("finish", [tb], [tb.points], [J], [V], [g])
+    with pytest.raises(ValueError, match="shape"):
+        tck.CostLaunch("finish", [tb], [tb.points], [J[..., :64]], [V], [g])
+
+
+def walk_buckets(seed, I, C, Tn=8, Pn=256, n_real=201):
+    """The bench's empty [4, 128] bucket beside a [Tn, Pn] one whose
+    columns hold tracks of lengths 1..Tn in turn (so a tile's live slot
+    rows end at different depths) up to n_real, then padding columns (mask
+    0, index 0, point 0, fixed), as bucketize pads; numpy fields."""
+    rng = np.random.default_rng(seed)
+    lens = np.where(np.arange(Pn) < n_real, 1 + np.arange(Pn) % Tn, 0)
+    live = np.arange(Tn)[:, None] < lens[None]
+    full = dict(
+        img_idx=np.where(live, rng.integers(0, I, (Tn, Pn)), 0),
+        cam_idx=np.where(live, rng.integers(0, C, (Tn, Pn)), 0),
+        xy=np.where(live, rng.normal(scale=200.0, size=(2, Tn, Pn)), 0.0),
+        mask=live.astype(np.float32),
+        points=np.where(lens > 0, rng.normal(size=(3, Pn)), 0.0),
+        point_free=((rng.uniform(size=Pn) > 0.2) & (lens > 0)),
+        point_rows=np.arange(Pn),
+    )
+    empty = dict(img_idx=np.zeros((4, 128)), cam_idx=np.zeros((4, 128)),
+                 xy=np.zeros((2, 4, 128)), mask=np.zeros((4, 128)),
+                 points=np.zeros((3, 128)), point_free=np.zeros(128),
+                 point_rows=np.arange(128))
+    types = dict(img_idx=np.int32, cam_idx=np.int32, point_rows=np.int32)
+    return [{k: np.asarray(v, types.get(k, np.float32)) for k, v in b.items()}
+            for b in (empty, full)]
+
+
+def _slot_costs(b, X, itab, intr, model_id, loss_type, scale):
+    """Each slot's robust cost [T, w] at points X [3, w] (plain arithmetic,
+    in X's dtype)."""
+    from pycolmap_torch.sfm.bundle_adjustment import _robust_cost
+
+    q = tbk._gather_table(itab[:, :4], b.img_idx)
+    t = tbk._gather_table(itab[:, 4:7], b.img_idx)
+    k = tbk._gather_table(intr, b.cam_idx)
+    rx, ry = tbk._residual_vals(model_id, b.xy, b.mask, q, t, k,
+                                (X[0][None], X[1][None], X[2][None]))
+    return _robust_cost(rx * rx + ry * ry, loss_type, scale) * b.mask
+
+
+def cost_walk(rows, n_tiles, buckets, pts_l, itab, intr, model_id,
+              loss_type, scale, fin=None, threads=256):
+    """cost_kernel's (fin None) or finish_kernel's walk of its table in
+    plain PyTorch. Per tile only its live slots are read (the J of a dead
+    slot is NaN here: the kernel fetches none of it); finish adds each
+    column's J_p^T J_c x over its live slots, makes the column's new point
+    (also where no slot is live) and takes the slot costs there; the slot
+    costs go to threads (slot g of column p: thread g tile_p + p), are
+    summed per warp of 32 and the warps in order into the tile's partial.
+    The partials are then added in tile order: each of `threads` threads a
+    strided run, then the threads. fin: (J_l, Vinv_l, g_pt_l, x_pose,
+    x_intr). Returns (new points per bucket or None, total, partials)."""
+    dt = itab.dtype
+    starts = [r[3] for r in rows]
+    new_l = ([torch.zeros((3, r[1]), dtype=dt) for r in rows] if fin
+             else None)
+    partials = []
+    for tile in range(n_tiles):
+        bi = max(i for i, f in enumerate(starts) if f <= tile)
+        Tn, Pn, tp, first = rows[bi]
+        cols = slice((tile - first) * tp, min((tile - first + 1) * tp, Pn))
+        b = buckets[bi]
+        part = b._replace(img_idx=b.img_idx[:, cols],
+                          cam_idx=b.cam_idx[:, cols], xy=b.xy[..., cols],
+                          mask=b.mask[:, cols])
+        live = part.mask != 0
+        X = pts_l[bi][:, cols]
+        if fin:
+            J_l, V_l, g_l, x_pose, x_intr = fin
+            nk = J_l[bi].shape[1] - 3
+            J = torch.where(live, J_l[bi][..., cols], float("nan"))
+            xc = torch.cat([
+                torch.stack(tbk._gather_table(x_pose, part.img_idx)),
+                torch.stack(tbk._gather_table(x_intr, part.cam_idx)),
+            ])
+            a = torch.where(live, torch.sum(J[:, :nk] * xc[None], dim=1), 0.0)
+            Jp = torch.where(live, J[:, nk:nk + 3], 0.0)
+            y = torch.sum(Jp[0] * a[0][None] + Jp[1] * a[1][None], dim=1)
+            g = g_l[bi][:, cols]
+            dp = torch.stack(tbk._sym3_apply(
+                V_l[bi][:, cols], (g[0] - y[0], g[1] - y[1], g[2] - y[2])))
+            X = X - dp * b.point_free[cols][None]
+            new_l[bi][:, cols] = X
+        c = torch.where(live, _slot_costs(part, X, itab, intr, model_id,
+                                          loss_type, scale), 0.0)
+        thr = torch.zeros(threads, dtype=dt)
+        for gs in range(Tn):
+            thr[gs * tp:gs * tp + c.shape[1]] = c[gs]
+        v = torch.zeros((), dtype=dt)
+        for w in thr.reshape(-1, 32):  # warps in order
+            v = v + torch.sum(w)
+        partials.append(v)
+    per = [sum(partials[j::threads], torch.zeros((), dtype=dt))
+           for j in range(threads)]
+    return new_l, sum(per, torch.zeros((), dtype=dt)), partials
+
+
+def check_cost_walk(tables, buckets_np, model_id, loss_type, seed,
+                    atol=1e-5):
+    """cost_walk against the reference's Pallas cost_bucket and
+    finish_bucket (interpret mode) and the port's plain total_cost and
+    backsub_and_cost on the same buckets: every new point and both costs
+    within `atol` scaled. tables: (quat, trans, intr, intr_free) numpy, J
+    from the reference's resjac."""
+    quat, trans, intr, intr_free = tables
+    NPm = solver_num_params(model_id)
+    I_, C_ = quat.shape[0], intr.shape[0]
+    rng = np.random.default_rng(seed)
+    jb = [jbk.Bucket(**{k: jnp.asarray(v) for k, v in b.items()})
+          for b in buckets_np]
+    tb = [tbk.Bucket(**{k: torch.from_numpy(v) for k, v in b.items()})
+          for b in buckets_np]
+    _, ref_J = jck.res_and_jac(jb, [b.points for b in jb], _j(quat), _j(trans),
+                               _j(intr), _j(intr_free), model_id, loss_type,
+                               jnp.float32(1.5), interpret=True)
+    J_l = [np.array(J) for J in ref_J]
+    V_l = [rng.normal(scale=1e-3, size=(6, J.shape[-1])).astype(np.float32)
+           for J in J_l]
+    g_l = [rng.normal(size=(3, J.shape[-1])).astype(np.float32) for J in J_l]
+    x_pose = rng.normal(scale=1e-3, size=(I_, 6)).astype(np.float32)
+    x_intr = rng.normal(scale=1e-3, size=(C_, NPm)).astype(np.float32)
+    x_intr *= intr_free[:, :NPm]  # the solver's step: 0 at a selector
+    nq = jbm.quat_boxplus_cf(tuple(jnp.asarray(quat[:, i]) for i in range(4)),
+                             tuple(jnp.asarray(-x_pose[:, i])
+                                   for i in range(3)))
+    new_quat = np.stack([np.asarray(a) for a in nq], axis=1)
+    new_trans = trans - x_pose[:, 3:6]
+    new_intr = intr[:, :NPm] - x_intr
+
+    ref_cost = float(jck.total_cost(jb, [b.points for b in jb], _j(quat),
+                                    _j(trans), _j(intr), model_id, loss_type,
+                                    jnp.float32(1.5), interpret=True))
+    ref_pts, ref_fin = jck.backsub_and_cost(
+        jb, [b.points for b in jb], [_j(J) for J in J_l],
+        [_j(V) for V in V_l], [_j(g) for g in g_l], _j(x_pose), _j(x_intr),
+        _j(new_quat), _j(new_trans), _j(new_intr), model_id, loss_type,
+        jnp.float32(1.5), interpret=True)
+    tJ = [torch.from_numpy(J) for J in J_l]
+    tV = [torch.from_numpy(V) for V in V_l]
+    tg = [torch.from_numpy(g) for g in g_l]
+    plain_cost = float(tck.total_cost(tb, [b.points for b in tb], _t(quat),
+                                      _t(trans), _t(intr), model_id,
+                                      loss_type, 1.5))
+    plain_pts, plain_fin = tck.backsub_and_cost(
+        tb, [b.points for b in tb], tJ, tV, tg, _t(x_pose), _t(x_intr),
+        _t(new_quat), _t(new_trans), _t(new_intr), model_id, loss_type, 1.5)
+
+    rows, n_tiles = tck.cost_table([tuple(b.mask.shape) for b in tb])
+    d = lambda a: torch.from_numpy(np.asarray(a, np.float64))  # noqa: E731
+    tb64 = [b._replace(xy=b.xy.double(), mask=b.mask.double(),
+                       points=b.points.double(),
+                       point_free=b.point_free.double()) for b in tb]
+    itab = torch.cat([d(quat), d(trans)], 1)
+    _, walk_cost, _ = cost_walk(rows, n_tiles, tb64,
+                                [b.points for b in tb64], itab,
+                                d(intr[:, :NPm]), model_id, loss_type, 1.5)
+    nitab = torch.cat([d(new_quat), d(new_trans)], 1)
+    walk_pts, walk_fin, _ = cost_walk(
+        rows, n_tiles, tb64, [b.points for b in tb64], nitab, d(new_intr),
+        model_id, loss_type, 1.5,
+        fin=([J.double() for J in tJ], [V.double() for V in tV],
+             [g.double() for g in tg], d(x_pose), d(x_intr)))
+    for w, p, r in zip(walk_pts, plain_pts, ref_pts):
+        _close_scaled(w, r, atol)
+        _close_scaled(w, p, atol)
+    for w, p, r in ((walk_cost, plain_cost, ref_cost),
+                    (walk_fin, plain_fin, ref_fin)):
+        scale = max(abs(float(r)), 1.0)
+        assert abs(float(w) - float(r)) / scale <= atol
+        assert abs(float(w) - float(p)) / scale <= atol
+    return rows, n_tiles
+
+
+@pytest.mark.parametrize("loss_type", [0, 1, 2])
+def test_cost_finish_walk_matches_pallas(loss_type):
+    """The cost and finish kernels' walk of their table (live slots only,
+    tile partials in warp order, partials in tile order) against the
+    reference's Pallas cost_bucket and finish_bucket (interpret mode) and
+    the plain versions, with the bench's empty [4, 128] bucket beside a
+    [8, 256] one of tracks of lengths 1..8 and 55 padding columns (its last
+    tile all padding). Tolerance 1e-5 scaled."""
+    case = _case(150 + loss_type)
+    tables = (case["quat"], case["trans"], case["intr"], case["intr_free"])
+    rows, n_tiles = check_cost_walk(tables, walk_buckets(160 + loss_type, I,
+                                                         C),
+                                    MODEL_ID, loss_type, 170 + loss_type)
+    assert rows == ((4, 128, 64, 0), (8, 256, 32, 2)) and n_tiles == 10
+
+
+def test_finish_at_zero_step_is_the_cost():
+    """At x = 0 with every point fixed and the parameters unchanged, finish
+    returns the points and the cost of total_cost: the plain versions
+    within 1e-6 relative, and the kernels' walk to the bit (both walk the
+    same tiles and add alike)."""
+    case = _case(180)
+    b_np = walk_buckets(181, I, C)
+    tb = [tbk.Bucket(**{k: torch.from_numpy(v) for k, v in b.items()})
+          for b in b_np]
+    tb = [b._replace(point_free=torch.zeros_like(b.point_free)) for b in tb]
+    pts = [b.points for b in tb]
+    q, t, k = _t(case["quat"]), _t(case["trans"]), _t(case["intr"])
+    res_l, J_l = tck.res_and_jac(tb, pts, q, t, k, _t(case["intr_free"]),
+                                 MODEL_ID, 1, 1.5)
+    V_l, g_l = tck.schur_prepare(tb, J_l, res_l, 0.37, I, C)[:2]
+    zp, zi = torch.zeros((I, 6)), torch.zeros((C, NP))
+    cost = tck.total_cost(tb, pts, q, t, k, MODEL_ID, 1, 1.5)
+    new_pts, fin = tck.backsub_and_cost(tb, pts, J_l, V_l, g_l, zp, zi, q,
+                                        t, k, MODEL_ID, 1, 1.5)
+    for n, p in zip(new_pts, pts):
+        assert torch.equal(n, p)
+    assert abs(float(fin) - float(cost)) <= 1e-6 * abs(float(cost))
+    rows, n_tiles = tck.cost_table([tuple(b.mask.shape) for b in tb])
+    itab = torch.cat([q, t], 1)
+    _, w_cost, w_parts = cost_walk(rows, n_tiles, tb, pts, itab, k[:, :NP],
+                                   MODEL_ID, 1, 1.5)
+    w_pts, w_fin, f_parts = cost_walk(rows, n_tiles, tb, pts, itab,
+                                      k[:, :NP], MODEL_ID, 1, 1.5,
+                                      fin=(J_l, V_l, g_l, zp, zi))
+    assert all(torch.equal(a, b) for a, b in zip(w_parts, f_parts))
+    assert torch.equal(w_cost, w_fin)
+    assert all(torch.equal(a, b) for a, b in zip(w_pts, pts))

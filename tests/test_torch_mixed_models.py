@@ -49,6 +49,7 @@ from pycolmap_torch.sfm.problem import apply_bundle_solution as t_apply
 from pycolmap_torch.sfm.problem import build_bundle_problem as t_build
 
 from test_incremental_mapping import make_synthetic_database
+from test_torch_cg_kernel import check_cost_walk, walk_buckets
 from test_mixed_models import make_mixed_problem as j_make_mixed_problem
 
 SIMPLE_PINHOLE, PINHOLE, SIMPLE_RADIAL, OPENCV, FULL_OPENCV, FOV = (
@@ -318,6 +319,19 @@ def test_backsub_and_cost_tuple_matches_pallas(models, omega):
     np.testing.assert_allclose(float(got_cost), float(ref_cost), rtol=1e-4)
 
 
+@pytest.mark.parametrize("models,omega", TUPLES)
+def test_cost_finish_walk_tuple_matches_pallas(models, omega):
+    """The cost and finish kernels' walk of their table on a tuple model
+    (test_torch_cg_kernel.py's cost_walk: live slots only, tile partials
+    in a fixed order) against the reference's Pallas kernels (interpret
+    mode) and the plain versions: the bench's empty [4, 128] bucket beside
+    a [8, 256] one of tracks of lengths 1..8 and padding columns.
+    Tolerance 1e-5 scaled."""
+    case = _bucket_case(50, models, omega or 0.8)
+    tables = (case["quat"], case["trans"], case["intr"], case["intr_free"])
+    check_cost_walk(tables, walk_buckets(51, I, case["C"]), models, 1, 52)
+
+
 def test_card_wrappers_take_the_mixed_launchers(monkeypatch):
     """On a CUDA tensor a tuple model_id goes to the *_mixed launcher with
     the width and the ids' bit mask, and resjac's also with the first id;
@@ -327,6 +341,8 @@ def test_card_wrappers_take_the_mixed_launchers(monkeypatch):
     for name in ("resjac", "cost", "resjac_mixed", "cost_mixed"):
         monkeypatch.setattr(tck._cuda, name,
                             lambda *a, _n=name: calls.append((_n, a[:3])))
+    # the cost's bucket table holds device pointers: none here
+    monkeypatch.setattr(tck._cuda, "cost_table", lambda *a: None)
     monkeypatch.setattr(tck, "_is_cuda", lambda t: True)
     tck.reset_counts()
     models = (SIMPLE_PINHOLE, FULL_OPENCV, FOV)
@@ -341,7 +357,7 @@ def test_card_wrappers_take_the_mixed_launchers(monkeypatch):
     assert [c[0] for c in calls] == ["resjac_mixed", "cost_mixed", "cost"]
     assert calls[0][1] == (13, mask, SIMPLE_PINHOLE)
     assert calls[1][1][:2] == (13, mask)
-    assert isinstance(calls[1][1][2], torch.Tensor)  # no first id
+    assert isinstance(calls[1][1][2], tck.CostLaunch)  # no first id
     assert calls[2][1][0] == SIMPLE_RADIAL
     assert tck.LAUNCHES["resjac_mixed"] == tck.LAUNCHES["cost_mixed"] == 1
     assert tck.LAUNCHES["cost"] == 1 and not any(tck.PLAIN_ON_CUDA.values())

@@ -244,9 +244,40 @@ def test_options_cross_by_value():
     to = convert.sift_options_from_dict(jo.todict())
     assert to.normalization == tsift.Normalization.L2
     assert to.max_num_orientations == 3
-    assert not hasattr(to, "use_gpu")
+    assert (to.num_threads, to.use_gpu, to.gpu_index) == (-1, True, "-1")
     for f in tsift.SiftExtractionOptions._field_names():
         assert getattr(to, f) == getattr(jo, f), f
+
+
+@pytest.mark.parametrize("kind", ["extraction", "matching"])
+def test_thread_and_gpu_selectors_round_trip(kind):
+    """Both SIFT options take the reference's num_threads, use_gpu and
+    gpu_index (accepted and unused, as the reference has them), and the
+    reference's todict() crosses convert field for field."""
+    from pycolmap_tpu.features import matcher as jmatch
+    from pycolmap_torch.features import matcher as tmatch
+
+    ref_cls, port_cls, conv = {
+        "extraction": (jsift.SiftExtractionOptions,
+                       tsift.SiftExtractionOptions,
+                       convert.sift_options_from_dict),
+        "matching": (jmatch.SiftMatchingOptions, tmatch.SiftMatchingOptions,
+                     convert.matching_options_from_dict),
+    }[kind]
+    sel = dict(num_threads=4, use_gpu=False, gpu_index="0,1")
+    built = port_cls(**sel)
+    assert (built.num_threads, built.use_gpu, built.gpu_index) == \
+        (4, False, "0,1")
+    jo = ref_cls(**sel)
+    want = jo.todict()
+    got = conv(want).todict()
+    assert set(port_cls._field_names()) == set(want)
+    assert set(got) == set(want)
+    for f, v in want.items():
+        assert got[f] == v, f
+    merged = port_cls()
+    merged.mergedict(sel)
+    assert merged.gpu_index == "0,1" and not merged.use_gpu
 
 
 def test_default_device_needs_cuda(monkeypatch):
