@@ -3,7 +3,7 @@
 the feature front end (SIFT extraction, descriptor matching), the
 known-pose entry points (global BA of a model, triangulation of a model
 with known poses), the dense pipeline (undistortion, PatchMatch stereo,
-stereo fusion) and the gather probe.
+stereo fusion), the gather probe and the geometric estimators.
 
 Run from the repository root on a host with an H100 (or another sm_90a
 card) and the CUDA toolkit:
@@ -110,7 +110,23 @@ Phases (each raises on failure; the script then exits nonzero):
     2,457,600 and the bilinear baseline beside ``F.grid_sample``; then each
     form bit for bit at ragged shapes and with negative, out-of-range and
     int32-extreme indices. Nothing on a user path calls the probe: its
-    launch counts over phases 2-17 are 0.
+    launch counts over phases 2-17 are 0;
+19. the estimators (plain PyTorch, no kernel of their own) on the card and
+    on the CPU at a user's scale, each result held to ground truth: (a)
+    ``estimate_calibrated_two_view_geometry`` with the relative pose on
+    4,000 matches of a 960x1280 PINHOLE pair (f 1000, 30% outliers, 0.5 px
+    noise; CALIBRATED, > 80% of the true inliers, rotation < 1 degree), (b)
+    its planar variant (PLANAR_OR_PANORAMIC), (c)
+    ``estimate_two_view_geometry`` on phase 8's card matches of the
+    5-px-shifted pair (the DLT of H's inliers maps the corners within 0.5
+    px of the shift, H itself within the 4-px threshold, and the card's
+    configuration equals the CPU's), (d) ``estimate_absolute_pose``
+    on 2,000 correspondences with 40% outliers (rotation < 0.5 degree,
+    translation < 0.05) and ``refine_absolute_pose`` from a perturbed
+    pose, (e) ``estimate_triangulation`` of a 10-view track with 2 outlier
+    views (within 0.05); per case the card's host wall ms per call (median
+    of 5 after a warm-up), LO-RANSAC chunks, host synchronisations and
+    device ops of one call, and the CPU's wall ms.
 
 The last lines are one JSON object describing every kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -150,9 +166,12 @@ try:
     from pycolmap_torch.sfm import _cuda as sfm_cuda
     from pycolmap_torch.sfm import ba_kernels as bk
     from pycolmap_torch.sfm import cg_kernel as ck
+    from pycolmap_torch import estimators as est
     from pycolmap_torch.estimators import (
         TwoViewGeometry, TwoViewGeometryConfiguration,
     )
+    from pycolmap_torch.estimators.ransac import BatchedLORANSAC
+    from pycolmap_torch.ops import solvers as est_solvers
     from pycolmap_torch.sfm.bundle_adjustment import BundleAdjustmentOptions
     from pycolmap_torch.sfm.resident import ResidentBundleSolver
     from pycolmap_torch.mvs import _cuda as mvs_cuda
@@ -263,6 +282,12 @@ TRI_IMAGES, TRI_POINTS = 128, 100_000
 MVS_IMAGES, MVS_H, MVS_W = 12, 960, 1280
 MVS_PLANES = (6.0, 7.5)
 MVS_RADIAL_K = -0.03
+# phase 19's scenes: run_sift's image size through a PINHOLE camera of
+# focal length 1000, tests/test_estimators.py synth_two_view's geometry;
+# 4,000 matches (a SIFT pair at that size matches a few thousand
+# keypoints), 2,000 2D-3D correspondences, a 10-view track
+EST_F, EST_MATCHES, EST_PNP, EST_VIEWS = 1000.0, 4000, 2000, 10
+EST_REPS = 5
 
 
 def log(msg):
@@ -1214,7 +1239,7 @@ def front_end():
     top2_res = phase8_top2(pairs)
     return launches, dict(single_ms=single_ms, batch_ms=batch_ms,
                           keypoints=float(np.mean(kps)), match_ms=match_ms,
-                          batch_match_ms=batch_match_ms), top2_res
+                          batch_match_ms=batch_match_ms), top2_res, (k1, k2, m)
 
 
 def phase8_top2(pairs):
@@ -2581,6 +2606,280 @@ def gather_probe():
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the estimators
+# ---------------------------------------------------------------------------
+
+
+def est_camera():
+    return Camera.create(1, "PINHOLE", EST_F, SIFT_W, SIFT_H)
+
+
+def est_pair(seed, outlier_ratio=0.3, noise=0.5, planar=False):
+    """tests/test_estimators.py synth_two_view at run_sift's size: pixel
+    matches of a known relative pose, 0.5 px noise, uniform outliers."""
+    rng = np.random.default_rng(seed)
+    cam = est_camera()
+    n = EST_MATCHES
+    X = rng.uniform(-2, 2, (n, 3)) + np.array([0, 0, 6.0])
+    if planar:
+        X[:, 2] = 6.0
+    rel = Rigid3d(Rotation3d(np.array([0.05, 0.3, -0.02])),
+                  np.array([1.0, 0.1, 0.05]))
+    x1 = cam.img_from_cam(X[:, :2] / X[:, 2:])
+    Xc2 = rel * X
+    x2 = cam.img_from_cam(Xc2[:, :2] / Xc2[:, 2:])
+    x1 += rng.normal(0, noise, x1.shape)
+    x2 += rng.normal(0, noise, x2.shape)
+    out = rng.choice(n, int(outlier_ratio * n), replace=False)
+    x2[out] = rng.uniform(0, [cam.width, cam.height], (len(out), 2))
+    inlier = np.ones(n, dtype=bool)
+    inlier[out] = False
+    return cam, x1, x2, rel, inlier
+
+
+def est_pnp(seed=19, outlier_ratio=0.4):
+    rng = np.random.default_rng(seed)
+    cam = est_camera()
+    n = EST_PNP
+    X = rng.uniform(-2, 2, (n, 3)) + np.array([0, 0, 6.0])
+    pose = Rigid3d(Rotation3d(np.array([0.2, -0.1, 0.4])),
+                   np.array([0.3, -0.2, 0.5]))
+    Xc = pose * X
+    x = cam.img_from_cam(Xc[:, :2] / Xc[:, 2:]) + rng.normal(0, 0.5, (n, 2))
+    out = rng.choice(n, int(outlier_ratio * n), replace=False)
+    x[out] = rng.uniform(0, [cam.width, cam.height], (len(out), 2))
+    inlier = np.ones(n, dtype=bool)
+    inlier[out] = False
+    return cam, x, X, pose, inlier
+
+
+def est_track(seed=20, bad=2):
+    rng = np.random.default_rng(seed)
+    cam = est_camera()
+    X_true = np.array([0.5, -0.3, 8.0])
+    poses, obs = [], []
+    for i in range(EST_VIEWS):
+        pose = Rigid3d(Rotation3d(np.array([0.0, 0.08 * i, 0.0])),
+                       np.array([0.6 * i - 2.7, 0.0, 0.0]))
+        Xc = pose * X_true
+        obs.append(cam.img_from_cam(Xc[None, :2] / Xc[2])[0]
+                   + rng.normal(0, 0.3, 2))
+        poses.append(pose)
+    outliers = rng.choice(EST_VIEWS, bad, replace=False)
+    for i in outliers:
+        obs[i] = obs[i] + rng.uniform(30, 60, 2)
+    return cam, obs, poses, X_true, outliers
+
+
+def count_chunks(fn):
+    """LO-RANSAC chunks one call of fn() draws: the fused first chunk runs
+    its chunk through ``run_chunk`` as the later ones do."""
+    plain = BatchedLORANSAC.run_chunk
+    count = [0]
+
+    def run_chunk(engine, *a, **kw):
+        count[0] += 1
+        return plain(engine, *a, **kw)
+
+    BatchedLORANSAC.run_chunk = run_chunk
+    try:
+        fn()
+    finally:
+        BatchedLORANSAC.run_chunk = plain
+    return count[0]
+
+
+def host_syncs(fn):
+    """Host synchronisations one call of fn() makes, as PyTorch's
+    sync-debug mode reports them (a warning for each synchronising CUDA
+    call: copies to the host, ``.item()``, ``linalg`` status checks); None
+    if the mode reported none."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n = sum("synchroniz" in str(w.message) for w in caught)
+    return n or None
+
+
+def est_measure(tag, call, check):
+    """Phase 19's record of one case: the card's and the CPU's results,
+    each held to `check`; the card's host wall ms per call (median of
+    EST_REPS after one warm-up), chunks, host syncs and device ops of one
+    call; the CPU's wall ms of one call."""
+    t_case = time.perf_counter()
+    card = call("cuda")
+    cpu_t0 = time.perf_counter()
+    cpu = call("cpu")
+    cpu_ms = (time.perf_counter() - cpu_t0) * 1e3
+    card_out, cpu_out = check(card, "card"), check(cpu, "cpu")
+    times = []
+    for _ in range(EST_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call("cuda")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    syncs = []
+    chunks = count_chunks(
+        lambda: syncs.append(host_syncs(lambda: call("cuda"))))
+    rec = dict(ms=float(np.median(times)), ms_runs=times, cpu_ms=cpu_ms,
+               chunks=chunks, host_syncs=syncs[0],
+               device_ops=device_ops(lambda: call("cuda"), tries=1),
+               card=card_out, cpu=cpu_out,
+               phase_s=time.perf_counter() - t_case)
+    log(f"phase 19 {tag} ({rec['phase_s']:.1f} s): card {card_out} | cpu "
+        f"{cpu_out}; card "
+        f"{rec['ms']:.1f} ms per call (median of {EST_REPS}: "
+        f"{', '.join(f'{t:.1f}' for t in times)}), cpu {cpu_ms:.1f} ms; "
+        f"{rec['chunks']} chunks, {rec['host_syncs']} host syncs, "
+        f"{rec['device_ops']} device ops per call")
+    return rec
+
+
+def _rot_deg(a, b):
+    return float(np.rad2deg(a.rotation.angle_to(b.rotation)))
+
+
+def estimators_phase(shifted):
+    """Phase 19: the estimators at a user's scale on the card and on the
+    CPU (the plain path), each held to ground truth; `shifted` is phase 8's
+    card matches of the 5-px-shifted pair (keypoints 1, 2 and matches)."""
+    C = TwoViewGeometryConfiguration
+    res = {}
+
+    # (a) calibrated two-view with the relative pose
+    cam, x1, x2, rel, gt = est_pair(seed=191)
+    opts = est.TwoViewGeometryOptions(compute_relative_pose=True)
+
+    def check_a(g, where):
+        inl, err = len(g.inlier_matches), _rot_deg(g.cam2_from_cam1, rel)
+        if (g.config != int(C.CALIBRATED) or inl <= 0.8 * gt.sum()
+                or not err < 1.0):
+            raise AssertionError(f"phase 19 (a) {where}: config {g.config}, "
+                                 f"{inl} inliers of {gt.sum()}, rotation "
+                                 f"error {err} deg")
+        return dict(config=C(g.config).name, inliers=inl, rot_err_deg=err,
+                    tri_angle_deg=float(np.rad2deg(g.tri_angle)))
+
+    res["a_calibrated"] = est_measure(
+        "(a) calibrated two-view + pose", lambda d:
+        est.estimate_calibrated_two_view_geometry(cam, x1, cam, x2,
+                                                  options=opts, device=d),
+        check_a)
+
+    # (b) its planar variant
+    cam, x1, x2, rel, gt = est_pair(seed=192, planar=True)
+
+    def check_b(g, where):
+        inl = len(g.inlier_matches)
+        if g.config != int(C.PLANAR_OR_PANORAMIC) or inl <= 0.8 * gt.sum():
+            raise AssertionError(f"phase 19 (b) {where}: config {g.config}, "
+                                 f"{inl} inliers of {gt.sum()}")
+        return dict(config=C(g.config).name, inliers=inl)
+
+    res["b_planar"] = est_measure(
+        "(b) calibrated two-view, planar", lambda d:
+        est.estimate_calibrated_two_view_geometry(cam, x1, cam, x2, device=d),
+        check_b)
+
+    # (c) phase 8's card matches of the 5-px-shifted pair. H's inliers lie
+    # within the RANSAC threshold (4 px) by construction, and so do its
+    # corners at the inliers' extent: the minimal-sample H wins over the
+    # LO refit whenever the refit keeps fewer inliers (the reference's rule;
+    # on this pair the reference's H is 1.7-2.6 px off at the corners).
+    # The DLT of H's inliers is held to 0.5 px: the inliers are the shift.
+    k1, k2, m = shifted
+    cam = est_camera()
+    corners = np.array([[0, 0, 1], [SIFT_W, 0, 1], [0, SIFT_H, 1],
+                        [SIFT_W, SIFT_H, 1]], dtype=np.float64)
+
+    def corner_err(H):
+        p = corners @ np.asarray(H, np.float64).T
+        return float(np.abs(p[:, :2] / p[:, 2:] - corners[:, :2]
+                            - [5.0, 0.0]).max())
+
+    def check_c(g, where):
+        inl = g.inlier_matches.astype(np.int64)
+        refit = est_solvers.homography_dlt(
+            torch.from_numpy(k1[inl[:, 0], :2].astype(np.float64))[None],
+            torch.from_numpy(k2[inl[:, 1], :2].astype(np.float64))[None])[0]
+        err, err_refit = corner_err(g.H), corner_err(refit.numpy())
+        if (g.config == int(C.DEGENERATE) or not err < 4.0
+                or not err_refit < 0.5):
+            raise AssertionError(f"phase 19 (c) {where}: config {g.config}, "
+                                 f"corners off the 5-px shift by {err} px, "
+                                 f"by {err_refit} px for the DLT of H's "
+                                 f"inliers")
+        return dict(config=C(g.config).name, inliers=len(inl),
+                    corner_err_px=err, inlier_dlt_corner_err_px=err_refit)
+
+    res["c_sift_pair"] = est_measure(
+        f"(c) two-view of phase 8's {len(m)} matches", lambda d:
+        est.estimate_two_view_geometry(cam, k1[:, :2], cam, k2[:, :2], m,
+                                       device=d), check_c)
+    if res["c_sift_pair"]["card"]["config"] != res["c_sift_pair"]["cpu"]["config"]:
+        raise AssertionError("phase 19 (c): card and CPU configurations differ")
+
+    # (d) absolute pose, then its refinement
+    cam, x, X, pose, inlier = est_pnp()
+
+    def check_d(r, where):
+        est_pose = r["cam_from_world"]
+        err_r = _rot_deg(est_pose, pose)
+        err_t = float(np.abs(est_pose.translation - pose.translation).max())
+        if not (err_r < 0.5 and err_t < 0.05):
+            raise AssertionError(f"phase 19 (d) {where}: rotation {err_r} "
+                                 f"deg, translation {err_t}")
+        return dict(inliers=int(r["num_inliers"]), rot_err_deg=err_r,
+                    t_err=err_t)
+
+    res["d_absolute_pose"] = est_measure(
+        f"(d) absolute pose, {EST_PNP} correspondences", lambda d:
+        est.estimate_absolute_pose(x, X, cam, device=d), check_d)
+    # a start off the truth by about a degree and 0.05 (the reference
+    # test's perturbation), the true inliers
+    bad = Rigid3d(Rotation3d(np.array([0.23, -0.09, 0.42])),
+                  pose.translation + 0.05)
+
+    def check_refine(out, where):
+        est_pose = out["cam_from_world"]
+        err_r = _rot_deg(est_pose, pose)
+        err_t = float(np.abs(est_pose.translation - pose.translation).max())
+        if not (err_r < 0.5 and err_t < 0.01):
+            raise AssertionError(f"phase 19 (d) refine {where}: rotation "
+                                 f"{err_r} deg, translation {err_t}")
+        return dict(rot_err_deg=err_r, t_err=err_t)
+
+    res["d_refine"] = est_measure(
+        "(d) refine_absolute_pose from a perturbed start", lambda d:
+        est.refine_absolute_pose(bad, x, X, inlier, cam, device=d),
+        check_refine)
+
+    # (e) a 10-view track with 2 outlier views
+    cam, obs, poses, X_true, bad_views = est_track()
+
+    def check_e(out, where):
+        err = float(np.abs(out["point3D"] - X_true).max())
+        if not err < 0.05 or out["inliers"][bad_views].any():
+            raise AssertionError(f"phase 19 (e) {where}: point off by {err}, "
+                                 f"inliers {out['inliers']}")
+        return dict(inliers=int(out["num_inliers"]), point_err=err)
+
+    res["e_triangulation"] = est_measure(
+        f"(e) triangulation, {EST_VIEWS} views, 2 outliers", lambda d:
+        est.estimate_triangulation(obs, poses, [cam] * EST_VIEWS, device=d),
+        check_e)
+    return res
+
+
 def ba_kernel_registers(build_log):
     """ptxas register counts of the resjac / cost / finish instances, by
     kernel and camera policy (Single<model id> or Mixed<width>)."""
@@ -2760,7 +3059,7 @@ def main():
     # --- phases 6-9: the feature front end ----------------------------------
     feat = feature_kernels()
     sift_parity()
-    feat_launches, e2e, feat8 = front_end()
+    feat_launches, e2e, feat8, shifted = front_end()
     profile_extract()
     log(f"front end summary: {json.dumps(e2e)}")
 
@@ -2807,6 +3106,12 @@ def main():
     probe, probe_launches = gather_probe()
     log(f"phase 18: {time.perf_counter() - t18:.2f} s; probe launches on "
         f"phases 2-17 {user_launches}, in its own run {probe_launches}")
+
+    # --- phase 19: the estimators ------------------------------------------
+    t19 = time.perf_counter()
+    estimators = estimators_phase(shifted)
+    log(f"phase 19: {time.perf_counter() - t19:.2f} s; estimators summary: "
+        f"{json.dumps(estimators)}")
 
     kernels = []
     for name in SINGLE_BA:

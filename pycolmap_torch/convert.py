@@ -2,7 +2,7 @@
 
 The reference's ``BundleProblem`` and its options (BA, SIFT extraction,
 SIFT matching, the incremental pipeline, PatchMatch, stereo fusion,
-undistortion) cross as plain data (numpy arrays, dicts), never as
+undistortion, RANSAC and the estimators') cross as plain data (numpy arrays, dicts), never as
 reference objects, so this module imports nothing of ``pycolmap_tpu``.
 Parity tests build one problem, hand its fields to both packages, and
 compare the results. The dense pipeline has no other state: its model,
@@ -17,6 +17,13 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from pycolmap_torch.estimators.absolute_pose import (
+    AbsolutePoseEstimationOptions,
+    AbsolutePoseRefinementOptions,
+)
+from pycolmap_torch.estimators.ransac import RANSACOptions
+from pycolmap_torch.estimators.triangulation import EstimateTriangulationOptions
+from pycolmap_torch.estimators.two_view_geometry import TwoViewGeometryOptions
 from pycolmap_torch.features.matcher import SiftMatchingOptions
 from pycolmap_torch.features.sift import SiftExtractionOptions
 from pycolmap_torch.mvs.fusion import StereoFusionOptions
@@ -68,7 +75,7 @@ def ba_options_from_dict(values: Mapping) -> BundleAdjustmentOptions:
     return opts
 
 
-def _feature_options(cls, values: Mapping):
+def _options_from(cls, values: Mapping):
     opts = cls()
     opts.mergedict(dict(values))
     return opts
@@ -77,12 +84,12 @@ def _feature_options(cls, values: Mapping):
 def sift_options_from_dict(values: Mapping) -> SiftExtractionOptions:
     """The port's extraction options from the reference options'
     ``todict()``; ``normalization`` maps onto the port's enum by value."""
-    return _feature_options(SiftExtractionOptions, values)
+    return _options_from(SiftExtractionOptions, values)
 
 
 def matching_options_from_dict(values: Mapping) -> SiftMatchingOptions:
     """The port's matching options from the reference options' ``todict()``."""
-    return _feature_options(SiftMatchingOptions, values)
+    return _options_from(SiftMatchingOptions, values)
 
 
 def pipeline_options_from_dict(values: Mapping) -> IncrementalPipelineOptions:
@@ -117,3 +124,35 @@ def undistort_options_from_dict(values: Mapping) -> UndistortCameraOptions:
     opts = UndistortCameraOptions()
     opts.mergedict(dict(values))
     return opts
+
+
+def ransac_options_from_dict(values: Mapping) -> RANSACOptions:
+    """The port's RANSAC options from the reference options' ``todict()``."""
+    return _options_from(RANSACOptions, values)
+
+
+def two_view_geometry_options_from_dict(values: Mapping) -> TwoViewGeometryOptions:
+    """The port's two-view options from the reference
+    ``TwoViewGeometryOptions.todict()``, its nested ``ransac`` included."""
+    return _options_from(TwoViewGeometryOptions, values)
+
+
+def absolute_pose_estimation_options_from_dict(
+        values: Mapping) -> AbsolutePoseEstimationOptions:
+    """The port's absolute-pose estimation options (nested ``ransac``
+    included) from the reference options' ``todict()``."""
+    return _options_from(AbsolutePoseEstimationOptions, values)
+
+
+def absolute_pose_refinement_options_from_dict(
+        values: Mapping) -> AbsolutePoseRefinementOptions:
+    """The port's pose refinement options from the reference options'
+    ``todict()``."""
+    return _options_from(AbsolutePoseRefinementOptions, values)
+
+
+def triangulation_options_from_dict(
+        values: Mapping) -> EstimateTriangulationOptions:
+    """The port's ``EstimateTriangulationOptions`` (nested ``ransac``
+    included) from the reference options' ``todict()``."""
+    return _options_from(EstimateTriangulationOptions, values)

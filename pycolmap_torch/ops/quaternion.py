@@ -111,3 +111,21 @@ def quat_to_axis_angle(q):
 def quat_boxplus(q, delta):
     """Manifold retraction q' = exp(delta) * q (left-multiplicative)."""
     return quat_normalize(quat_mul(axis_angle_to_quat(delta), q))
+
+
+def quat_conj(q):
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_to_matrix(q):
+    """wxyz quaternion [..., 4] -> rotation matrix [..., 3, 3]."""
+    w, x, y, z = torch.unbind(q, dim=-1)
+    m = torch.stack(
+        [
+            1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+            2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+            2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+        ],
+        dim=-1,
+    )
+    return m.reshape(q.shape[:-1] + (3, 3))

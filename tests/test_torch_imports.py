@@ -40,6 +40,14 @@ def test_the_port_is_scanned():
                 "mvs/consistency_graph.py", "mvs/pm_kernels.py",
                 "mvs/_cuda.py", "mvs/patch_match.py", "mvs/controller.py",
                 "mvs/fusion.py", "scripts/proto_gather.py",
-                "scripts/_cuda.py", "_timing.py"):
+                "scripts/_cuda.py", "_timing.py", "ops/epipolar.py",
+                "estimators/__init__.py", "estimators/ransac.py",
+                "estimators/fundamental_matrix.py",
+                "estimators/homography_matrix.py",
+                "estimators/homography_decomposition.py",
+                "estimators/essential_matrix.py",
+                "estimators/triangulation.py",
+                "estimators/absolute_pose.py", "utils/timer.py",
+                "scene/exporters.py", "convert.py"):
         assert f"pycolmap_torch/{mod}" in names
     assert len(FILES) > 20
