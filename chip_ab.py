@@ -1,0 +1,135 @@
+#!/usr/bin/env python3
+"""Time the bundle-adjustment kernels of two checkouts in turns on one card,
+and report prepare's and resjac's errors, output by output, at the
+incremental mapper's own operands.
+
+Two versions of a kernel are compared only inside one process tree on one
+card: each checkout runs in its own process (its own ``chip_smoke.py``,
+package and kernel build), in the order A, B, B, A, and each run prints
+``chip_smoke.check_case``'s times at phase 2's bench case (resjac, cost,
+finish, prepare, the f32 matvec; median of 25 CUDA events each). With
+``--mapper-errors`` the B runs also map bench.py run_mapping's 30-image
+database on the card, record one global and one local-window BA step
+(``chip_smoke.ResJacRecorder``) and print, per output of resjac and
+prepare, the kernel's and the f32 plain version's scaled error against
+the float64 plain version.
+
+Run from the root of checkout B on a host with the card, checkout A
+unpacked anywhere (e.g. ``git archive <commit> | tar -x -C build/parent``):
+
+    python3 chip_ab.py build/parent . [--mapper-errors]
+
+It exits 1 on a host without CUDA.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+
+def _errors(cs, ck, torch, case, tag):
+    """Per output of resjac and prepare at `case`: the kernel's and the f32
+    plain version's scaled error against the float64 plain version."""
+    res_l, J_l = ck.res_and_jac(case.buckets, case.pts, case.quat,
+                                case.trans, case.intr, case.intr_free,
+                                case.model_id, case.loss_type,
+                                case.loss_scale)
+    I, C, NP = case.I, case.C, case.NP
+    prep = ck.schur_prepare(case.buckets, J_l, res_l, case.lam, I, C)
+    kern = dict(res=torch.cat([r.reshape(-1) for r in res_l]),
+                J=torch.cat([j.reshape(-1) for j in J_l]),
+                Vinv=torch.cat([v.reshape(-1) for v in prep[0]]),
+                g=torch.cat([g.reshape(-1) for g in prep[1]]),
+                rhs_pose=prep[2], rhs_intr=prep[3], udp=prep[4],
+                udi=prep[5], S=prep[6])
+    plain = {}
+    for dt in (torch.float64, torch.float32):
+        itab = torch.cat([case.quat, case.trans], 1).to(dt)
+        rj = [ck.resjac_plain(cs._bucket_as(b, dt), b.points.to(dt), itab,
+                              case.intr[:, :NP].to(dt),
+                              case.intr_free[:, :NP].to(dt), case.model_id,
+                              case.loss_type, case.loss_scale)
+              for b in case.buckets]
+        acc_i = torch.zeros((I, 33), device=itab.device, dtype=dt)
+        acc_c = torch.zeros((C, 2 * NP), device=itab.device, dtype=dt)
+        vs, gs = [], []
+        for b, J, r in zip(case.buckets, J_l, res_l):
+            v, g, oi, oc = ck.prepare_plain(cs._bucket_as(b, dt), J.to(dt),
+                                            r.to(dt), case.lam.to(dt), I, C)
+            vs.append(v.reshape(-1))
+            gs.append(g.reshape(-1))
+            acc_i, acc_c = acc_i + oi, acc_c + oc
+        plain[dt] = dict(res=torch.cat([o[0].reshape(-1) for o in rj]),
+                         J=torch.cat([o[1].reshape(-1) for o in rj]),
+                         Vinv=torch.cat(vs), g=torch.cat(gs),
+                         rhs_pose=acc_i[:, :6], rhs_intr=acc_c[:, :NP],
+                         udp=acc_i[:, 6:12], udi=acc_c[:, NP:],
+                         S=acc_i[:, 12:33])
+    for name, got in kern.items():
+        ref = plain[torch.float64][name].reshape(-1)
+        k = cs.scaled_err(got.reshape(-1), ref)
+        p = cs.scaled_err(plain[torch.float32][name].reshape(-1), ref)
+        print(f"ERR {tag} {name}: kernel {k[1]:.3e} (abs {k[0]:.3e}), f32 "
+              f"plain {p[1]:.3e} (abs {p[0]:.3e}), max |float64| "
+              f"{float(ref.abs().max()):.3e}", flush=True)
+
+
+def one(tree: Path, mapper_errors: bool) -> int:
+    """The run of one checkout, in this process."""
+    sys.path.insert(0, str(tree))
+    import torch
+
+    import chip_smoke as cs
+    from pycolmap_torch import _cuda_build
+    from pycolmap_torch.sfm import cg_kernel as ck
+
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _cuda_build.libs()
+    case, _ = cs.bench_case(torch.device("cuda"))
+    res = {}
+    cs.check_case(case, "bench", res)
+    print("AB " + json.dumps({"tree": str(tree), **{
+        k: round(v["ms"], 5) for k, v in res.items()}}), flush=True)
+    if mapper_errors:
+        (tree / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=tree / "build") as tmp:
+            tmp = Path(tmp)
+            gt = cs.write_orbit_database(tmp / "map.db", cs.MAP_IMAGES,
+                                         cs.MAP_POINTS, cs.MAP_NOISE)
+            with cs.ResJacRecorder() as rec:
+                cs.map_and_check(tmp / "map.db", tmp / "map", gt,
+                                 cs.mapping_options(), "cuda", "chip_ab",
+                                 cs.MAP_IMAGES)
+        _errors(cs, ck, torch, cs.mapping_case(rec.global_args, 201),
+                "mapping global")
+        _errors(cs, ck, torch, cs.mapping_case(rec.local_args, 202),
+                "mapping local")
+    return 0
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--one"]:
+        return one(Path(argv[1]).resolve(), "--mapper-errors" in argv)
+    flags = [a for a in argv if a.startswith("--")]
+    trees = [Path(a).resolve() for a in argv if not a.startswith("--")]
+    if len(trees) != 2:
+        sys.exit(__doc__)
+    a, b = trees
+    rc = 0
+    for tree, errs in ((a, False), (b, "--mapper-errors" in flags),
+                       (b, False), (a, False)):
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--one",
+               str(tree)] + (["--mapper-errors"] if errs else [])
+        rc |= subprocess.run(cmd, cwd=tree).returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -3,7 +3,8 @@
 the feature front end (SIFT extraction, descriptor matching), the
 known-pose entry points (global BA of a model, triangulation of a model
 with known poses), the dense pipeline (undistortion, PatchMatch stereo,
-stereo fusion), the gather probe and the geometric estimators.
+stereo fusion), the gather probe, the geometric estimators and the
+incremental mapper.
 
 Run from the repository root on a host with an H100 (or another sm_90a
 card) and the CUDA toolkit:
@@ -126,7 +127,24 @@ Phases (each raises on failure; the script then exits nonzero):
     pose, (e) ``estimate_triangulation`` of a 10-view track with 2 outlier
     views (within 0.05); per case the card's host wall ms per call (median
     of 5 after a warm-up), LO-RANSAC chunks, host synchronisations and
-    device ops of one call, and the CPU's wall ms.
+    device ops of one call, and the CPU's wall ms;
+20. ``incremental_mapping`` at bench.py run_mapping's size: the
+    30-image / 2,000-point orbit database of tests/test_incremental_mapping.py
+    (written with the port's Database), run_mapping's options, on the card
+    twice (the first call in the process, then a second with every launch
+    count zeroed just before and read just after): registered img/s and the
+    stage split of each; 30/30 registered, mean reprojection error under
+    1 px, median rotation error under 0.5 degrees after a similarity
+    alignment, more than half the points, the model read back; matvec16
+    launched once per CG iteration, prepare and finish once per LM step,
+    the cost once per solve (the mapper's resident-BA cache counts them),
+    no kernel off the BA path; resjac, cost, finish, prepare, the f32 and
+    the bf16 matvec held to their plain versions (phases 2 and 10) at the
+    operands of one global step (the deepest buckets, recorded in the first
+    call) and one local-window step, the global step's timed; the 8-image /
+    300-point database on the card and on the CPU, both checked; the native
+    graph library built from the checkout and the correspondence graph
+    traversing through it.
 
 The last lines are one JSON object describing every kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -185,6 +203,9 @@ try:
     from pycolmap_torch.pipeline.images import write_image
     from pycolmap_torch._timing import REPS, WARMUP, host_ms, time_gpu
     from pycolmap_torch.scripts import proto_gather as pg
+    from pycolmap_torch import native
+    from pycolmap_torch.ops import quaternion as qops
+    from pycolmap_torch.sfm.database_cache import DatabaseCache
 except ImportError as e:  # run outside the repository
     sys.exit(f"chip_smoke: the pycolmap_torch package is missing ({e})")
 
@@ -288,6 +309,10 @@ MVS_RADIAL_K = -0.03
 # keypoints), 2,000 2D-3D correspondences, a 10-view track
 EST_F, EST_MATCHES, EST_PNP, EST_VIEWS = 1000.0, 4000, 2000, 10
 EST_REPS = 5
+# phase 20's databases: bench.py run_mapping's (30 images of 2,000 points,
+# 0.4 px noise) and tests/test_incremental_mapping.py's (8 of 300)
+MAP_IMAGES, MAP_POINTS, MAP_NOISE = 30, 2000, 0.4
+MAP_PARITY_IMAGES, MAP_PARITY_POINTS = 8, 300
 
 
 def log(msg):
@@ -1744,9 +1769,19 @@ def write_sequential_database(path, num_images, num_points, pixel_noise=0.4,
         img.cam_from_world = pose
         img.registered = True
         gt.add_image(img)
+    return gt, kp_pid, write_database(path, gt, kp_pid)
+
+
+def write_database(path, gt, kp_pid):
+    """Write a ground-truth model's camera, images and keypoints (image i + 1
+    observing true points kp_pid[i]) as a database, with verified pairs of
+    every two images that share >= 30 points (the true matches and relative
+    pose). Returns the number of verified pairs."""
+    num_images = len(kp_pid)
     db = Database(path)
     with DatabaseTransaction(db):
-        db.write_camera(cam, use_camera_id=True)
+        for cam in gt.cameras.values():
+            db.write_camera(cam, use_camera_id=True)
         for i in range(num_images):
             img = gt.images[i + 1]
             db.write_image(img, use_image_id=True)
@@ -1768,7 +1803,7 @@ def write_sequential_database(path, num_images, num_points, pixel_noise=0.4,
                 db.write_two_view_geometry(i + 1, j + 1, g)
     n_pairs = db.num_verified_image_pairs
     db.close()
-    return gt, kp_pid, n_pairs
+    return n_pairs
 
 
 def known_pose_triangulation(tmp):
@@ -2880,6 +2915,273 @@ def estimators_phase(shifted):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 20: incremental_mapping
+# ---------------------------------------------------------------------------
+
+
+def write_orbit_database(path, num_images, num_points, pixel_noise=0.4,
+                         seed=0):
+    """tests/test_incremental_mapping.py make_synthetic_database's default
+    mode="orbit" with the port's Database: one SIMPLE_PINHOLE camera (f 600,
+    640x480), the cameras on an arc of 1.2 rad at 5 units from a cube of
+    points, each image's true keypoints plus noise in a random order,
+    verified pairs of every two images that share >= 30 points. The same
+    random draws in the same order, so keypoints and matches are the
+    reference's; descriptors are not written (mapping does not read them).
+    Returns the ground-truth model (poses and keypoints, no points)."""
+    rng = np.random.default_rng(seed)
+    cam = Camera.create(1, "SIMPLE_PINHOLE", 600.0, 640, 480)
+    target = np.array([0.0, 0.0, 5.0])
+    points = rng.uniform(-1.5, 1.5, (num_points, 3)) + target
+    gt = Reconstruction()
+    gt.add_camera(cam)
+    kp_pid = []
+    for i in range(num_images):
+        theta = -0.6 + i * (1.2 / max(num_images - 1, 1))
+        center = target + 5.0 * np.array(
+            [np.sin(theta), 0.15 * np.sin(2 * theta), -np.cos(theta)])
+        fwd = (target - center) / np.linalg.norm(target - center)
+        right = np.cross(np.array([0.0, -1.0, 0.0]), fwd)
+        right /= np.linalg.norm(right)
+        R_wc = np.stack([right, np.cross(fwd, right), fwd], axis=0)
+        pose = Rigid3d(Rotation3d(R_wc), -R_wc @ center)
+        p_cam = pose * points
+        xy = cam.img_from_cam(p_cam[:, :2] / p_cam[:, 2:])
+        vis = ((p_cam[:, 2] > 0.2) & (xy[:, 0] >= 0) & (xy[:, 0] < cam.width)
+               & (xy[:, 1] >= 0) & (xy[:, 1] < cam.height))
+        ids = np.nonzero(vis)[0]
+        ids = ids[rng.permutation(len(ids))]
+        kp_pid.append(ids)
+        img = Image(name=f"img{i:03d}.jpg", camera_id=1, id=i + 1,
+                    keypoints_xy=xy[ids] + rng.normal(0, pixel_noise,
+                                                      (len(ids), 2)))
+        img.cam_from_world = pose
+        img.registered = True
+        gt.add_image(img)
+    write_database(path, gt, kp_pid)
+    return gt
+
+
+def mapping_options(min_model_size=6):
+    """bench.py run_mapping's options (tests/test_incremental_mapping.py's
+    with min_model_size 4)."""
+    o = psfm.IncrementalPipelineOptions()
+    o.min_model_size = min_model_size
+    o.extract_colors = False
+    return o
+
+
+def rotation_errors_deg(rec, gt):
+    """Each registered image's rotation error in degrees against the truth,
+    after the similarity (the port's Umeyama) that maps the model's
+    projection centers onto the true ones."""
+    truth = {img.name: img for img in gt.images.values()}
+    imgs = [rec.images[i] for i in rec.reg_image_ids]
+    R = np.stack([im.cam_from_world.rotation.matrix() for im in imgs])
+    Rg = np.stack([truth[im.name].cam_from_world.rotation.matrix()
+                   for im in imgs])
+    c = torch.from_numpy(np.stack([im.projection_center() for im in imgs]))
+    cg = torch.from_numpy(np.stack([truth[im.name].projection_center()
+                                    for im in imgs]))
+    _, q, _ = est_solvers.umeyama(c, cg)
+    Ra = qops.quat_to_matrix(q).numpy()
+    # the aligned model's cam_from_world rotation is R Ra^T
+    D = np.swapaxes(Rg, 1, 2) @ R @ Ra.T
+    cos = np.clip((np.trace(D, axis1=1, axis2=2) - 1.0) / 2.0, -1.0, 1.0)
+    return np.degrees(np.arccos(cos))
+
+
+def map_and_check(db, out, gt, opts, device, tag, min_reg):
+    """incremental_mapping of `db` into `out` on `device`, timed, with the
+    outcome checks: at least `min_reg` images registered, mean reprojection
+    error under 1 px, median rotation error under 0.5 degrees, the model
+    written and read back. Returns (model, seconds, timings)."""
+    timings = {}
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recs = psfm.incremental_mapping(db, out, out / "sparse", opts,
+                                    device=device, timings=timings)
+    dt = time.perf_counter() - t0
+    if not recs:
+        raise AssertionError(f"[{tag}] no model")
+    rec = recs[0]
+    err = rec.compute_mean_reprojection_error()
+    rot = float(np.median(rotation_errors_deg(rec, gt)))
+    back = Reconstruction(out / "sparse" / "0")
+    log(f"{tag}: {len(recs)} model(s), {rec.num_reg_images} images "
+        f"registered, {rec.num_points3D} points, mean reprojection error "
+        f"{err:.4f} px, median rotation error {rot:.4f} deg, in {dt:.2f} s "
+        f"({rec.num_reg_images / dt:.4f} registered img/s)")
+    rec.check()
+    if not (rec.num_reg_images >= min_reg and err < 1.0 and rot < 0.5):
+        raise AssertionError(f"[{tag}] {rec.num_reg_images} registered "
+                             f"(need {min_reg}), error {err:.4f} px (need "
+                             f"< 1), rotation {rot:.4f} deg (need < 0.5)")
+    if (back.reg_image_ids != rec.reg_image_ids
+            or back.num_points3D != rec.num_points3D):
+        raise AssertionError(f"[{tag}] the model read back differs")
+    return rec, dt, dict(timings, err=err, rot=rot)
+
+
+class ResJacRecorder:
+    """Keeps the operands of bundle adjustment's residual and Jacobian calls
+    on the main path (through the module attribute the LM loop calls):
+    those of the last global step (TRIVIAL loss) with the deepest bucket,
+    and of the last local-window step (SOFT_L1). The LM loop replaces its
+    tensors rather than writing into them, so references suffice."""
+
+    def __init__(self):
+        self.global_args = self.local_args = None
+        self._deepest = 0
+
+    def __enter__(self):
+        self._wrapped = ck.res_and_jac
+        ck.res_and_jac = self._record
+        return self
+
+    def __exit__(self, *exc):
+        ck.res_and_jac = self._wrapped
+
+    def _record(self, *args):
+        b_l, loss_type = args[0], args[7]
+        T = max(b.mask.shape[0] for b in b_l)
+        if loss_type == 0:
+            if T >= self._deepest:
+                self._deepest, self.global_args = T, args
+        else:
+            self.local_args = args
+        return self._wrapped(*args)
+
+
+def mapping_case(args, seed):
+    """A phase 2 Case from recorded res_and_jac operands."""
+    b_l, pts, quat, trans, intr, intr_free, m, lt, ls = args
+    buckets = [b._replace(points=p) for b, p in zip(b_l, pts)]
+    return Case(buckets, quat, trans, intr, intr_free, m, lt, ls, seed)
+
+
+def other_launch_counts():
+    """The launch counts of every kernel outside bundle adjustment."""
+    return {**mk.LAUNCHES, **ws.LAUNCHES, **pmk.LAUNCHES,
+            **{f"probe_{k}": v for k, v in pg.LAUNCHES.items()}}
+
+
+def mapping_phase(tmp):
+    """Phase 20: incremental_mapping on the card at bench.py run_mapping's
+    size, checked against the truth and launch by launch; the BA kernels at
+    the mapper's captured operands; the card against the CPU at 8 images.
+    Returns the kernel numbers and the timed run's launches."""
+    t20 = time.perf_counter()
+    # (g) the native graph library: built from the checkout and loaded
+    if native.get_lib() is None:
+        raise AssertionError(f"phase 20: the native graph library did not "
+                             f"build or load: {native.build_error}")
+    log(f"phase 20 native: {native.lib_path().relative_to(ROOT)} loaded")
+
+    # (a) the database
+    db = tmp / "map.db"
+    gt = write_orbit_database(db, MAP_IMAGES, MAP_POINTS, MAP_NOISE)
+    trav = DatabaseCache.load(db).correspondence_graph._get_traversal()
+    if trav is None or not trav.native:
+        raise AssertionError("phase 20: the correspondence graph does not "
+                             "traverse natively")
+    opts = mapping_options()
+
+    # (b) the first call in the process (recording one global and one
+    # local step's operands), then the timed run, every launch count zeroed
+    # just before it and read just after
+    with ResJacRecorder() as rec_ops:
+        rec1, dt1, t1 = map_and_check(db, tmp / "map1", gt, opts, "cuda",
+                                      "phase 20 first call", MAP_IMAGES)
+    for mod in (ck, mk, ws, pmk, pg):
+        mod.reset_counts()
+    rec2, dt2, t2 = map_and_check(db, tmp / "map2", gt, opts, "cuda",
+                                  "phase 20 second call", MAP_IMAGES)
+    launches = dict(ck.LAUNCHES)
+    others = other_launch_counts()
+    plain_on_cuda = {**ck.PLAIN_ON_CUDA, **pmk.PLAIN_ON_CUDA}
+    for rec, t in ((rec1, t1), (rec2, t2)):
+        if not rec.num_points3D > MAP_POINTS // 2:
+            raise AssertionError(f"phase 20: {rec.num_points3D} points of "
+                                 f"{MAP_POINTS} reconstructed")
+    stages = ("load", "initial_pair", "register", "triangulate", "local_ba",
+              "global_ba", "pose_graph", "write")
+    for tag, dt, rec, t in (("first", dt1, rec1, t1),
+                            ("second", dt2, rec2, t2)):
+        log(f"phase 20 {tag} call: {rec.num_reg_images / dt:.4f} registered "
+            f"img/s ({rec.num_reg_images} / {dt:.3f} s); split "
+            + ", ".join(f"{k} {t.get(k, 0.0):.3f} s" for k in stages)
+            + "; detail " + json.dumps({k: round(v, 4) for k, v in t.items()
+                                        if k not in stages}))
+    # (d) launch counts of the timed run
+    solves, steps, cg = (t2["ba_solves"], t2["ba_lm_steps"],
+                         t2["ba_cg_iterations"])
+    log(f"phase 20 launches: {launches}; other kernels {others}; "
+        f"{solves} BA solves ({t2['ba_cache_hits']} resident-cache hits, "
+        f"{t2['ba_cache_misses']} misses), {steps} LM steps, {cg} CG "
+        f"iterations")
+    want = {"matvec16": cg, "prepare": steps, "finish": steps,
+            "cost": solves}
+    missing = [k for k in ("resjac", "prepare", "finish", "cost", "matvec16")
+               if launches[k] <= 0]
+    idle = ("matvec", "gather", "resjac_mixed", "cost_mixed", "finish_mixed")
+    if missing or any(launches[k] for k in idle) or any(others.values()):
+        raise AssertionError(f"phase 20: kernels never launched {missing}, "
+                             f"or launched off the path: "
+                             f"{ {k: launches[k] for k in idle} } {others}")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"phase 20: launches "
+                             f"{ {k: launches[k] for k in want} }, expected "
+                             f"{want}")
+    if any(plain_on_cuda.values()):
+        raise AssertionError(f"phase 20: plain versions ran on CUDA tensors: "
+                             f"{plain_on_cuda}")
+
+    # (e) the kernels at the mapper's operands: one global step (the
+    # deepest buckets) checked and timed, one local-window step checked
+    if rec_ops.global_args is None or rec_ops.local_args is None:
+        raise AssertionError("phase 20: no global or local step recorded")
+    case_g = mapping_case(rec_ops.global_args, 201)
+    case_l = mapping_case(rec_ops.local_args, 202)
+    del rec_ops
+    kern, schur = {}, {"prepare": {}, "matvec": {}, "matvec16": {}}
+    for tag, case, res in (("mapping global", case_g, kern),
+                           ("mapping local", case_l, None)):
+        shapes = [tuple(b.mask.shape) for b in case.buckets]
+        errs = check_case(case, tag, res)
+        errs.update(check_case_schur(
+            tag, case, "phase 20", schur if res is not None else None))
+        log(f"phase 20 {tag} step: I {case.I}, C {case.C}, buckets [T, P] "
+            f"{shapes}; scaled errors "
+            + ", ".join(f"{k} {v[1]:.2e}" for k, v in errs.items()))
+    kern["matvec16"] = schur["matvec16"]["mapping global"]
+    for name, r in kern.items():
+        log(f"phase 20 global step {name}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+
+    # (f) the card against the CPU on the 8-image database
+    db8 = tmp / "map8.db"
+    gt8 = write_orbit_database(db8, MAP_PARITY_IMAGES, MAP_PARITY_POINTS)
+    opts8 = mapping_options(4)
+    out8 = {dev: map_and_check(db8, tmp / f"map8_{dev}", gt8, opts8, dev,
+                               f"phase 20 8 images on {dev}",
+                               MAP_PARITY_IMAGES - 1)
+            for dev in ("cuda", "cpu")}
+    if out8["cuda"][0].num_reg_images != out8["cpu"][0].num_reg_images:
+        raise AssertionError("phase 20: the card and the CPU register "
+                             "different image counts")
+    total = time.perf_counter() - t20
+    log(f"phase 20: {total:.2f} s")
+    return dict(launches=launches, kernels=kern, seconds=total,
+                img_per_s=[rec1.num_reg_images / dt1,
+                           rec2.num_reg_images / dt2],
+                timings=t2, lm_steps=steps, cg_iterations=cg, solves=solves,
+                cpu_8=dict(cuda=out8["cuda"][1], cpu=out8["cpu"][1]))
+
+
 def ba_kernel_registers(build_log):
     """ptxas register counts of the resjac / cost / finish instances, by
     kernel and camera policy (Single<model id> or Mixed<width>)."""
@@ -3113,6 +3415,13 @@ def main():
     log(f"phase 19: {time.perf_counter() - t19:.2f} s; estimators summary: "
         f"{json.dumps(estimators)}")
 
+    # --- phase 20: incremental_mapping --------------------------------------
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        mapping = mapping_phase(Path(tmp))
+    summary = {k: v for k, v in mapping.items()
+               if k not in ("launches", "kernels")}
+    log(f"mapping summary: {json.dumps(summary)}")
+
     kernels = []
     for name in SINGLE_BA:
         src, rep = KERNEL_INFO[name]
@@ -3142,6 +3451,14 @@ def main():
         # BA kernel's count is the default (bf16) solve's
         ln, ps = ((launches32, per_step32) if name == "matvec"
                   else (launches, per_step))
+        # phase 20: launches of the timed mapping, and the kernel at the
+        # captured global step's operands (matvec16 too; the f32 matvec
+        # there from the same step's f32 J)
+        m = mapping["kernels"][name]
+        extra.update(launches_mapping=mapping["launches"][name],
+                     ms_mapping=m["ms"], plain_ms_mapping=m["plain_ms"],
+                     bound_ms_mapping=m["bound_ms"],
+                     max_abs_err_mapping=m["max_abs_err"])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=ln[name], launches_per_lm_step=ps[name],

@@ -1,12 +1,17 @@
-"""SfM pipeline stages: bundle_adjustment and triangulate_points.
+"""SfM pipeline stages: incremental_mapping, bundle_adjustment,
+triangulate_points.
 
 Port of ``pycolmap_tpu/pipeline/sfm.py`` (API parity: pycolmap/pipeline/sfm.h
-— ``bundle_adjustment`` :95-103, ``triangulate_points`` :23-44,
-``IncrementalPipelineOptions`` :117-258), for now the known-pose half:
-global BA of a model, and triangulation of a model whose poses are known.
-``incremental_mapping`` waits for the mapping slice (ROADMAP.md).
+— ``incremental_mapping`` :46-93, ``bundle_adjustment`` :95-103,
+``triangulate_points`` :23-44, ``IncrementalPipelineOptions`` :117-258). The
+controller loop follows the reference call stack (SURVEY.md §3.3): init pair
+→ register/triangulate loop → iterative local refinement →
+growth-ratio-gated global refinement → filtering → pose-graph relaxation →
+multi-model management, with snapshots, resume and callbacks. The
+reference's BA-compile prewarm has no counterpart: the port compiles no
+executables per shape.
 
-Both entry points run on the card unless ``device="cpu"`` is given; on a
+Every entry point runs on the card unless ``device="cpu"`` is given; on a
 host without CUDA and no device they raise. ``cg_bf16`` selects the CG
 matvec of the solve (see :func:`pycolmap_torch.sfm.ba_kernels.
 solve_bundle_fast`): None takes the device's default, bf16 on the card
@@ -19,17 +24,27 @@ the device's).
 
 from __future__ import annotations
 
+import copy
 import time
+from collections import defaultdict
+from contextlib import contextmanager
 from pathlib import Path
 
+import numpy as np
+
 from pycolmap_torch import resolve_device
+from pycolmap_torch.scene import Reconstruction
 from pycolmap_torch.sfm.bundle_adjustment import (
     BundleAdjustmentOptions,
     LossFunctionType,
     solve_bundle,
 )
 from pycolmap_torch.sfm.database_cache import DatabaseCache
-from pycolmap_torch.sfm.incremental_mapper import IncrementalMapperOptions
+from pycolmap_torch.sfm.incremental_mapper import (
+    IncrementalMapper,
+    IncrementalMapperOptions,
+)
+from pycolmap_torch.sfm.pose_graph import relax_pose_graph
 from pycolmap_torch.sfm.incremental_triangulator import (
     IncrementalTriangulator,
     IncrementalTriangulatorOptions,
@@ -45,9 +60,7 @@ class IncrementalPipelineOptions(BaseOptions):
     """Mirrors reference IncrementalPipelineOptions (pipeline/sfm.h:117-258).
 
     The reference's ``devices`` option (a JAX mesh selector) has no
-    counterpart: the device is an argument of the entry points. Its
-    ``get_mapper`` and ``get_local_ba`` come with ``incremental_mapping``,
-    their only caller."""
+    counterpart: the device is an argument of the entry points."""
 
     min_num_matches: int = 15
     ignore_watermarks: bool = False
@@ -84,6 +97,10 @@ class IncrementalPipelineOptions(BaseOptions):
     snapshot_images_freq: int = 0
     image_names: list = None
     fix_existing_images: bool = False
+    # pose-graph relaxation (rotation averaging + position solve +
+    # retriangulation, sfm/pose_graph.py) after the final refinement when
+    # the verified pair graph disagrees with the reconstruction. No-op on
+    # healthy scenes (residual check).
     pose_graph_relaxation: bool = True
     pose_graph_min_residual_deg: float = 1.0
     mapper: IncrementalMapperOptions = None
@@ -97,6 +114,27 @@ class IncrementalPipelineOptions(BaseOptions):
         if self.image_names is None:
             self.image_names = []
 
+    def get_mapper(self) -> IncrementalMapperOptions:
+        m = copy.deepcopy(self.mapper)
+        m.local_ba_num_images = self.ba_local_num_images
+        m.max_model_overlap = self.max_model_overlap
+        m.fix_existing_images = self.fix_existing_images
+        m.min_focal_length_ratio = self.min_focal_length_ratio
+        m.max_focal_length_ratio = self.max_focal_length_ratio
+        m.max_extra_param = self.max_extra_param
+        return m
+
+    def get_local_ba(self) -> BundleAdjustmentOptions:
+        ba = BundleAdjustmentOptions()
+        ba.loss_function_type = LossFunctionType.SOFT_L1
+        ba.loss_function_scale = 1.0
+        ba.refine_focal_length = self.ba_refine_focal_length
+        ba.refine_principal_point = self.ba_refine_principal_point
+        ba.refine_extra_params = self.ba_refine_extra_params
+        ba.max_num_iterations = self.ba_local_max_num_iterations
+        ba.print_summary = False
+        return ba
+
     def get_global_ba(self) -> BundleAdjustmentOptions:
         ba = BundleAdjustmentOptions()
         ba.loss_function_type = LossFunctionType.TRIVIAL
@@ -106,6 +144,372 @@ class IncrementalPipelineOptions(BaseOptions):
         ba.max_num_iterations = self.ba_global_max_num_iterations
         ba.print_summary = False
         return ba
+
+
+class ReconstructionManager:
+    """Holds the set of models (ref: pipeline/sfm.h:59-63 usage)."""
+
+    def __init__(self):
+        self.reconstructions: list[Reconstruction] = []
+
+    def add(self) -> int:
+        self.reconstructions.append(Reconstruction())
+        return len(self.reconstructions) - 1
+
+    def get(self, idx) -> Reconstruction:
+        return self.reconstructions[idx]
+
+    def delete(self, idx):
+        del self.reconstructions[idx]
+
+    def __len__(self):
+        return len(self.reconstructions)
+
+    def write(self, path):
+        path = Path(path)
+        for i, rec in enumerate(self.reconstructions):
+            out = path / str(i)
+            out.mkdir(parents=True, exist_ok=True)
+            rec.write_binary(out)
+
+
+def _iterative_local_refinement(mapper, options, image_id):
+    """Repeated local BA until relative change small (upstream
+    IterativeLocalRefinement; ref: sfm.h ba_local_max_refinements)."""
+    ba = options.get_local_ba()
+    for _ in range(options.ba_local_max_refinements):
+        summary = mapper.adjust_local_bundle(
+            options.get_mapper(), ba, options.triangulation, image_id
+        )
+        if summary is None:
+            break
+        mapper.triangulator.complete_image(image_id)
+        mapper.triangulator.clear_cache()
+        if summary.initial_cost <= 0:
+            break
+        change = abs(summary.final_cost - summary.initial_cost) / max(
+            summary.initial_cost, 1e-12
+        )
+        if change < options.ba_local_max_refinement_change:
+            break
+
+
+def _iterative_global_refinement(mapper, options):
+    """Retriangulate + global BA rounds (upstream IterativeGlobalRefinement)."""
+    mapper.triangulator.clear_cache()
+    mapper.triangulator.complete_tracks()
+    mapper.triangulator.merge_tracks()
+    mapper.triangulator.retriangulate()
+    for _ in range(options.ba_global_max_refinements):
+        summary = mapper.adjust_global_bundle(
+            options.get_mapper(), options.get_global_ba()
+        )
+        if summary is None:
+            break
+        mapper.triangulator.clear_cache()
+        mapper.triangulator.complete_tracks()
+        mapper.triangulator.merge_tracks()
+        mapper.filter_points(options.get_mapper())
+        if summary.initial_cost <= 0:
+            break
+        change = abs(summary.final_cost - summary.initial_cost) / max(
+            summary.initial_cost, 1e-12
+        )
+        if change < options.ba_global_max_refinement_change:
+            break
+    mapper.filter_images(options.get_mapper())
+
+
+def _extract_colors(rec, image_path):
+    """Mean track color from source images (ref: reconstruction.h:361-382).
+
+    Vectorized per image: one fancy-indexed color fetch + one segment sum
+    over point ids."""
+    from pycolmap_torch.pipeline.images import read_image_rgb
+    from pycolmap_torch.scene.point2d import INVALID_POINT3D_ID
+
+    image_path = Path(image_path)
+    pids_all = np.fromiter(rec.points3D.keys(), dtype=np.int64)
+    if len(pids_all) == 0:
+        return
+    row_of = {int(p): k for k, p in enumerate(pids_all)}
+    sums = np.zeros((len(pids_all), 3), np.float64)
+    counts = np.zeros(len(pids_all), np.int64)
+    for iid in rec.reg_image_ids:
+        img = rec.images[iid]
+        f = image_path / img.name
+        if not f.exists():
+            continue
+        try:
+            arr = read_image_rgb(f)
+        except (OSError, ValueError):  # unreadable: no colors from it
+            continue
+        h, w = arr.shape[:2]
+        p3d = img.points2D_point3D_ids
+        valid = p3d != np.uint64(INVALID_POINT3D_ID)
+        if not valid.any():
+            continue
+        obs_pid = p3d[valid].astype(np.int64)
+        rows = np.fromiter(
+            (row_of.get(int(p), -1) for p in obs_pid), dtype=np.int64,
+            count=len(obs_pid),
+        )
+        xy = np.rint(img.points2D_xy[valid]).astype(np.int64)
+        ok = (
+            (rows >= 0)
+            & (xy[:, 0] >= 0) & (xy[:, 0] < w)
+            & (xy[:, 1] >= 0) & (xy[:, 1] < h)
+        )
+        rows = rows[ok]
+        xy = xy[ok]
+        colors = arr[xy[:, 1], xy[:, 0]].astype(np.float64)
+        np.add.at(sums, rows, colors)
+        np.add.at(counts, rows, 1)
+    got = counts > 0
+    mean = np.zeros_like(sums)
+    mean[got] = sums[got] / counts[got, None]
+    mean = np.clip(mean, 0, 255).astype(np.uint8)
+    for k in np.nonzero(got)[0]:
+        rec.points3D[int(pids_all[k])].color = mean[k]
+
+
+@contextmanager
+def _timed(timings, key):
+    """Adds the block's wall seconds to ``timings[key]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        timings[key] += time.perf_counter() - t0
+
+
+def _reconstruct_model(mapper, cache, options, split, initial_callback=None,
+                       next_callback=None):
+    """Grow one model; returns (kept, init_ok). `split`: wall seconds per
+    stage, added to."""
+    log = _logging.get_logger()
+    mopts = options.get_mapper()
+    rec = mapper.reconstruction
+
+    if rec.num_reg_images == 0:
+        init1, init2 = options.init_image_id1, options.init_image_id2
+        success = False
+        with _timed(split, "initial_pair"):
+            for _ in range(options.init_num_trials):
+                if init1 < 0 or init2 < 0:
+                    id1, id2 = mapper.find_initial_image_pair(mopts)
+                else:
+                    id1, id2 = init1, init2
+                if id1 is None:
+                    break
+                if mapper.register_initial_image_pair(mopts, id1, id2):
+                    success = True
+                    break
+                if init1 >= 0 and init2 >= 0:
+                    break
+        if not success:
+            return False, False  # (kept, init_ok): no init pair left
+        log.info(
+            f"Initialized with image pair, {rec.num_points3D} seed points"
+        )
+        if initial_callback:
+            initial_callback()
+        with _timed(split, "global_ba"):
+            _iterative_global_refinement(mapper, options)
+
+    num_global_images = max(rec.num_reg_images, 2)
+    num_global_points = max(rec.num_points3D, 1)
+
+    while True:
+        with _timed(split, "register"):
+            candidates = mapper.find_next_images(mopts)
+        if not candidates:
+            break
+        registered_any = False
+        for image_id in candidates[:5]:
+            with _timed(split, "register"):
+                registered = mapper.register_next_image(mopts, image_id)
+            if registered:
+                registered_any = True
+                with _timed(split, "triangulate"):
+                    mapper.triangulator.clear_cache()
+                    mapper.triangulate_image(options.triangulation, image_id)
+                with _timed(split, "local_ba"):
+                    _iterative_local_refinement(mapper, options, image_id)
+                if next_callback:
+                    next_callback()
+                log.info(
+                    f"Registered image #{image_id} "
+                    f"({rec.num_reg_images} images, {rec.num_points3D} points)"
+                )
+                # growth-gated global refinement (ref: sfm.h:194-208)
+                if (
+                    rec.num_reg_images
+                    >= options.ba_global_images_ratio * num_global_images
+                    or rec.num_points3D
+                    >= options.ba_global_points_ratio * num_global_points
+                    or rec.num_reg_images
+                    >= num_global_images + options.ba_global_images_freq
+                    or rec.num_points3D
+                    >= num_global_points + options.ba_global_points_freq
+                ):
+                    with _timed(split, "global_ba"):
+                        _iterative_global_refinement(mapper, options)
+                    num_global_images = max(rec.num_reg_images, 2)
+                    num_global_points = max(rec.num_points3D, 1)
+                break
+        if not registered_any:
+            break
+
+    with _timed(split, "global_ba"):
+        _iterative_global_refinement(mapper, options)
+
+    # drift-fold recovery: when the verified pair graph still disagrees with
+    # the mapped poses (folded loop), relax the pose graph and re-refine; at
+    # most 2 rounds, no-op when healthy
+    if options.pose_graph_relaxation:
+        pair_pose = getattr(cache, "pair_pose", None) or {}
+        if pair_pose:
+            for _ in range(2):
+                with _timed(split, "pose_graph"):
+                    relaxed = relax_pose_graph(
+                        rec, pair_pose,
+                        min_residual_deg=options.pose_graph_min_residual_deg,
+                        device=mapper.device,
+                    )
+                if not relaxed:
+                    break
+                with _timed(split, "global_ba"):
+                    _iterative_global_refinement(mapper, options)
+    return rec.num_reg_images >= 2, True
+
+
+def incremental_mapping(
+    database_path,
+    image_path,
+    output_path,
+    options: IncrementalPipelineOptions = None,
+    input_path: str = "",
+    initial_image_pair_callback=None,
+    next_image_callback=None,
+    device=None,
+    cg_bf16=None,
+    timings: dict = None,
+):
+    """Full incremental SfM (ref: pipeline/sfm.h:46-93).
+
+    Returns dict {index: Reconstruction}; also writes models under
+    output_path/<index>/ like the reference. The estimators, triangulation
+    and bundle adjustment run on ``device`` (None = the card); ``cg_bf16``
+    selects the BA's CG matvec (None = the device's default). Given a
+    ``timings`` dict, fills in wall seconds per stage (load, initial_pair,
+    register, triangulate, local_ba, global_ba, pose_graph, extract_colors,
+    write), the mapper's own split of its methods (``register_pnp``,
+    ``local_ba_solve``, ``global_ba_solve``, ...) and its BA counters
+    (``ba_solves``, ``ba_lm_steps``, ``ba_cg_iterations``,
+    ``ba_cache_hits``, ``ba_cache_misses``).
+    """
+    device = resolve_device(device)
+    if options is None:
+        options = IncrementalPipelineOptions()
+    log = _logging.get_logger()
+    output_path = Path(output_path)
+    output_path.mkdir(parents=True, exist_ok=True)
+    split = defaultdict(float)
+
+    with _timed(split, "load"):
+        cache = DatabaseCache.load(
+            database_path,
+            min_num_matches=options.min_num_matches,
+            ignore_watermarks=options.ignore_watermarks,
+            image_names=options.image_names or None,
+        )
+    log.info(
+        f"Loaded database: {cache.num_images} images, "
+        f"{cache.correspondence_graph.num_image_pairs} verified pairs"
+    )
+
+    manager = ReconstructionManager()
+    if input_path:
+        idx = manager.add()
+        manager.get(idx).read(input_path)
+
+    mapper = IncrementalMapper(cache, device=device, cg_bf16=cg_bf16)
+
+    initial_models = len(manager)
+    max_models = options.max_num_models if options.multiple_models else 1
+    processed_initial = False
+    while True:
+        if initial_models and not processed_initial:
+            idx = 0  # resume the model read from input_path exactly once
+            processed_initial = True
+        elif len(manager) < max_models + initial_models:
+            idx = manager.add()
+        else:
+            break
+        rec = manager.get(idx)
+        cache.setup_reconstruction(rec)
+        mapper.begin_reconstruction(rec, options.triangulation)
+
+        num_snapshot_state = {"count": 0, "last": 0}
+
+        def _snapshot_cb():
+            if next_image_callback:
+                next_image_callback()
+            if options.snapshot_path and options.snapshot_images_freq > 0:
+                n = rec.num_reg_images
+                if n - num_snapshot_state["last"] >= options.snapshot_images_freq:
+                    num_snapshot_state["last"] = n
+                    snap = (
+                        Path(options.snapshot_path)
+                        / f"{num_snapshot_state['count']:06d}"
+                    )
+                    snap.mkdir(parents=True, exist_ok=True)
+                    rec.write_binary(snap)
+                    num_snapshot_state["count"] += 1
+
+        kept, init_ok = _reconstruct_model(
+            mapper, cache, options, split,
+            initial_callback=initial_image_pair_callback,
+            next_callback=_snapshot_cb,
+        )
+        total_reg = rec.num_reg_images
+        mapper.end_reconstruction(discard=not kept)
+        if not kept or total_reg < options.min_model_size:
+            if len(manager) > 1 or not kept:
+                manager.delete(idx)
+            if not init_ok:
+                break  # no initialization pair left anywhere — done
+            # init succeeded but the model collapsed (e.g. a degenerate
+            # short-baseline seed whose focal ran away and was culled by
+            # filter_images, ref has_bogus_params) — try the NEXT init
+            # pair; find_initial_image_pair never repeats pairs, so this
+            # terminates
+            continue
+        # stop if most images registered
+        reg_total = {
+            i for r in manager.reconstructions for i in r.reg_image_ids
+        }
+        if len(reg_total) >= cache.num_images - 2:
+            break
+        if not options.multiple_models:
+            break
+
+    if options.extract_colors:
+        with _timed(split, "extract_colors"):
+            for rec in manager.reconstructions:
+                _extract_colors(rec, image_path)
+
+    with _timed(split, "write"):
+        manager.write(output_path)
+    if timings is not None:
+        ba = mapper.resident_ba
+        timings.update(split)
+        timings.update(mapper.timings)
+        timings.update(ba_solves=ba.solves, ba_lm_steps=ba.lm_steps,
+                       ba_cg_iterations=ba.cg_iterations,
+                       ba_cache_hits=ba.hits, ba_cache_misses=ba.misses)
+    return {i: manager.get(i) for i in range(len(manager))}
 
 
 def bundle_adjustment(reconstruction, options: BundleAdjustmentOptions = None,

@@ -9,11 +9,10 @@ scenes (SURVEY.md §2c P5).
 
 Node addressing: node = image_base[image_id] + point2D_idx.
 
-Port of ``pycolmap_tpu/scene/correspondence_graph.py``. The reference
-traverses the graph in native C++ when its library builds (``native/``);
-the port takes the reference's Python traversal, which the reference names
-its reference behaviour. The native traversal is on the port's roadmap with
-the mapping slice.
+Port of ``pycolmap_tpu/scene/correspondence_graph.py``. As in the
+reference, the transitive traversal runs in native C++ when the port's
+library builds (``pycolmap_torch/native``), and otherwise in the Python loop
+that the reference names its reference behaviour.
 """
 
 from __future__ import annotations
@@ -172,11 +171,35 @@ class CorrespondenceGraph:
         nodes = self._adj[self._indptr[n] : self._indptr[n + 1]]
         return self._node_image[nodes], self._node_idx[nodes]
 
+    def _get_traversal(self):
+        """Lazily build the native (C++) traversal over the CSR arrays;
+        None when the library is unavailable."""
+        if getattr(self, "_traversal", None) is None:
+            from pycolmap_torch.native import GraphTraversal, get_lib
+
+            if get_lib() is not None:
+                self._traversal = GraphTraversal(self._indptr, self._adj)
+            else:
+                self._traversal = False  # toolchain unavailable
+        return self._traversal or None
+
     def find_transitive_correspondences(
         self, image_id: int, point2D_idx: int, transitivity: int
     ):
-        """BFS up to `transitivity` hops (ref: correspondence_graph.h:76-77)."""
+        """BFS up to `transitivity` hops (ref: correspondence_graph.h:76-77).
+
+        Uses the native C++ traversal (pycolmap_torch/native) when
+        available; the Python loop below is the fallback and reference
+        behaviour.
+        """
         start = self._node(image_id, point2D_idx)
+        trav = self._get_traversal()
+        if trav is not None:
+            nodes = trav.bfs_transitive(start, transitivity)
+            return [
+                Correspondence(self._node_image[k], self._node_idx[k])
+                for k in nodes
+            ]
         seen = {start}
         frontier = [start]
         out = []

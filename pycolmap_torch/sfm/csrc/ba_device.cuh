@@ -60,6 +60,11 @@ __device__ __forceinline__ Dual sqrt_(Dual x) {
 __device__ __forceinline__ float atan_(float x) { return atanf(x); }
 __device__ __forceinline__ Dual atan_(Dual x) { return {atanf(x.v), x.d / (1.f + x.v * x.v)}; }
 __device__ __forceinline__ float tan_(float x) { return tanf(x); }
+// double: the residual's value path (project64)
+__device__ __forceinline__ double val(double x) { return x; }
+__device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
+__device__ __forceinline__ double atan_(double x) { return atan(x); }
+__device__ __forceinline__ double tan_(double x) { return tan(x); }
 __device__ __forceinline__ Dual tan_(Dual x) {
   float t = tanf(x.v);
   return {t, x.d * (1.f + t * t)};
@@ -207,27 +212,50 @@ __device__ __forceinline__ void quat_rotate(const float q[4], float X0, float X1
   oz = X2 + w * tz + (x * ty - y * tx);
 }
 
-// ops/ba_math.py project_cf followed by ba_kernels._residual_vals: the
-// masked residual at the given parameters (u = x / z, as the reference).
+// ops/ba_math.py project_cf in double on the f32 parameters: the rotated
+// point vr = R X, the camera-frame depth cz, u = x / z, v = y / z (as the
+// reference) and the pixel (px, py). The residual is formed from these and
+// rounded once: at a converged model it is a fraction of a pixel taken
+// between projections of a few hundred pixels, and R X + t cancels terms of
+// the scene's size, so f32 arithmetic there loses ~1e-4 px (the f32 plain
+// version as much). The Jacobian stays f32, from these values rounded.
+template <int M>
+__device__ __forceinline__ void project64(const float* k, const float q[4], const float t[3],
+                                          float X0, float X1, float X2, double vr[3],
+                                          double& cz, double& u, double& v, double& px,
+                                          double& py) {
+  using Mi = Model<M>;
+  const double w = q[0], x = q[1], y = q[2], z = q[3];
+  const double tx = 2.0 * (y * X2 - z * X1);
+  const double ty = 2.0 * (z * X0 - x * X2);
+  const double tz = 2.0 * (x * X1 - y * X0);
+  vr[0] = X0 + w * tx + (y * tz - z * ty);
+  vr[1] = X1 + w * ty + (z * tx - x * tz);
+  vr[2] = X2 + w * tz + (x * ty - y * tx);
+  const double cx = vr[0] + t[0], cy = vr[1] + t[1];
+  cz = vr[2] + t[2];
+  const double z_safe = fabs(cz) < 1e-8 ? 1e-8 : cz;
+  u = cx / z_safe;
+  v = cy / z_safe;
+  double kd[Mi::NP];
+#pragma unroll
+  for (int j = 0; j < Mi::NP; ++j) kd[j] = k[j];
+  double du, dv;
+  distort<M, double>(kd, u, v, du, dv);
+  px = kd[0] * du + kd[Mi::cx];
+  py = kd[Mi::fy] * dv + kd[Mi::cy];
+}
+
+// ba_kernels._residual_vals: the masked residual at the given parameters.
 template <int M>
 __device__ __forceinline__ void residual(const float* k, const float q[4], const float t[3],
                                          float X0, float X1, float X2, float x0, float x1,
                                          float mask, float& rx, float& ry) {
-  using Mi = Model<M>;
-  float cx, cy, cz;
-  quat_rotate(q, X0, X1, X2, cx, cy, cz);
-  cx += t[0];
-  cy += t[1];
-  cz += t[2];
-  float z_safe = fabsf(cz) < 1e-8f ? 1e-8f : cz;
-  float u = cx / z_safe, v = cy / z_safe;
-  float du, dv;
-  distort<M, float>(k, u, v, du, dv);
-  float px = k[0] * du + k[Mi::cx];
-  float py = k[Mi::fy] * dv + k[Mi::cy];
-  bool behind = cz <= 1e-8f && mask > 0.f;
-  rx = behind ? 1e3f : (px - x0) * mask;
-  ry = behind ? 1e3f : (py - x1) * mask;
+  double vr[3], cz, u, v, px, py;
+  project64<M>(k, q, t, X0, X1, X2, vr, cz, u, v, px, py);
+  const bool behind = cz <= 1e-8 && mask > 0.f;
+  rx = behind ? 1e3f : (float)(px - x0) * mask;
+  ry = behind ? 1e3f : (float)(py - x1) * mask;
 }
 
 // ba_kernels._bucket_res_and_jac for one observation of model M in a solver
@@ -242,11 +270,11 @@ __device__ __forceinline__ void jac_obs(const float* k, const float* fr, const f
                                         float& ry, float* c0, float* c1) {
   using Mi = Model<M>;
   constexpr int NP = Mi::NP;
-  float vx, vy, vz;
-  quat_rotate(q, X0, X1, X2, vx, vy, vz);
-  const float cx = vx + tt[0], cy = vy + tt[1], cz = vz + tt[2];
-  const float inv_z = 1.f / (fabsf(cz) < 1e-8f ? 1e-8f : cz);
-  const float u = cx * inv_z, v = cy * inv_z;
+  double vr[3], czd, ud, vd, pxd, pyd;
+  project64<M>(k, q, tt, X0, X1, X2, vr, czd, ud, vd, pxd, pyd);
+  const float vx = (float)vr[0], vy = (float)vr[1], vz = (float)vr[2];
+  const float inv_z = (float)(1.0 / (fabs(czd) < 1e-8 ? 1e-8 : czd));
+  const float u = (float)ud, v = (float)vd;
 
   Dual kd[NP];
 #pragma unroll
@@ -256,12 +284,10 @@ __device__ __forceinline__ void jac_obs(const float* k, const float* fr, const f
   distort<M, Dual>(kd, mk(u), mk(v, 1.f), du_v, dv_v);
   const float du = du_u.v, dv = dv_u.v;
   const float fx = k[0], fy = k[Mi::fy];
-  const float px = fx * du + k[Mi::cx];
-  const float py = fy * dv + k[Mi::cy];
 
-  const bool behind = cz <= 1e-8f && m > 0.f;
-  rx = behind ? 1e3f : (px - x0) * m;
-  ry = behind ? 1e3f : (py - x1) * m;
+  const bool behind = czd <= 1e-8 && m > 0.f;
+  rx = behind ? 1e3f : (float)(pxd - x0) * m;
+  ry = behind ? 1e3f : (float)(pyd - x1) * m;
   // column weight: mask, and zero where the constant 1e3 residual replaced
   // the projection
   const float wgt = m * (behind ? 0.f : 1.f);

@@ -624,8 +624,9 @@ prepare_kernel(const __grid_constant__ TileTable tab, const float* __restrict__ 
   extern __shared__ __align__(128) unsigned char tile_smem[];
   const int tid = threadIdx.x, warp = tid >> 5;
   const int n_img = I * kImgRows, n_acc = n_img + C * NC;
-  float* ybuf = reinterpret_cast<float*>(tile_smem + kTileStages * kStage);  // [G, tile_p, 9]
-  float* acc = ybuf + NT * 9;  // kFixed: [n_acc]
+  // [G, tile_p, 12]: V's 6 floats, then g_pt's 3 doubles
+  float* ybuf = reinterpret_cast<float*>(tile_smem + kTileStages * kStage);
+  float* acc = ybuf + NT * 12;  // kFixed: [n_acc]
   float* aimg = kFixed ? acc : acc_img;
   float* acam = kFixed ? acc + n_img : acc_cam;
   if (kFixed)
@@ -667,7 +668,12 @@ prepare_kernel(const __grid_constant__ TileTable tab, const float* __restrict__ 
     const float* c1 = c0 + ry;          // residual y
 
     // --- pass 1: V = J_p^T J_p and g_pt = J_p^T r over the track ----------
-    float V[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, gp[3] = {0.f, 0.f, 0.f};
+    // g_pt sums in double (the products of two floats are exact there): at
+    // a converged model it is the near-zero sum of terms J r of hundreds,
+    // where f32 sums lose ~1e-4 (the f32 plain version as much); it is
+    // rounded once, to the f32 it is written as
+    float V[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, gp[3];
+    double gd[3] = {0.0, 0.0, 0.0};
     if (mine) {
       float jp0[3], jp1[3];
 #pragma unroll
@@ -683,27 +689,37 @@ prepare_kernel(const __grid_constant__ TileTable tab, const float* __restrict__ 
       V[4] = jp0[1] * jp0[2] + jp1[1] * jp1[2];
       V[5] = jp0[2] * jp0[2] + jp1[2] * jp1[2];
 #pragma unroll
-      for (int a = 0; a < 3; ++a) gp[a] = jp0[a] * r0 + jp1[a] * r1;
+      for (int a = 0; a < 3; ++a) gd[a] = (double)jp0[a] * r0 + (double)jp1[a] * r1;
     }
     if (G > 1) {  // the column's slots' sums, added in slot order
 #pragma unroll
-      for (int k = 0; k < 6; ++k) ybuf[tid * 9 + k] = V[k];
+      for (int k = 0; k < 6; ++k) ybuf[tid * 12 + k] = V[k];
+      double* yd = reinterpret_cast<double*>(ybuf + tid * 12 + 6);
 #pragma unroll
-      for (int a = 0; a < 3; ++a) ybuf[tid * 9 + 6 + a] = gp[a];
+      for (int a = 0; a < 3; ++a) yd[a] = gd[a];
       __syncthreads();
-      float v[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      float v[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      double w[3] = {0.0, 0.0, 0.0};
       for (int h = 0; h < min(G, T); ++h) {  // independent loads, then adds
-        float q[9];
+        const float* yh = ybuf + ((h << lg) + p) * 12;
+        float q[6];
 #pragma unroll
-        for (int k = 0; k < 9; ++k) q[k] = ybuf[((h << lg) + p) * 9 + k];
+        for (int k = 0; k < 6; ++k) q[k] = yh[k];
+        const double* qd = reinterpret_cast<const double*>(yh + 6);
+        const double q6 = qd[0], q7 = qd[1], q8 = qd[2];
 #pragma unroll
-        for (int k = 0; k < 9; ++k) v[k] += q[k];
+        for (int k = 0; k < 6; ++k) v[k] += q[k];
+        w[0] += q6;
+        w[1] += q7;
+        w[2] += q8;
       }
 #pragma unroll
       for (int k = 0; k < 6; ++k) V[k] = v[k];
 #pragma unroll
-      for (int a = 0; a < 3; ++a) gp[a] = v[6 + a];
+      for (int a = 0; a < 3; ++a) gd[a] = w[a];
     }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) gp[a] = (float)gd[a];
     // the damped block and its closed-form inverse; every thread of the
     // column computes the same values
     V[0] += lam * fmaxf(V[0], 1e-6f);
@@ -833,7 +849,8 @@ static const void* tile_kernel_of(int sums) {
 }
 
 // A block's dynamic shared memory in mode `sums`: the stages, the groups'
-// per-thread sums (3 floats for a matvec, 9 for prepare) and the
+// per-thread sums (3 floats for a matvec; 6 floats and 3 doubles, 12
+// floats' room, for prepare) and the
 // accumulators (the matvecs' fixed order also holds x).
 template <int KIND, int NP>
 static size_t tile_smem_bytes(int I, int C, int sums) {
@@ -844,7 +861,7 @@ static size_t tile_smem_bytes(int I, int C, int sums) {
   const size_t acc_floats = sums == kSumsFixed   ? (prep ? 1 : nt / 32 + 1) * n_acc
                             : sums == kSumsBlock ? n_acc
                                                  : 0;
-  return kTileStages * tile_stage_bytes(KIND, 9 + NP) + (size_t)nt * (prep ? 9 : 3) * 4 +
+  return kTileStages * tile_stage_bytes(KIND, 9 + NP) + (size_t)nt * (prep ? 12 : 3) * 4 +
          acc_floats * 4;
 }
 

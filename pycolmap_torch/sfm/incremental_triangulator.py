@@ -11,9 +11,10 @@ Port of ``pycolmap_tpu/sfm/incremental_triangulator.py``. The batch runs in
 PyTorch on the triangulator's device (the card unless ``device="cpu"``); the
 bookkeeping around it is the reference's host numpy. The reference pads the
 batch to 4x steps and caches its executable to bound TPU compiles; here the
-batch has the candidates' own size. Track completion and merging take the
-reference's numpy candidate expansion (its native C++ expansion is on the
-roadmap with the mapping slice).
+batch has the candidates' own size. As in the reference, track completion
+and merging expand their candidates in native C++ when the port's library
+builds (``pycolmap_torch/native``), and otherwise in numpy
+(:func:`complete_candidates_numpy`, :func:`merge_pairs_numpy`).
 """
 
 from __future__ import annotations
@@ -96,6 +97,49 @@ def _triangulate_batch(proj, x_norm, centers, view_mask, max_angle_err_rad,
 
     ok = (torch.sum(inlier, dim=-1) >= 2) & (max_ang >= min_tri_angle_rad)
     return X, inlier, ok
+
+
+def _edge_targets(indptr, adj, src_nodes):
+    """(row, target) of every edge of the source nodes, in source then edge
+    order; row indexes src_nodes."""
+    starts = indptr[src_nodes]
+    lens = indptr[src_nodes + 1] - starts
+    total = int(lens.sum())
+    row = np.repeat(np.arange(len(src_nodes)), lens)
+    base = np.repeat(starts - (np.cumsum(lens) - lens), lens)
+    return row, adj[np.arange(total) + base]
+
+
+def complete_candidates_numpy(indptr, adj, node_image, flat_pid, reg_flag,
+                              src_nodes):
+    """Track-completion candidates, numpy twin of graph_ops.cc
+    ``expand_complete_candidates``: (target nodes, source pids) for every
+    edge of the source nodes whose target keypoint is unlinked and whose
+    image is registered, one per target (the first in edge order), sorted
+    by target."""
+    row, tgt = _edge_targets(indptr, adj, src_nodes)
+    cand_pid = flat_pid[src_nodes][row]
+    ok = (flat_pid[tgt] < 0) & (reg_flag[node_image[tgt]] != 0)
+    tgt, cand_pid = tgt[ok], cand_pid[ok]
+    if len(tgt) == 0:
+        return tgt, cand_pid
+    order = np.argsort(tgt, kind="stable")
+    tgt, cand_pid = tgt[order], cand_pid[order]
+    firsts = np.diff(tgt, prepend=tgt[0] - 1) != 0
+    return tgt[firsts], cand_pid[firsts]
+
+
+def merge_pairs_numpy(indptr, adj, flat_pid, src_nodes):
+    """Merge candidates, numpy twin of graph_ops.cc ``expand_merge_pairs``:
+    the sorted unique packed (min_pid << 32 | max_pid) codes of the source
+    nodes' edges joining two different points."""
+    row, tgt = _edge_targets(indptr, adj, src_nodes)
+    spid = flat_pid[src_nodes][row]
+    tpid = flat_pid[tgt]
+    ok = (tpid >= 0) & (tpid != spid)
+    a = np.minimum(spid[ok], tpid[ok])
+    b = np.maximum(spid[ok], tpid[ok])
+    return np.unique(a << np.int64(32) | b)
 
 
 class IncrementalTriangulator:
@@ -410,25 +454,12 @@ class IncrementalTriangulator:
         self._update_len_memo(self._merge_len, sel_set)
         if len(src_nodes) == 0:
             return []
-        indptr, adj = lix.indptr, lix.adj
-        starts = indptr[src_nodes]
-        lens = indptr[src_nodes + 1] - starts
-        nz = lens > 0
-        src_nodes, starts, lens = src_nodes[nz], starts[nz], lens[nz]
-        total = int(lens.sum())
-        if total == 0:
-            return []
-        row = np.repeat(np.arange(len(src_nodes)), lens)
-        base = np.repeat(starts - (np.cumsum(lens) - lens), lens)
-        tgt = adj[np.arange(total) + base]
-        spid = flat_pid[src_nodes][row]
-        tpid = flat_pid[tgt]
-        ok = (tpid >= 0) & (tpid != spid)
-        if not ok.any():
-            return []
-        a = np.minimum(spid[ok], tpid[ok])
-        b = np.maximum(spid[ok], tpid[ok])
-        codes = np.unique(a << np.int64(32) | b)
+        trav = self.graph._get_traversal()
+        if trav is not None:
+            codes = trav.expand_merge_pairs(flat_pid, src_nodes)
+        else:
+            codes = merge_pairs_numpy(lix.indptr, lix.adj, flat_pid,
+                                      src_nodes)
         if len(codes) == 0:
             return []
         pairs = []
@@ -547,26 +578,18 @@ class IncrementalTriangulator:
             self._update_len_memo(self._completed_len, sel_set)
             if len(src_nodes) == 0:
                 break
-            starts = indptr[src_nodes]
-            lens = indptr[src_nodes + 1] - starts
-            nz = lens > 0
-            src_nodes, starts, lens = src_nodes[nz], starts[nz], lens[nz]
-            total = int(lens.sum())
-            if total == 0:
-                break
-            row = np.repeat(np.arange(len(src_nodes)), lens)
-            base = np.repeat(starts - (np.cumsum(lens) - lens), lens)
-            tgt = adj[np.arange(total) + base]
-            cand_pid = flat_pid[src_nodes][row]
-            ok = (flat_pid[tgt] < 0) & reg_flag[node_image[tgt]]
-            tgt, cand_pid = tgt[ok], cand_pid[ok]
+            trav = self.graph._get_traversal()
+            if trav is not None:
+                # native single-pass expansion + dedup (graph_ops.cc)
+                tgt, cand_pid = trav.expand_complete_candidates(
+                    node_image, flat_pid, reg_flag, src_nodes
+                )
+            else:
+                tgt, cand_pid = complete_candidates_numpy(
+                    indptr, adj, node_image, flat_pid, reg_flag, src_nodes
+                )
             if len(tgt) == 0:
                 break
-            # one candidate pid per target keypoint (first in edge order)
-            order = np.argsort(tgt, kind="stable")
-            tgt, cand_pid = tgt[order], cand_pid[order]
-            firsts = np.diff(tgt, prepend=tgt[0] - 1) != 0
-            tgt, cand_pid = tgt[firsts], cand_pid[firsts]
             # point positions
             pid_table, xyz_table = rec._point_table()
             if len(pid_table) == 0:

@@ -4,12 +4,15 @@ Port of ``pycolmap_tpu/sfm/resident.py`` (``ResidentBundleSolver``). The
 bucket structure AND the parameters stay on the device between solves:
 each ``solve()`` runs the LM loop on the resident tensors and reads back
 only its summary scalars; ``fetch_problem()`` downloads the parameters and
-writes the bucketed points back to their flat rows. The reference's
-``MapperResidentBA`` (the mapper's cache of such solvers) is not ported yet
-(ROADMAP.md).
+writes the bucketed points back to their flat rows. ``MapperResidentBA``
+is the incremental mapper's cache of such solvers, keyed by a hash of the
+whole problem: a refinement round that re-solves an unchanged problem
+reuses the resident solver instead of rebuilding it.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -118,3 +121,85 @@ class ResidentBundleSolver:
             intrinsics=self._intr.cpu(),
             points=torch.from_numpy(points),
         )
+
+
+def _problem_fingerprint(problem: BundleProblem) -> bytes:
+    """Hash of EVERYTHING (structure AND parameters): two problems with
+    equal fingerprints are the same solve input bit-for-bit."""
+    h = hashlib.blake2b(digest_size=16)
+    for a in (
+        problem.obs_point_idx, problem.obs_image_idx, problem.obs_camera_idx,
+        problem.obs_xy, problem.obs_mask, problem.point_free,
+        problem.pose_free, problem.intr_free, problem.cam_quat,
+        problem.cam_trans, problem.intrinsics, problem.points,
+    ):
+        a = np.ascontiguousarray(bk._np(a))
+        h.update(str((a.shape, a.dtype.str)).encode())
+        h.update(a.tobytes())
+    h.update(str(problem.model_id).encode())
+    return h.digest()
+
+
+class MapperResidentBA:
+    """Structure-keyed resident-solver cache for the mapper's refinement
+    loops (port of the reference's ``MapperResidentBA``).
+
+    The mapper's iterative local/global refinement re-solves the same
+    observation graph whenever the intervening completion/merge/filter
+    round changed nothing. `solve()` fingerprints the problem (structure
+    AND parameters); on a hit the cached solver's device state IS the
+    requested input (the previous fetch round-trips bit-exactly through
+    float64 scene objects: ``fetch_problem`` returns float32 host tensors,
+    and the next ``build_bundle_problem`` rounds the scene back to the
+    same float32 values), so the solve runs on the resident tensors: no
+    rebuild, no upload. On a miss it builds a fresh resident solver and
+    caches it.
+
+    device / cg_bf16: as :class:`ResidentBundleSolver`. The counters
+    ``hits``, ``misses``, ``solves``, ``lm_steps`` and ``cg_iterations``
+    add up over the cache's solves (an LM step is one prepare and one
+    finish launch, a CG iteration one matvec launch).
+    """
+
+    def __init__(self, max_entries: int = 3, device=None, cg_bf16=None):
+        self.device = resolve_device(device)
+        self.cg_bf16 = cg_bf16
+        self._entries = {}  # fingerprint -> ResidentBundleSolver
+        self._max = max_entries
+        self.hits = 0
+        self.misses = 0
+        self.solves = 0
+        self.lm_steps = 0
+        self.cg_iterations = 0
+
+    def solve(self, problem: BundleProblem, options, cg_iters: int = 30):
+        """Same contract as solve_bundle: (new_problem, summary)."""
+        if problem.num_obs == 0 or float(bk._np(problem.obs_mask).sum()) == 0:
+            return problem, BASummary(0.0, 0.0, 0, 0)
+        key = _problem_fingerprint(problem)
+        solver = self._entries.pop(key, None)
+        if solver is None:
+            self.misses += 1
+            # only an empty problem is passed over: a kernel launch that
+            # fails raises from solve() below
+            try:
+                solver = ResidentBundleSolver(
+                    problem, options, cg_iters=cg_iters, device=self.device,
+                    cg_bf16=self.cg_bf16,
+                )
+            except ValueError:
+                return problem, BASummary(0.0, 0.0, 0, 0)
+        else:
+            self.hits += 1
+            solver._options = options
+        summary = solver.solve()
+        self.solves += 1
+        self.lm_steps += solver.last_result.iterations
+        self.cg_iterations += solver.last_result.cg_iterations
+        new_problem = solver.fetch_problem()
+        # re-key under the POST-solve state so the next refinement round
+        # (which rebuilds from the scene we are about to write back) hits
+        if len(self._entries) >= self._max:
+            self._entries.pop(next(iter(self._entries)))
+        self._entries[_problem_fingerprint(new_problem)] = solver
+        return new_problem, summary

@@ -48,6 +48,9 @@ def test_the_port_is_scanned():
                 "estimators/essential_matrix.py",
                 "estimators/triangulation.py",
                 "estimators/absolute_pose.py", "utils/timer.py",
-                "scene/exporters.py", "convert.py"):
+                "scene/exporters.py", "convert.py",
+                "sfm/incremental_mapper.py", "sfm/pose_graph.py",
+                "sfm/resident.py", "native/__init__.py",
+                "pipeline/__init__.py"):
         assert f"pycolmap_torch/{mod}" in names
     assert len(FILES) > 20

@@ -6,6 +6,7 @@ replace) by PYCOLMAP_TPU_DENSE_SCHUR_MAX_D=0."""
 
 import numpy as np
 import pytest
+import torch
 
 from pycolmap_tpu.parallel.synthetic import make_synthetic_bundle as jsyn
 from pycolmap_tpu.sfm import ba_kernels as jbk
@@ -127,3 +128,106 @@ def test_cg_bf16_defaults_follow_the_device():
     assert tres.ResidentBundleSolver(tp, to, device="cpu").cg_bf16 is False
     assert tres.ResidentBundleSolver(tp, to, device="cpu",
                                      cg_bf16=True).cg_bf16 is True
+
+
+# --- MapperResidentBA: the mapper's cache of resident solvers -------------
+
+
+def _mapper_problem():
+    """tests/test_resident.py's problem and options (4 LM steps)."""
+    jp = jsyn(num_images=6, num_points=300, obs_per_point=4, pose_noise=0.03,
+              point_noise=0.05, refine_intrinsics=True, seed=3)
+    tp = convert.bundle_problem_from_numpy(
+        {k: np.asarray(v) for k, v in jp._asdict().items() if k != "model_id"},
+        jp.model_id,
+    )
+    jo = JOpt()
+    jo.max_num_iterations = 4
+    jo.print_summary = False
+    jo.devices = "none"
+    return jp, tp, jo, convert.ba_options_from_dict(jo.todict())
+
+
+def _round_trip(p):
+    """The problem as the mapper rebuilds it from float64 scene objects."""
+    return p._replace(
+        points=torch.from_numpy(np.asarray(p.points, np.float64)
+                                .astype(np.float32)),
+        cam_quat=torch.from_numpy(np.asarray(p.cam_quat, np.float64)
+                                  .astype(np.float32)),
+    )
+
+
+@pytest.fixture
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_mapper_resident_cache_hits(_one_thread):
+    """tests/test_resident.py test_mapper_resident_cache_hits on the port:
+    a re-solve of the fetched problem hits the cache and matches a fresh
+    solve_bundle chain within 1e-3; the reference's cache counts the same
+    hits and misses and lands on the same cost."""
+    from pycolmap_torch.sfm.bundle_adjustment import solve_bundle
+
+    jp, tp, jo, to = _mapper_problem()
+    cache = tres.MapperResidentBA(device="cpu")
+    p1, s1 = cache.solve(tp, to, cg_iters=15)
+    assert (cache.misses, cache.hits) == (1, 0)
+    p2, s2 = cache.solve(_round_trip(p1), to, cg_iters=15)
+    assert (cache.misses, cache.hits) == (1, 1)
+    assert (cache.solves, cache.lm_steps) == (2, s1.num_iterations
+                                              + s2.num_iterations)
+    assert cache.cg_iterations >= cache.lm_steps
+    ref1, _ = solve_bundle(tp, to, cg_iters=15, device="cpu")
+    _, s2_ref = solve_bundle(ref1, to, cg_iters=15, device="cpu")
+    assert s2.final_cost == pytest.approx(s2_ref.final_cost, rel=1e-3)
+
+    jcache = jres.MapperResidentBA()
+    jp1, js1 = jcache.solve(jp, jo, cg_iters=15)
+    jp1 = jp1._replace(
+        points=np.asarray(np.asarray(jp1.points, np.float64), np.float32),
+        cam_quat=np.asarray(np.asarray(jp1.cam_quat, np.float64), np.float32),
+    )
+    _, js2 = jcache.solve(jp1, jo, cg_iters=15)
+    assert (jcache.misses, jcache.hits) == (cache.misses, cache.hits)
+    assert s1.initial_cost == pytest.approx(js1.initial_cost, rel=1e-5)
+    assert s2.final_cost == pytest.approx(js2.final_cost, rel=1e-3)
+
+
+def test_mapper_resident_cache_miss_on_structure_change(_one_thread):
+    """tests/test_resident.py's structure-change case: dropping one
+    observation misses."""
+    _, tp, _, to = _mapper_problem()
+    to.max_num_iterations = 2
+    cache = tres.MapperResidentBA(device="cpu")
+    p1, _ = cache.solve(tp, to, cg_iters=10)
+    mask = p1.obs_mask.clone()
+    mask[0] = 0.0
+    cache.solve(p1._replace(obs_mask=mask), to, cg_iters=10)
+    assert (cache.misses, cache.hits) == (2, 0)
+    # an unchanged re-solve of the first problem's result still hits
+    cache.solve(p1, to, cg_iters=10)
+    assert cache.hits == 1
+
+
+def test_mapper_resident_cache_passes_over_only_empty_problems(
+        _one_thread, monkeypatch):
+    """An empty problem returns a zero summary without a solver; a
+    ValueError raised by a solve (a failed kernel launch raises so)
+    propagates."""
+    _, tp, _, to = _mapper_problem()
+    cache = tres.MapperResidentBA(device="cpu")
+    empty = tp._replace(obs_mask=torch.zeros_like(tp.obs_mask))
+    out, s = cache.solve(empty, to)
+    assert out is empty and s.num_iterations == 0 and cache.misses == 0
+
+    def fail(self, max_iterations=None):
+        raise ValueError("kernel operand must be a contiguous CUDA tensor")
+
+    monkeypatch.setattr(tres.ResidentBundleSolver, "solve", fail)
+    with pytest.raises(ValueError, match="kernel operand"):
+        cache.solve(tp, to)
