@@ -3,8 +3,9 @@
 the feature front end (SIFT extraction, descriptor matching), the
 known-pose entry points (global BA of a model, triangulation of a model
 with known poses), the dense pipeline (undistortion, PatchMatch stereo,
-stereo fusion), the gather probe, the geometric estimators and the
-incremental mapper.
+stereo fusion), the gather probe, the geometric estimators, the
+incremental mapper, and the way from image files to a model (import,
+extraction, the pair matchers with batched verification, mapping).
 
 Run from the repository root on a host with an H100 (or another sm_90a
 card) and the CUDA toolkit:
@@ -144,7 +145,24 @@ Phases (each raises on failure; the script then exits nonzero):
     call) and one local-window step, the global step's timed; the 8-image /
     300-point database on the card and on the CPU, both checked; the native
     graph library built from the checkout and the correspondence graph
-    traversing through it.
+    traversing through it;
+21. images to model at run_sift's size: 30 renderings of phase 14's two
+    planes at 960x1280 (``.ppm``, a SIMPLE_RADIAL camera) through
+    ``extract_features`` (default options) -> ``match_exhaustive``
+    (defaults, 435 pairs, verification in blocks of 16) ->
+    ``incremental_mapping`` with tests/test_full_pipeline.py's C2-gate
+    options, every launch count zeroed just before and read just after:
+    at least half the pairs verified, 28 of 30 registered, more than 1,000
+    points under 1.5 px, median rotation error under 0.5 degrees and
+    center error under 0.05 after a similarity alignment; the sampler twice
+    per octave and extract, top-2 twice per shape bucket, the BA kernels as
+    in phase 20, nothing else; seconds per stage, SIFT ms per image, match
+    and verification ms per pair, the verification block's peak memory,
+    registered img/s; then tests/test_full_pipeline.py's small flow (6
+    images at 512x384) on the card and on the CPU at that test's bounds,
+    and on the card ``match_sequential`` (overlap 2), ``match_spatial``
+    (true poses as priors) and guided exhaustive matching (no pair loses
+    inliers).
 
 The last lines are one JSON object describing every kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -155,6 +173,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -206,6 +225,13 @@ try:
     from pycolmap_torch import native
     from pycolmap_torch.ops import quaternion as qops
     from pycolmap_torch.sfm.database_cache import DatabaseCache
+    from pycolmap_torch.features import SiftExtractionOptions, SiftMatchingOptions
+    from pycolmap_torch.pipeline import (
+        SequentialMatchingOptions, SpatialMatchingOptions, extract_features,
+        infer_camera_from_image, match_exhaustive, match_sequential,
+        match_spatial,
+    )
+    from pycolmap_torch.pipeline import match_features as mf
 except ImportError as e:  # run outside the repository
     sys.exit(f"chip_smoke: the pycolmap_torch package is missing ({e})")
 
@@ -313,6 +339,10 @@ EST_REPS = 5
 # 0.4 px noise) and tests/test_incremental_mapping.py's (8 of 300)
 MAP_IMAGES, MAP_POINTS, MAP_NOISE = 30, 2000, 0.4
 MAP_PARITY_IMAGES, MAP_PARITY_POINTS = 8, 300
+# phase 21's scenes: render_dense_scene's two planes at run_sift's size
+# (30 images, 435 pairs), and tests/test_full_pipeline.py's small scene
+E2E_IMAGES = 30
+E2E_SMALL_IMAGES, E2E_SMALL_H, E2E_SMALL_W = 6, 384, 512
 
 
 def log(msg):
@@ -2972,24 +3002,27 @@ def mapping_options(min_model_size=6):
     return o
 
 
-def rotation_errors_deg(rec, gt):
-    """Each registered image's rotation error in degrees against the truth,
-    after the similarity (the port's Umeyama) that maps the model's
-    projection centers onto the true ones."""
+def pose_errors(rec, gt):
+    """Each registered image's rotation error in degrees and projection
+    center error against the truth, after the similarity (the port's
+    Umeyama, float64) that maps the model's projection centers onto the
+    true ones (the reference's ``compare_reconstructions(...,
+    "proj_center")``)."""
     truth = {img.name: img for img in gt.images.values()}
     imgs = [rec.images[i] for i in rec.reg_image_ids]
     R = np.stack([im.cam_from_world.rotation.matrix() for im in imgs])
     Rg = np.stack([truth[im.name].cam_from_world.rotation.matrix()
                    for im in imgs])
-    c = torch.from_numpy(np.stack([im.projection_center() for im in imgs]))
-    cg = torch.from_numpy(np.stack([truth[im.name].projection_center()
-                                    for im in imgs]))
-    _, q, _ = est_solvers.umeyama(c, cg)
+    c = np.stack([im.projection_center() for im in imgs])
+    cg = np.stack([truth[im.name].projection_center() for im in imgs])
+    scale, q, t = est_solvers.umeyama(torch.from_numpy(c),
+                                      torch.from_numpy(cg))
     Ra = qops.quat_to_matrix(q).numpy()
+    centers = np.linalg.norm(scale.item() * c @ Ra.T + t.numpy() - cg, axis=1)
     # the aligned model's cam_from_world rotation is R Ra^T
     D = np.swapaxes(Rg, 1, 2) @ R @ Ra.T
     cos = np.clip((np.trace(D, axis1=1, axis2=2) - 1.0) / 2.0, -1.0, 1.0)
-    return np.degrees(np.arccos(cos))
+    return np.degrees(np.arccos(cos)), centers
 
 
 def map_and_check(db, out, gt, opts, device, tag, min_reg):
@@ -3008,7 +3041,7 @@ def map_and_check(db, out, gt, opts, device, tag, min_reg):
         raise AssertionError(f"[{tag}] no model")
     rec = recs[0]
     err = rec.compute_mean_reprojection_error()
-    rot = float(np.median(rotation_errors_deg(rec, gt)))
+    rot = float(np.median(pose_errors(rec, gt)[0]))
     back = Reconstruction(out / "sparse" / "0")
     log(f"{tag}: {len(recs)} model(s), {rec.num_reg_images} images "
         f"registered, {rec.num_points3D} points, mean reprojection error "
@@ -3180,6 +3213,307 @@ def mapping_phase(tmp):
                            rec2.num_reg_images / dt2],
                 timings=t2, lm_steps=steps, cg_iterations=cg, solves=solves,
                 cpu_8=dict(cuda=out8["cuda"][1], cpu=out8["cpu"][1]))
+
+
+# ---------------------------------------------------------------------------
+# phase 21: images to model
+# ---------------------------------------------------------------------------
+
+
+def e2e_options(min_model_size):
+    """tests/test_full_pipeline.py's options for its rendered scenes: the
+    C2 gate's (min_model_size 6) or the small test's (4); no colors."""
+    o = psfm.IncrementalPipelineOptions()
+    o.min_model_size = min_model_size
+    o.extract_colors = False
+    o.min_num_matches = 15
+    o.mapper.init_min_num_inliers = 30
+    o.mapper.abs_pose_min_num_inliers = 15
+    o.mapper.init_min_tri_angle = 4.0
+    return o
+
+
+class MatchRecorder:
+    """Wraps the pair matchers' two device calls (through the module
+    attributes ``match_features`` calls): descriptor matching per chunk of
+    64 pairs and verification per block of 16. Keeps their host wall (each
+    returns host arrays, so it includes the device's time), the pairs,
+    top-2's shape buckets, the largest block's matches per pair, and the
+    blocks' peak device memory above what was allocated before each."""
+
+    def __init__(self):
+        self.match_s = self.verify_s = 0.0
+        self.matched = self.verified = self.blocks = self.buckets = 0
+        self.peak_bytes = self.max_matches = 0
+
+    def __enter__(self):
+        self._match = mf.match_descriptors_batch
+        self._verify = mf.verify_pairs_batch
+        mf.match_descriptors_batch = self._record_match
+        mf.verify_pairs_batch = self._record_verify
+        return self
+
+    def __exit__(self, *exc):
+        mf.match_descriptors_batch = self._match
+        mf.verify_pairs_batch = self._verify
+
+    def _record_match(self, pairs, options=None, device=None):
+        self.buckets += _buckets([(a, b) for a, b in pairs
+                                  if len(a) and len(b)])
+        t0 = time.perf_counter()
+        out = self._match(pairs, options, device=device)
+        self.match_s += time.perf_counter() - t0
+        self.matched += len(pairs)
+        return out
+
+    def _record_verify(self, pair_data, options=None, device=None):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = self._verify(pair_data, options, device=device)
+        self.verify_s += time.perf_counter() - t0
+        self.peak_bytes = max(self.peak_bytes,
+                              torch.cuda.max_memory_allocated() - base)
+        self.verified += len(pair_data)
+        self.blocks += 1
+        self.max_matches = max([self.max_matches]
+                               + [len(p["x1_px"]) for p in pair_data])
+        return out
+
+
+def pair_inliers(db_path):
+    """{pair id: inlier count} of a database's two-view geometries."""
+    db = Database(db_path)
+    try:
+        ids, counts = db.read_two_view_geometry_num_inliers()
+    finally:
+        db.close()
+    return dict(zip(ids, counts))
+
+
+def check_model(recs, gt, tag, min_reg, min_points, centers=True):
+    """The largest model against the bounds of tests/test_full_pipeline.py:
+    at least `min_reg` registered, more than `min_points` points, mean
+    reprojection error under 1.5 px; with `centers`, the C2 gate's median
+    rotation error under 0.5 degrees and projection center error under
+    0.05 after a similarity alignment. Returns the numbers."""
+    if not recs:
+        raise AssertionError(f"[{tag}] no model")
+    rec = max(recs.values(), key=lambda r: r.num_reg_images)
+    rec.check()
+    err = rec.compute_mean_reprojection_error()
+    rot, ctr = pose_errors(rec, gt)
+    out = dict(models=len(recs), registered=rec.num_reg_images,
+               points=rec.num_points3D, reproj_px=err,
+               median_rot_deg=float(np.median(rot)),
+               median_center_err=float(np.median(ctr)))
+    log(f"{tag}: {json.dumps(out)}")
+    ok = (rec.num_reg_images >= min_reg and rec.num_points3D > min_points
+          and err < 1.5)
+    if centers:
+        ok &= out["median_rot_deg"] < 0.5 and out["median_center_err"] < 0.05
+    if not ok:
+        raise AssertionError(f"[{tag}] model {out} misses the bounds "
+                             f"(registered >= {min_reg}, points > "
+                             f"{min_points}, < 1.5 px"
+                             + (", rotation < 0.5 deg, center < 0.05)"
+                                if centers else ")"))
+    return out
+
+
+def small_scene(tmp, gt, device):
+    """tests/test_full_pipeline.py's small flow on render_dense_scene's 6
+    images at 512x384 (2,000 features): extract, match exhaustively, map,
+    checked at that test's bounds. Returns the seconds, the numbers and
+    the database as extracted (before matching)."""
+    root = tmp / "small"
+    db = root / f"{device}.db"
+    so = SiftExtractionOptions()
+    so.max_num_features = 2000
+    t0 = time.perf_counter()
+    extract_features(db, root / "images", sift_options=so, device=device)
+    features_only = root / f"{device}_features.db"
+    shutil.copy(db, features_only)
+    n_verified = match_exhaustive(db, device=device)
+    recs = psfm.incremental_mapping(db, root / "images", root / f"{device}_model",
+                                    e2e_options(4), device=device)
+    dt = time.perf_counter() - t0
+    tag = f"phase 21 small scene on {device}"
+    log(f"{tag}: {n_verified} of 15 pairs verified, {dt:.2f} s")
+    if n_verified < 8:
+        raise AssertionError(f"[{tag}] {n_verified} pairs verified (need 8)")
+    out = check_model(recs, gt, tag, 5, 50, centers=False)
+    return dict(out, seconds=dt, verified=n_verified), features_only
+
+
+def small_scene_matchers(tmp, gt, features_db, unguided_db):
+    """On the card, the other matchers on the small scene's features:
+    sequential (overlap 2), spatial (the true poses as priors, written with
+    the database's images), and exhaustive again with guided matching, each
+    pair's inliers at least the unguided run's (the same blocks draw the
+    same samples; guided matching only replaces a geometry by a better
+    one). Returns the counts and seconds."""
+    root = tmp / "small"
+    out = {}
+    db = root / "sequential.db"
+    shutil.copy(features_db, db)
+    t0 = time.perf_counter()
+    n = match_sequential(db, matching_options=SequentialMatchingOptions(
+        overlap=2))
+    out["sequential"] = dict(verified=n, seconds=time.perf_counter() - t0)
+    if n < 4:
+        raise AssertionError(f"phase 21 sequential: {n} pairs verified "
+                             f"(need 4)")
+
+    db = root / "spatial.db"
+    d = Database(db)
+    try:
+        names = sorted(im.name for im in gt.images.values())
+        cam_id = d.write_camera(infer_camera_from_image(root / "images"
+                                                        / names[0]))
+        truth = {im.name: im for im in gt.images.values()}
+        for name in names:
+            img = Image(name=name, camera_id=cam_id)
+            img.cam_from_world_prior = truth[name].cam_from_world
+            d.write_image(img)
+        d.commit()
+    finally:
+        d.close()
+    so = SiftExtractionOptions()
+    so.max_num_features = 2000
+    extract_features(db, root / "images", sift_options=so)
+    t0 = time.perf_counter()
+    n = match_spatial(db, matching_options=SpatialMatchingOptions(
+        max_num_neighbors=2, max_distance=2.0))
+    out["spatial"] = dict(verified=n, seconds=time.perf_counter() - t0)
+    if n < 3:
+        raise AssertionError(f"phase 21 spatial: {n} pairs verified (need 3)")
+
+    db = root / "guided.db"
+    shutil.copy(features_db, db)
+    t0 = time.perf_counter()
+    n = match_exhaustive(db, sift_options=SiftMatchingOptions(
+        guided_matching=True))
+    plain, guided = pair_inliers(unguided_db), pair_inliers(db)
+    worse = {k: (v, guided.get(k, 0)) for k, v in plain.items()
+             if guided.get(k, 0) < v}
+    gained = sum(guided[k] - plain.get(k, 0) for k in guided)
+    out["guided"] = dict(verified=n, seconds=time.perf_counter() - t0,
+                         inliers_gained=int(gained))
+    log(f"phase 21 small-scene matchers on the card: {json.dumps(out)}")
+    if worse or set(guided) != set(plain):
+        raise AssertionError(f"phase 21 guided matching lost inliers: {worse}")
+    return out
+
+
+def images_to_model_phase(tmp):
+    """Phase 21: the README's flow on the card at run_sift's size, checked
+    against the truth and launch by launch; the small scene on the card and
+    the CPU; the other matchers on the card."""
+    t21 = time.perf_counter()
+    stages = {}
+    t0 = time.perf_counter()
+    root = tmp / "e2e"
+    gt = render_dense_scene(root, E2E_IMAGES, SIFT_H, SIFT_W, num_points=2)
+    stages["render"] = time.perf_counter() - t0
+    images, db = root / "images", root / "e2e.db"
+    octaves = Sift(SiftExtractionOptions(),
+                   "cuda")._static_params(SIFT_H, SIFT_W)[2]
+
+    # (a) images -> database -> model, every launch count zeroed just
+    # before and read just after
+    for mod in (ck, mk, ws, pmk, pg):
+        mod.reset_counts()
+    torch.cuda.synchronize()
+    t_start = t0 = time.perf_counter()
+    extract_features(db, images)
+    stages["extract"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with MatchRecorder() as rm:
+        n_verified = match_exhaustive(db)
+    stages["match"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timings = {}
+    recs = psfm.incremental_mapping(db, images, root / "model",
+                                    e2e_options(6), timings=timings)
+    stages["map"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_start
+    launches = {**ck.LAUNCHES, **other_launch_counts()}
+    plain_on_cuda = {**ck.PLAIN_ON_CUDA, **pmk.PLAIN_ON_CUDA,
+                     **ws.PLAIN_ON_CUDA, **mk.PLAIN_ON_CUDA}
+
+    d = Database(db)
+    try:
+        n_kp, n_db_pairs = d.num_keypoints, d.num_verified_image_pairs
+    finally:
+        d.close()
+    n_pairs = E2E_IMAGES * (E2E_IMAGES - 1) // 2
+    model = check_model(recs, gt, "phase 21 model", E2E_IMAGES - 2, 1000)
+    reg = model["registered"]
+    numbers = dict(
+        seconds=stages, images_to_model_s=total,
+        registered_img_per_s=reg / stages["map"],
+        sift_ms_per_image=stages["extract"] / E2E_IMAGES * 1e3,
+        keypoints_per_image=n_kp / E2E_IMAGES,
+        pairs=n_pairs, verified=n_verified, geometries_written=n_db_pairs,
+        match_ms_per_pair=rm.match_s / max(rm.matched, 1) * 1e3,
+        verify_ms_per_pair=rm.verify_s / max(rm.verified, 1) * 1e3,
+        match_stage_ms_per_pair=stages["match"] / n_pairs * 1e3,
+        verify_blocks=rm.blocks, pairs_in_blocks=rm.verified,
+        block_max_matches=rm.max_matches,
+        verify_block_peak_mb=rm.peak_bytes / 2**20,
+        mapping={k: timings.get(k) for k in (
+            "load", "initial_pair", "register", "triangulate", "local_ba",
+            "global_ba", "pose_graph", "write", "ba_solves", "ba_lm_steps",
+            "ba_cg_iterations")},
+        model=model)
+    log(f"phase 21 images to model ({E2E_IMAGES} images, {SIFT_H}x{SIFT_W}, "
+        f"default options): {json.dumps(numbers)}")
+    if n_verified < n_pairs / 2:
+        raise AssertionError(f"phase 21: {n_verified} of {n_pairs} pairs "
+                             f"verified (need half)")
+
+    solves, steps, cg = (timings["ba_solves"], timings["ba_lm_steps"],
+                         timings["ba_cg_iterations"])
+    want = {"window_sampler": 2 * octaves * E2E_IMAGES,
+            "top2": 2 * rm.buckets, "prepare": steps, "finish": steps,
+            "matvec16": cg, "cost": solves}
+    log(f"phase 21 launches: {json.dumps(launches)}; expected "
+        f"{json.dumps(want)} (the sampler 2 per octave x {octaves} octaves "
+        f"per extract over {E2E_IMAGES} extracts, top-2 2 per shape bucket "
+        f"over {rm.buckets} buckets of {rm.matched} pairs, prepare and "
+        f"finish once per LM step ({steps}), matvec16 once per CG iteration "
+        f"({cg}), the cost once per solve ({solves})); resjac "
+        f"{launches['resjac'] / max(steps, 1):.3f} per LM step")
+    used = ("window_sampler", "top2", "resjac", "prepare", "finish", "cost",
+            "matvec16")
+    missing = [k for k in used if launches[k] <= 0]
+    off_path = {k: v for k, v in launches.items() if k not in used and v}
+    if missing or off_path:
+        raise AssertionError(f"phase 21: kernels never launched {missing}, "
+                             f"or launched off the path {off_path}")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"phase 21: launches "
+                             f"{ {k: launches[k] for k in want} } != {want}")
+    if any(plain_on_cuda.values()):
+        raise AssertionError(f"phase 21: plain versions ran on CUDA tensors: "
+                             f"{plain_on_cuda}")
+
+    # (b) the small scene on the card and on the CPU, then the other
+    # matchers on the card
+    gt_small = render_dense_scene(tmp / "small", E2E_SMALL_IMAGES,
+                                  E2E_SMALL_H, E2E_SMALL_W, num_points=2)
+    small = {}
+    for device in ("cuda", "cpu"):
+        small[device], features_db = small_scene(tmp, gt_small, device)
+        if device == "cuda":
+            small["matchers"] = small_scene_matchers(
+                tmp, gt_small, features_db, tmp / "small" / "cuda.db")
+    numbers["small"] = small
+    numbers["phase_s"] = time.perf_counter() - t21
+    log(f"phase 21: {numbers['phase_s']:.2f} s")
+    return dict(launches=launches, numbers=numbers)
 
 
 def ba_kernel_registers(build_log):
@@ -3422,6 +3756,11 @@ def main():
                if k not in ("launches", "kernels")}
     log(f"mapping summary: {json.dumps(summary)}")
 
+    # --- phase 21: images to model ------------------------------------------
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        e2e = images_to_model_phase(Path(tmp))
+    log(f"images-to-model summary: {json.dumps(e2e['numbers'])}")
+
     kernels = []
     for name in SINGLE_BA:
         src, rep = KERNEL_INFO[name]
@@ -3576,6 +3915,11 @@ def main():
                        library_ms_sized=s["library_ms"],
                        bound_ms_sized=s["bound_ms"])
         kernels.append(row)
+    # phase 21: each kernel's launches on the images-to-model path
+    for row in kernels:
+        name = row["name"]
+        row["launches_images_to_model"] = e2e["launches"].get(name, 0) + (
+            e2e["launches"]["pm_cost_parity"] if name == "pm_cost" else 0)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

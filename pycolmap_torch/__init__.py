@@ -9,19 +9,40 @@ tensors.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 Called with no device on a host without CUDA they raise: there is no silent
 CPU fallback.
+
+The public surface re-exports what is ported of the reference's: scene
+objects, geometry types, the estimators (not the alignment ones yet),
+features, and the pipeline stages (not meshing or ``match_vocabtree`` yet).
 """
 
 from __future__ import annotations
 
+import enum as _enum
+
 import torch
+
+__version__ = "0.1.0"
+
+
+class Device(_enum.IntEnum):
+    """Compute device selector (API parity: pycolmap/main.cc:102-106):
+    ``cuda`` is the card, ``auto`` the default (the card)."""
+
+    auto = -1
+    cpu = 0
+    cuda = 1
 
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on.
 
-    ``None`` means the card (``cuda``); a host without CUDA raises. A CUDA
-    device that is not available raises as well; ``"cpu"`` always works.
+    ``None`` (or ``Device.auto``) means the card (``cuda``); a host without
+    CUDA raises. A CUDA device that is not available raises as well;
+    ``"cpu"`` always works.
     """
+    if isinstance(device, Device):
+        device = {Device.auto: None, Device.cpu: "cpu",
+                  Device.cuda: "cuda"}[device]
     if device is None:
         device = "cuda"
     device = torch.device(device)
@@ -33,3 +54,96 @@ def resolve_device(device=None) -> torch.device:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+# The re-exports come after resolve_device: every submodule imports it from
+# this package while the package is still initialising.
+from pycolmap_torch.geometry import Rigid3d, Rotation3d, Sim3d  # noqa: E402
+from pycolmap_torch.scene import (  # noqa: E402
+    Camera,
+    Correspondence,
+    CorrespondenceGraph,
+    Database,
+    DatabaseTransaction,
+    Image,
+    Point2D,
+    Point3D,
+    Reconstruction,
+    Track,
+    TrackElement,
+    image_pair_to_pair_id,
+    pair_id_to_image_pair,
+)
+from pycolmap_torch.estimators import (  # noqa: E402
+    AbsolutePoseEstimationOptions,
+    AbsolutePoseRefinementOptions,
+    EstimateTriangulationOptions,
+    RANSACOptions,
+    TwoViewGeometry,
+    TwoViewGeometryConfiguration,
+    TwoViewGeometryOptions,
+    absolute_pose_estimation,
+    essential_matrix_estimation,
+    estimate_absolute_pose,
+    estimate_calibrated_two_view_geometry,
+    estimate_essential_matrix,
+    estimate_fundamental_matrix,
+    estimate_homography_matrix,
+    estimate_triangulation,
+    estimate_two_view_geometry,
+    estimate_two_view_geometry_pose,
+    fundamental_matrix_estimation,
+    homography_decomposition,
+    homography_matrix_estimation,
+    pose_refinement,
+    refine_absolute_pose,
+)
+from pycolmap_torch.features import (  # noqa: E402
+    Normalization,
+    Sift,
+    SiftExtractionOptions,
+    SiftMatchingOptions,
+    extract_sift,
+    match_descriptors,
+    match_guided,
+)
+from pycolmap_torch.pipeline import (  # noqa: E402
+    CameraMode,
+    ExhaustiveMatchingOptions,
+    ImageReaderOptions,
+    IncrementalPipelineOptions,
+    PatchMatchOptions,
+    ReconstructionManager,
+    SequentialMatchingOptions,
+    SpatialMatchingOptions,
+    StereoFusionOptions,
+    UndistortCameraOptions,
+    VocabTreeMatchingOptions,
+    bundle_adjustment,
+    extract_features,
+    import_images,
+    incremental_mapping,
+    infer_camera_from_image,
+    match_exhaustive,
+    match_sequential,
+    match_spatial,
+    patch_match_stereo,
+    stereo_fusion,
+    triangulate_points,
+    undistort_images,
+    verify_matches,
+)
+from pycolmap_torch.sfm.bundle_adjustment import (  # noqa: E402
+    BundleAdjustmentOptions,
+    LossFunctionType,
+)
+from pycolmap_torch.sfm.incremental_mapper import (  # noqa: E402
+    ImageSelectionMethod,
+    IncrementalMapper,
+    IncrementalMapperOptions,
+)
+from pycolmap_torch.sfm.incremental_triangulator import (  # noqa: E402
+    IncrementalTriangulator,
+    IncrementalTriangulatorOptions,
+)
+from pycolmap_torch.utils.logging import logging  # noqa: E402

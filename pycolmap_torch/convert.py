@@ -2,12 +2,13 @@
 
 The reference's ``BundleProblem`` and its options (BA, SIFT extraction,
 SIFT matching, the incremental pipeline, PatchMatch, stereo fusion,
-undistortion, RANSAC and the estimators') cross as plain data (numpy arrays, dicts), never as
-reference objects, so this module imports nothing of ``pycolmap_tpu``.
-Parity tests build one problem, hand its fields to both packages, and
-compare the results. The dense pipeline has no other state: its model,
-images and depth maps cross as files, which both packages read and write
-alike.
+undistortion, RANSAC and the estimators', image reading and the pair
+matchers') cross as plain data (numpy arrays, dicts), never as reference
+objects, so this module imports nothing of ``pycolmap_tpu``. Parity tests
+build one problem, hand its fields to both packages, and compare the
+results. The pipeline has no other state: its database (COLMAP's SQLite
+schema), models, images and depth maps cross as files, which both packages
+read and write alike.
 """
 
 from __future__ import annotations
@@ -28,7 +29,16 @@ from pycolmap_torch.features.matcher import SiftMatchingOptions
 from pycolmap_torch.features.sift import SiftExtractionOptions
 from pycolmap_torch.mvs.fusion import StereoFusionOptions
 from pycolmap_torch.mvs.patch_match import PatchMatchOptions
-from pycolmap_torch.pipeline.images import UndistortCameraOptions
+from pycolmap_torch.pipeline.images import (
+    ImageReaderOptions,
+    UndistortCameraOptions,
+)
+from pycolmap_torch.pipeline.match_features import (
+    ExhaustiveMatchingOptions,
+    SequentialMatchingOptions,
+    SpatialMatchingOptions,
+    VocabTreeMatchingOptions,
+)
 from pycolmap_torch.pipeline.sfm import IncrementalPipelineOptions
 from pycolmap_torch.sfm.bundle_adjustment import (
     BundleAdjustmentOptions,
@@ -156,3 +166,37 @@ def triangulation_options_from_dict(
     """The port's ``EstimateTriangulationOptions`` (nested ``ransac``
     included) from the reference options' ``todict()``."""
     return _options_from(EstimateTriangulationOptions, values)
+
+
+def image_reader_options_from_dict(values: Mapping) -> ImageReaderOptions:
+    """The port's ``ImageReaderOptions`` from the reference options'
+    ``todict()``."""
+    return _options_from(ImageReaderOptions, values)
+
+
+def exhaustive_matching_options_from_dict(
+        values: Mapping) -> ExhaustiveMatchingOptions:
+    """The port's ``ExhaustiveMatchingOptions`` from the reference options'
+    ``todict()``."""
+    return _options_from(ExhaustiveMatchingOptions, values)
+
+
+def sequential_matching_options_from_dict(
+        values: Mapping) -> SequentialMatchingOptions:
+    """The port's ``SequentialMatchingOptions`` from the reference options'
+    ``todict()``."""
+    return _options_from(SequentialMatchingOptions, values)
+
+
+def spatial_matching_options_from_dict(
+        values: Mapping) -> SpatialMatchingOptions:
+    """The port's ``SpatialMatchingOptions`` from the reference options'
+    ``todict()``."""
+    return _options_from(SpatialMatchingOptions, values)
+
+
+def vocab_tree_matching_options_from_dict(
+        values: Mapping) -> VocabTreeMatchingOptions:
+    """The port's ``VocabTreeMatchingOptions`` from the reference options'
+    ``todict()``."""
+    return _options_from(VocabTreeMatchingOptions, values)

@@ -1,14 +1,18 @@
-"""Brute-force descriptor matching with ratio and cross checks.
+"""Brute-force descriptor matching with ratio and cross checks, and guided
+matching.
 
-Port of ``pycolmap_tpu/features/matcher.py`` (``match_guided`` waits for
-the two-view estimators; see ROADMAP.md). Distances follow COLMAP's
+Port of ``pycolmap_tpu/features/matcher.py``. Distances follow COLMAP's
 convention: the angular distance acos(<d1, d2>) between L2-normalised SIFT
 descriptors, so the max_distance / max_ratio defaults carry over.
 
-On the card both entry points run the fused top-2 kernel
-(``match_kernels.top2_batch``): once per pair or shape bucket, twice with
-the cross check. With ``device="cpu"`` they run ``_match_kernel``, the
-reference's plain path: one materialised similarity matrix.
+On the card ``match_descriptors`` and ``match_descriptors_batch`` run the
+fused top-2 kernel (``match_kernels.top2_batch``): once per pair or shape
+bucket, twice with the cross check. With ``device="cpu"`` they run
+``_match_kernel``, the reference's plain path: one materialised similarity
+matrix. ``match_guided`` (ref: match_features.h guided_matching) is the
+reference's jitted XLA function, no Pallas kernel, as plain PyTorch on
+either device: the similarity matrix masked by the two-view geometry's
+residual, then the same checks.
 """
 
 from __future__ import annotations
@@ -184,3 +188,84 @@ def match_descriptors_batch(pairs, options: SiftMatchingOptions = None,
         for k, (i, d1, _d2) in enumerate(items):
             out[i] = _matches(idx2_all[k, : len(d1)], options.max_num_matches)
     return out
+
+
+def _guided_match(d1, d2, x1, x2, G, max_ratio, max_distance, max_residual,
+                  cross_check, model):
+    """Distance matrix masked by a two-view geometry's residual, then
+    matched. d1 [N1, D], d2 [N2, D] unit f32; x1 [N1, 2], x2 [N2, 2] pixels;
+    G [3, 3]. model: 'epipolar' (G = E or F; squared Sampson) or
+    'homography' (G = H; squared transfer error). Returns idx2 [N1]
+    (-1 = no match)."""
+    sim = torch.matmul(d1, d2.T)  # [N1, N2]
+    p1 = torch.cat([x1, torch.ones_like(x1[:, :1])], dim=1)  # [N1, 3]
+    Gp1 = p1 @ G.T  # rows G x1
+    if model == "epipolar":
+        p2 = torch.cat([x2, torch.ones_like(x2[:, :1])], dim=1)
+        Gtp2 = p2 @ G  # rows G^T x2
+        num = ((p2 @ (G @ p1.T)) ** 2).T  # [N1, N2]
+        den = (Gp1[:, 0:1] ** 2 + Gp1[:, 1:2] ** 2
+               + (Gtp2[:, 0:1] ** 2 + Gtp2[:, 1:2] ** 2).T)
+        residual = num / torch.clamp(den, min=1e-12)
+    else:
+        w = Gp1[:, 2:3]
+        proj = Gp1[:, :2] / torch.where(torch.abs(w) < 1e-8, 1.0, w)
+        dx = proj[:, 0:1] - x2[None, :, 0]
+        dy = proj[:, 1:2] - x2[None, :, 1]
+        residual = dx * dx + dy * dy
+    sim = torch.where(residual <= max_residual, sim, -2.0)
+
+    best_sim, best = sim.max(dim=1)  # top-1 and its first column
+    second_sim = sim.scatter(1, best[:, None], -2.0).amax(dim=1)
+    best_dist = _dist(best_sim)
+    ok = (best_sim > -1.5) & (best_dist <= max_distance)
+    ok &= best_dist <= max_ratio * _dist(second_sim)
+    if cross_check:
+        rev_best = sim.argmax(dim=0)  # best row for each column
+        ok &= rev_best[best] == torch.arange(len(d1), device=d1.device)
+    return torch.where(ok, best, -1)
+
+
+def match_guided(
+    descriptors1, descriptors2, points2D1, points2D2, two_view_geometry,
+    options: SiftMatchingOptions = None, max_error: float = 4.0, device=None,
+):
+    """Guided matching constrained by an estimated two-view geometry.
+
+    Uses F (pixel-space Sampson) or H (pixel transfer) depending on the
+    geometry's config (upstream SiftMatchGuided). Runs on ``device``
+    (default: the card). Returns matches [M, 2] uint32."""
+    # imported here: the estimators import this package's options
+    from pycolmap_torch.estimators.two_view_geometry import (
+        TwoViewGeometryConfiguration as C,
+    )
+
+    if options is None:
+        options = SiftMatchingOptions()
+    dev = resolve_device(device)
+    cfg = two_view_geometry.config
+    if cfg in (int(C.PLANAR), int(C.PANORAMIC), int(C.PLANAR_OR_PANORAMIC)):
+        G = two_view_geometry.H
+        model = "homography"
+    else:
+        G = two_view_geometry.F if two_view_geometry.F is not None else two_view_geometry.E
+        model = "epipolar"
+    if G is None:
+        return match_descriptors(descriptors1, descriptors2, options, dev)
+    d1 = _to_unit_float(descriptors1)
+    d2 = _to_unit_float(descriptors2)
+    if len(d1) == 0 or len(d2) == 0:
+        return np.zeros((0, 2), dtype=np.uint32)
+    x1 = np.asarray(points2D1, dtype=np.float32).reshape(-1, 2)
+    x2 = np.asarray(points2D2, dtype=np.float32).reshape(-1, 2)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    idx2 = _guided_match(
+        t(d1), t(d2), t(x1), t(x2), t(G), options.max_ratio,
+        options.max_distance, np.float32(max_error ** 2), options.cross_check,
+        model,
+    ).cpu().numpy()
+    rows = np.nonzero(idx2 >= 0)[0]
+    return np.stack([rows, idx2[rows]], axis=1).astype(np.uint32)

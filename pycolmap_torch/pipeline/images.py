@@ -1,19 +1,23 @@
-"""Image reading and undistortion.
+"""Image ingestion, camera inference, reading and undistortion.
 
-Port of the undistortion half of ``pycolmap_tpu/pipeline/images.py`` (API
-parity: pycolmap/pipeline/images.h — ``undistort_images`` :96-148,
-``UndistortCameraOptions`` :209-233). ``import_images`` and the rest of the
-module wait for the images-to-model slice (ROADMAP.md).
+Port of ``pycolmap_tpu/pipeline/images.py`` (API parity:
+pycolmap/pipeline/images.h — ``import_images`` :24-63,
+``infer_camera_from_image`` EXIF-focal heuristic :65-94,
+``undistort_images`` :96-148, ``CameraMode`` :151-155,
+``ImageReaderOptions`` :158-200, ``UndistortCameraOptions`` :209-233).
 
 Binary PGM and PPM (P5, P6, 8 bit) are read and written with numpy, so the
-dense pipeline runs on a host without Pillow; the bytes and pixels are
-Pillow's. Every other format goes through Pillow, imported when needed, as
-the reference reads every format. The undistortion remap is a bilinear
-gather on the entry point's device.
+pipeline runs on a host without Pillow; the bytes and pixels are Pillow's,
+and a PNM's size comes from its header. A PNM has no EXIF, so its camera
+takes the default focal length. Every other format goes through Pillow,
+imported when needed, as the reference reads every format. The
+undistortion remap is a bilinear gather on the entry point's device.
 """
 
 from __future__ import annotations
 
+import enum
+import os
 from pathlib import Path
 
 import numpy as np
@@ -21,11 +25,38 @@ import torch
 
 from pycolmap_torch import resolve_device
 from pycolmap_torch.features.window_sampler import _bilinear_plane
-from pycolmap_torch.scene import Camera, Reconstruction
+from pycolmap_torch.scene import (
+    Camera,
+    Database,
+    DatabaseTransaction,
+    Image,
+    Reconstruction,
+)
 from pycolmap_torch.utils.options import BaseOptions, options_dataclass
 
 IMAGE_EXTENSIONS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".pgm", ".ppm"}
 _PNM = {".pgm", ".ppm"}
+
+
+class CameraMode(enum.IntEnum):
+    AUTO = 0
+    SINGLE = 1
+    PER_FOLDER = 2
+    PER_IMAGE = 3
+
+
+@options_dataclass
+class ImageReaderOptions(BaseOptions):
+    """Mirrors reference ImageReaderOptions (images.h:158-200)."""
+
+    camera_model: str = "SIMPLE_RADIAL"
+    single_camera: bool = False
+    single_camera_per_folder: bool = False
+    single_camera_per_image: bool = False
+    existing_camera_id: int = -1
+    camera_params: str = ""
+    default_focal_length_factor: float = 1.2
+    mask_path: str = ""
 
 
 @options_dataclass
@@ -42,13 +73,9 @@ class UndistortCameraOptions(BaseOptions):
     roi_max_y: float = 1.0
 
 
-def _read_pnm(path):
-    """A binary 8-bit PGM (HxW) or PPM (HxWx3) as uint8, or None for any
-    other file (Pillow then reads it). Samples of a file whose maxval is
-    below 255 are scaled to 0..255 as Pillow scales them:
-    ``round(min(v, maxval) * 255 / maxval)``, halves to even."""
-    with open(path, "rb") as f:
-        data = f.read()
+def _pnm_header(data):
+    """(width, height, maxval, channels, pixel offset) of a binary 8-bit
+    PGM or PPM held in `data`, or None for any other file."""
     if data[:2] not in (b"P5", b"P6"):
         return None
     fields = []
@@ -59,7 +86,9 @@ def _read_pnm(path):
         while data[pos:pos + 1].isspace():
             pos += 1
         if data[pos:pos + 1] == b"#":
-            pos = data.index(b"\n", pos) + 1
+            pos = data.find(b"\n", pos) + 1
+            if pos == 0:  # a comment runs past the bytes given
+                return None
             continue
         end = pos
         while data[end:end + 1].isdigit():
@@ -71,14 +100,36 @@ def _read_pnm(path):
     w, h, maxval = fields
     if not 0 < maxval <= 255 or not data[pos:pos + 1].isspace():
         return None
-    pos += 1
-    c = 1 if data[:2] == b"P5" else 3
+    return w, h, maxval, 1 if data[:2] == b"P5" else 3, pos + 1
+
+
+def _read_pnm(path):
+    """A binary 8-bit PGM (HxW) or PPM (HxWx3) as uint8, or None for any
+    other file (Pillow then reads it). Samples of a file whose maxval is
+    below 255 are scaled to 0..255 as Pillow scales them:
+    ``round(min(v, maxval) * 255 / maxval)``, halves to even."""
+    with open(path, "rb") as f:
+        data = f.read()
+    header = _pnm_header(data)
+    if header is None:
+        return None
+    w, h, maxval, c, pos = header
     arr = np.frombuffer(data, np.uint8, count=h * w * c, offset=pos)
     arr = arr.reshape((h, w) if c == 1 else (h, w, 3))
     if maxval < 255:
         scaled = np.minimum(arr, maxval).astype(np.float64) * 255.0 / maxval
         return np.round(scaled).astype(np.uint8)
     return arr.copy()
+
+
+def _pnm_size(path):
+    """(width, height) from a PGM / PPM header, or None if `path` is not a
+    binary 8-bit PNM."""
+    if Path(path).suffix.lower() not in _PNM:
+        return None
+    with open(path, "rb") as f:
+        header = _pnm_header(f.read(4096))
+    return None if header is None else header[:2]
 
 
 def _read_u8(path):
@@ -91,7 +142,7 @@ def _read_u8(path):
     with PILImage.open(path) as im:
         if im.mode not in ("L", "RGB"):
             im = im.convert("RGB")
-        return np.asarray(im, dtype=np.uint8)
+        return np.array(im, dtype=np.uint8)
 
 
 def _gray(arr):
@@ -107,12 +158,127 @@ def read_image_gray(path) -> np.ndarray:
     return _gray(_read_u8(path)).astype(np.float32) / 255.0
 
 
+def read_image_gray_u8(path) -> np.ndarray:
+    """HxW uint8 grayscale (Pillow's ``convert("L")``), for consumers that
+    normalise on the device (features/sift.py)."""
+    return _gray(_read_u8(path))
+
+
 def read_image_rgb(path) -> np.ndarray:
     """HxWx3 uint8 (a gray file's channel replicated)."""
     arr = _read_u8(path)
     if arr.ndim == 2:
         arr = np.repeat(arr[..., None], 3, axis=2)
     return arr
+
+
+def list_images(image_path) -> list[str]:
+    """Relative paths of all images under image_path, sorted."""
+    image_path = Path(image_path)
+    out = []
+    for root, _, files in os.walk(image_path):
+        for f in sorted(files):
+            if Path(f).suffix.lower() in IMAGE_EXTENSIONS:
+                out.append(str(Path(root).relative_to(image_path) / f))
+    return sorted(out)
+
+
+def _exif_focal_px(path, width: int) -> float | None:
+    """EXIF focal length -> pixels (heuristic per images.h:75-86); None for
+    a PNM, which has no EXIF, and for a file without a usable tag."""
+    if _pnm_size(path) is not None:
+        return None
+    from PIL import ExifTags, Image as PILImage
+
+    try:
+        with PILImage.open(path) as im:
+            exif = im.getexif()
+    except OSError:
+        return None
+    if not exif:
+        return None
+    tag_by_name = {v: k for k, v in ExifTags.TAGS.items()}
+    try:
+        f35 = exif.get(tag_by_name.get("FocalLengthIn35mmFilm"))
+        if f35:
+            return float(f35) / 35.0 * width
+        focal_mm = exif.get(tag_by_name.get("FocalLength"))
+        if focal_mm:
+            # assume 35mm-equivalent sensor width unless plane res known
+            return float(focal_mm) / 35.0 * width
+    except (TypeError, ValueError, ZeroDivisionError):
+        return None
+    return None
+
+
+def _image_size(path):
+    size = _pnm_size(path)
+    if size is None:
+        from PIL import Image as PILImage
+
+        with PILImage.open(path) as im:
+            size = im.size
+    return size
+
+
+def infer_camera_from_image(image_path, options: ImageReaderOptions = None) -> Camera:
+    """Build a camera for one image: EXIF focal if available, else
+    default_focal_length_factor * max(width, height) (ref: images.h:65-94)."""
+    if options is None:
+        options = ImageReaderOptions()
+    width, height = _image_size(image_path)
+    focal = _exif_focal_px(image_path, width)
+    has_prior = focal is not None
+    if focal is None:
+        focal = options.default_focal_length_factor * max(width, height)
+    cam = Camera.create(0, options.camera_model, focal, width, height)
+    cam.has_prior_focal_length = has_prior
+    if options.camera_params:
+        cam.set_params_from_string(options.camera_params)
+    return cam
+
+
+def import_images(
+    database_path,
+    image_path,
+    camera_mode: CameraMode = CameraMode.AUTO,
+    image_names=None,
+    options: ImageReaderOptions = None,
+    device=None,
+):
+    """Ingest images into the database (ref: images.h:24-63). Host work
+    only; ``device`` is checked as every entry point's is (default: the
+    card, which a host without CUDA lacks)."""
+    resolve_device(device)
+    if options is None:
+        options = ImageReaderOptions()
+    image_path = Path(image_path)
+    names = image_names if image_names else list_images(image_path)
+    camera_mode = CameraMode(camera_mode)
+
+    db = Database(database_path)
+    try:
+        with DatabaseTransaction(db):
+            cam_for_folder: dict[str, int] = {}
+            single_cam_id = None
+            for name in names:
+                if db.image_id_from_name(name) is not None:
+                    continue
+                cam = infer_camera_from_image(image_path / name, options)
+                if camera_mode == CameraMode.PER_FOLDER or options.single_camera_per_folder:
+                    folder = str(Path(name).parent)
+                    if folder not in cam_for_folder:
+                        cam_for_folder[folder] = db.write_camera(cam)
+                    cam_id = cam_for_folder[folder]
+                elif camera_mode == CameraMode.PER_IMAGE or options.single_camera_per_image:
+                    cam_id = db.write_camera(cam)
+                else:  # SINGLE, and AUTO, which the reference shares too
+                    if single_cam_id is None:
+                        single_cam_id = db.write_camera(cam)
+                    cam_id = single_cam_id
+                db.write_image(Image(name=name, camera_id=cam_id))
+    finally:
+        db.close()
 
 
 def write_image(path, arr: np.ndarray) -> None:

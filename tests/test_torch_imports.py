@@ -1,15 +1,20 @@
-"""The port stands alone: no module of pycolmap_torch/, and not
-chip_smoke.py, imports jax, jaxlib or the reference package, at any depth
-of the file (function-level imports included)."""
+"""The port stands alone: no module of pycolmap_torch/, and neither
+chip_smoke.py nor example_torch.py, imports jax, jaxlib or the reference
+package, at any depth of the file (function-level imports included). And
+``import pycolmap_torch`` works cold, in a fresh interpreter, and exposes
+the public names of the README's quick start."""
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "pycolmap_tpu")
-FILES = sorted((ROOT / "pycolmap_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "pycolmap_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "example_torch.py"]
 
 
 def _imports(path):
@@ -51,6 +56,37 @@ def test_the_port_is_scanned():
                 "scene/exporters.py", "convert.py",
                 "sfm/incremental_mapper.py", "sfm/pose_graph.py",
                 "sfm/resident.py", "native/__init__.py",
-                "pipeline/__init__.py"):
+                "pipeline/__init__.py", "pipeline/extract_features.py",
+                "pipeline/match_features.py", "estimators/batch_two_view.py",
+                "features/matcher.py", "__init__.py"):
         assert f"pycolmap_torch/{mod}" in names
     assert len(FILES) > 20
+
+
+QUICK_START = ("extract_features", "match_exhaustive", "incremental_mapping",
+               "import_images", "match_sequential", "match_spatial",
+               "verify_matches", "match_guided", "infer_camera_from_image",
+               "Reconstruction", "Database", "Camera", "Rigid3d",
+               "SiftExtractionOptions", "SiftMatchingOptions",
+               "IncrementalPipelineOptions", "BundleAdjustmentOptions",
+               "ImageReaderOptions", "CameraMode", "Device", "logging")
+
+
+@pytest.mark.parametrize("first", ["pycolmap_torch",
+                                   "pycolmap_torch.pipeline.match_features",
+                                   "pycolmap_torch.sfm.cg_kernel"])
+def test_cold_import(first):
+    """A fresh interpreter imports the package (or a submodule first, which
+    imports the package while resolve_device is all it holds), with its
+    public names and no JAX."""
+    code = (f"import sys, importlib; importlib.import_module({first!r}); "
+            "import pycolmap_torch as pt; "
+            f"missing = [n for n in {QUICK_START!r} if not hasattr(pt, n)]; "
+            "assert not missing, missing; "
+            "assert pt.resolve_device(pt.Device.cpu).type == 'cpu'; "
+            "assert not hasattr(pt, 'match_vocabtree'); "
+            "assert 'jax' not in sys.modules and "
+            "'pycolmap_tpu' not in sys.modules")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]

@@ -1,0 +1,256 @@
+"""The port's pair matchers (pycolmap_torch/pipeline/match_features.py)
+against the reference on the CPU, and images to model on the port.
+
+- tests/test_pipeline_matchers.py's ``make_feature_db`` (six images along a
+  line, planted descriptors) through both packages' ``match_sequential``,
+  ``match_spatial``, ``match_exhaustive`` and ``verify_matches``, each on
+  its own copy of the database: the same verified pair sets and
+  configurations, and each pair's inliers at least 0.85 of the
+  reference's (the draws differ: ``torch.Generator`` against
+  ``jax.random``, ROADMAP.md);
+- retrieval-ranked verification (``_PairMatcher.run_ranked``) with a cap,
+  on the port alone (a reference run would compile blocks of one pair);
+- guided matching: each pair's inliers at least the unguided run's (the
+  same blocks, so the same draws);
+- ``loop_detection=True`` raises: the retrieval module is not ported;
+- the README's flow on the port from rendered images: 5 images at 320x240
+  through ``extract_features`` -> ``match_exhaustive`` ->
+  ``incremental_mapping`` with tests/test_dense_e2e.py's options, at least
+  4 registered (its bound), under 1.5 px (tests/test_full_pipeline.py's),
+  and the projection centers against the truth;
+- the options converters, and the device rule.
+"""
+
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from pycolmap_tpu.pipeline import match_features as jmf
+import pycolmap_torch as pt
+from pycolmap_torch import convert
+from pycolmap_torch.ops import quaternion as qops
+from pycolmap_torch.ops.solvers import umeyama
+from pycolmap_torch.pipeline import match_features as tmf
+from test_full_pipeline import render_scene
+from test_pipeline_matchers import make_feature_db
+
+CPU = "cpu"
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Many tiny CPU ops: one intra-op thread per worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _geometries(db_path):
+    db = pt.Database(db_path)
+    try:
+        pairs = [tuple(int(i) for i in pt.pair_id_to_image_pair(pid))
+                 for pid in db.read_two_view_geometries()[0]]
+        return {p: db.read_two_view_geometry(*p) for p in pairs}
+    finally:
+        db.close()
+
+
+def _run(root, name, fn_j, fn_t, with_priors=False):
+    """One strategy through both packages on copies of one database."""
+    src = root / f"{name}_src.db"
+    make_feature_db(src, with_priors=with_priors)
+    out = {}
+    for tag, fn in (("j", fn_j), ("t", fn_t)):
+        db = root / f"{name}_{tag}.db"
+        shutil.copy(src, db)
+        out[tag] = (fn(db), _geometries(db))
+    return out
+
+
+@pytest.fixture(scope="module")
+def matched(tmp_path_factory):
+    torch.set_num_threads(1)
+    root = tmp_path_factory.mktemp("matchers")
+    seq_j = jmf.SequentialMatchingOptions()
+    seq_j.overlap = 2
+    seq_t = convert.sequential_matching_options_from_dict(seq_j.todict())
+    sp_j = jmf.SpatialMatchingOptions()
+    # 3 neighbours (tests/test_pipeline_matchers.py takes 2): nine pairs,
+    # one block the size of the sequential run's, so the reference's
+    # verification compiles once for both
+    sp_j.max_num_neighbors = 3
+    sp_j.max_distance = 2.0
+    sp_t = convert.spatial_matching_options_from_dict(sp_j.todict())
+    runs = {
+        "sequential": _run(
+            root, "sequential",
+            lambda db: jmf.match_sequential(db, matching_options=seq_j),
+            lambda db: tmf.match_sequential(db, matching_options=seq_t,
+                                            device=CPU)),
+        "spatial": _run(
+            root, "spatial",
+            lambda db: jmf.match_spatial(db, matching_options=sp_j),
+            lambda db: tmf.match_spatial(db, matching_options=sp_t,
+                                         device=CPU),
+            with_priors=True),
+        "exhaustive": _run(
+            root, "exhaustive", jmf.match_exhaustive,
+            lambda db: tmf.match_exhaustive(db, device=CPU)),
+    }
+    # verify_matches on the exhaustive run's matches, by name and by id
+    pairs = [("im00.png", "im01.png"), ("im01.png", "im02.png"), (2, 4),
+             ("im00.png", "missing.png")]
+    ver = {}
+    for tag, fn in (("j", lambda db: jmf.verify_matches(db, pairs)),
+                    ("t", lambda db: tmf.verify_matches(db, pairs,
+                                                        device=CPU))):
+        db = root / f"verify_{tag}.db"
+        shutil.copy(root / f"exhaustive_{tag}.db", db)
+        ver[tag] = (fn(db), _geometries(db))
+    runs["verify_matches"] = ver
+    return root, runs
+
+
+@pytest.mark.parametrize("strategy", ["sequential", "spatial", "exhaustive",
+                                      "verify_matches"])
+def test_matchers_match_reference(matched, strategy):
+    _, runs = matched
+    (n_j, g_j), (n_t, g_t) = runs[strategy]["j"], runs[strategy]["t"]
+    assert n_t == n_j and n_t >= {"sequential": 4, "spatial": 3,
+                                  "exhaustive": 5, "verify_matches": 3}[strategy]
+    assert set(g_t) == set(g_j)
+    for pair, gj in g_j.items():
+        gt = g_t[pair]
+        assert gt.config == gj.config, pair
+        assert len(gt.inlier_matches) >= 0.85 * len(gj.inlier_matches), pair
+
+
+def test_sequential_links_consecutive_images(matched):
+    _, runs = matched
+    g = runs["sequential"]["t"][1][(1, 2)]
+    assert len(g.inlier_matches) > 30
+
+
+def test_guided_matching_keeps_or_improves(matched):
+    """Guided matching re-estimates a pair only when that finds more
+    inliers, after the same blocks' draws: every pair keeps at least the
+    unguided inliers."""
+    root, runs = matched
+    db = root / "guided.db"
+    make_feature_db(db)
+    n = tmf.match_exhaustive(
+        db, sift_options=pt.SiftMatchingOptions(guided_matching=True),
+        device=CPU)
+    guided = _geometries(db)
+    plain = runs["exhaustive"]["t"][1]
+    assert n >= runs["exhaustive"]["t"][0] and set(guided) == set(plain)
+    for pair, g in plain.items():
+        assert len(guided[pair].inlier_matches) >= len(g.inlier_matches)
+
+
+def test_run_ranked(tmp_path):
+    """Capped, retrieval-ranked verification (the reference's host logic,
+    copied): with a cap of one, each query stops at its first pass, and a
+    pair passed under an earlier query counts without a second run."""
+    make_feature_db(tmp_path / "db.db")
+    ranked = [(1, [(2, 0.9), (3, 0.8), (6, 0.1)]), (2, [(1, 0.9), (3, 0.7)]),
+              (4, [(5, 0.9), (3, 0.8), (6, 0.5)])]
+    db = pt.Database(tmp_path / "db.db")
+    try:
+        m = tmf._PairMatcher(db, pt.SiftMatchingOptions(),
+                             pt.TwoViewGeometryOptions(), CPU)
+        n = m.run_ranked(ranked, cap_after_verification=1)
+    finally:
+        db.close()
+    assert n == 2
+    assert set(_geometries(tmp_path / "db.db")) == {(1, 2), (4, 5)}
+
+
+def test_loop_detection_raises(tmp_path):
+    opts = pt.SequentialMatchingOptions(loop_detection=True)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tmf.match_sequential(tmp_path / "db.db", matching_options=opts,
+                             device=CPU)
+    assert not hasattr(pt, "match_vocabtree")
+
+
+@pytest.fixture(scope="module")
+def mapped(tmp_path_factory):
+    """The README's flow on the port, on the CPU."""
+    torch.set_num_threads(1)
+    root = tmp_path_factory.mktemp("e2e")
+    poses, cam = render_scene(root / "images", num_images=5, W=320, H=240)
+    db = root / "db.db"
+    so = pt.SiftExtractionOptions()
+    so.max_num_features = 1200
+    pt.extract_features(db, root / "images", sift_options=so, device=CPU)
+    n_verified = pt.match_exhaustive(db, device=CPU)
+    options = pt.IncrementalPipelineOptions()
+    options.min_model_size = 4
+    options.extract_colors = False
+    options.min_num_matches = 15
+    options.mapper.init_min_num_inliers = 30
+    options.mapper.abs_pose_min_num_inliers = 15
+    options.mapper.init_min_tri_angle = 4.0
+    recs = pt.incremental_mapping(db, root / "images", root / "sparse",
+                                  options, device=CPU)
+    return poses, cam, n_verified, recs
+
+
+def test_images_to_model(mapped):
+    poses, cam, n_verified, recs = mapped
+    assert n_verified >= 8  # of the 10 pairs
+    assert recs and recs[0].num_reg_images >= 4
+    rec = recs[0]
+    assert rec.num_points3D > 50
+    assert rec.compute_mean_reprojection_error() < 1.5
+    rec.check()
+    # the projection centers at tests/test_full_pipeline.py's C2 gate bound
+    # (0.006 here). Not its rotation bound: with five 320x240 views the
+    # SIMPLE_RADIAL camera settles at f 444 and k -0.02 (the truth: 450,
+    # a pinhole), and every rotation sits 0.68-0.80 degrees off
+    ctrs = _center_errors(rec, poses)
+    assert np.median(ctrs) < 0.05, ctrs
+
+
+def _center_errors(rec, poses):
+    """Projection center errors of the registered images after the
+    similarity (Umeyama, float64) that maps them onto the true ones (the
+    reference's ``compare_reconstructions(..., "proj_center")``)."""
+    imgs = [rec.images[i] for i in rec.reg_image_ids]
+    c = np.stack([im.projection_center() for im in imgs])
+    c_true = np.stack([poses[int(im.name[4:6])].inverse().translation
+                       for im in imgs])
+    scale, q, t = (a.numpy() for a in umeyama(torch.from_numpy(c),
+                                               torch.from_numpy(c_true)))
+    Ra = qops.quat_to_matrix(torch.from_numpy(q)).numpy()
+    return np.linalg.norm(scale * c @ Ra.T + t - c_true, axis=1)
+
+
+@pytest.mark.parametrize("name", ["exhaustive", "sequential", "spatial",
+                                  "vocab_tree"])
+def test_matching_options_round_trip(name):
+    cls = {"exhaustive": jmf.ExhaustiveMatchingOptions,
+           "sequential": jmf.SequentialMatchingOptions,
+           "spatial": jmf.SpatialMatchingOptions,
+           "vocab_tree": jmf.VocabTreeMatchingOptions}[name]
+    conv = getattr(convert, f"{name}_matching_options_from_dict")
+    ref = cls()
+    for f, v in ref.todict().items():  # every field off its default
+        setattr(ref, f, (not v) if isinstance(v, bool)
+                else v + 3 if isinstance(v, (int, float)) else v + "x")
+    got = conv(ref.todict())
+    assert got.todict() == ref.todict()
+
+
+def test_default_device_needs_cuda(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (tmf.match_exhaustive, tmf.match_sequential, tmf.match_spatial):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(tmp_path / "db.db")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmf.verify_matches(tmp_path / "db.db", [])
+    assert not (tmp_path / "db.db").exists()
