@@ -4,8 +4,9 @@ the feature front end (SIFT extraction, descriptor matching), the
 known-pose entry points (global BA of a model, triangulation of a model
 with known poses), the dense pipeline (undistortion, PatchMatch stereo,
 stereo fusion), the gather probe, the geometric estimators, the
-incremental mapper, and the way from image files to a model (import,
-extraction, the pair matchers with batched verification, mapping).
+incremental mapper, the way from image files to a model (import,
+extraction, the pair matchers with batched verification, mapping), the
+meshers, and vocabulary-tree retrieval with the matchers built on it.
 
 Run from the repository root on a host with an H100 (or another sm_90a
 card) and the CUDA toolkit:
@@ -163,6 +164,33 @@ Phases (each raises on failure; the script then exits nonzero):
     and on the card ``match_sequential`` (overlap 2), ``match_spatial``
     (true poses as priors) and guided exhaustive matching (no pair loses
     inliers).
+22. meshing at full size, in phase 14's workspace (its ~5.3M fused points
+    with normals and its ``.vis``): ``poisson_meshing`` on the card with
+    default options (a 256^3 grid), by stage (read, splat and smooth,
+    solve, iso, marching tetrahedra, trim, write), more than 10,000 faces
+    whose centres lie a median under 0.02 from the nearer plane (phase 14's
+    fused-point bound); the same solve and marching tetrahedra on the
+    port's CPU path, chi within 1e-4 scaled and the vertex count within
+    0.5%; ``dense_delaunay_meshing`` of the workspace on the host (the
+    200k subsample, the visibility votes, the native min-cut), by stage,
+    at the same plane bound; ``sparse_delaunay_meshing`` of phase 21's
+    model, faces > 0;
+23. retrieval at BASELINE.md C5's 1,000 images: a synthetic database of
+    200 places along a closed sequence, five images a place, the last 50
+    revisiting places 0-9, 4,096 uint8 descriptors an image (its place's
+    pool plus noise, 512 from a pool all places share); ``build_visual_index``
+    with defaults on the card (200k training rows, 4,096 words), seconds
+    for read, train per level, quantize and index, quantize and query ms
+    per image; ``retrieve_ranked_pairs`` with a same-place image in the top
+    5 for >= 95% of queries, ``detect_loops`` (period 10) with the planted
+    revisit first for >= 90% of the planted loop queries; the card against
+    the CPU on the first 100 images (centers within 1e-4, words equal on
+    >= 99.9%, the same ranked lists); on copies of phase 21's database
+    (matches cleared) ``match_vocabtree`` (10 images) and
+    ``match_sequential`` (overlap 2, loop detection every 5th image), each
+    verifying at least half its candidate pairs, timed; every launch count
+    zeroed just before phase 22 and read after phase 23: top-2 twice per
+    shape bucket of those matchers, nothing else.
 
 The last lines are one JSON object describing every kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -232,6 +260,13 @@ try:
         match_spatial,
     )
     from pycolmap_torch.pipeline import match_features as mf
+    from pycolmap_torch.features import retrieval
+    from pycolmap_torch.features.matcher import _to_unit_float
+    from pycolmap_torch.mvs import meshing
+    from pycolmap_torch.pipeline import (
+        VocabTreeMatchingOptions, dense_delaunay_meshing, match_vocabtree,
+        poisson_meshing, sparse_delaunay_meshing,
+    )
 except ImportError as e:  # run outside the repository
     sys.exit(f"chip_smoke: the pycolmap_torch package is missing ({e})")
 
@@ -343,6 +378,15 @@ MAP_PARITY_IMAGES, MAP_PARITY_POINTS = 8, 300
 # (30 images, 435 pairs), and tests/test_full_pipeline.py's small scene
 E2E_IMAGES = 30
 E2E_SMALL_IMAGES, E2E_SMALL_H, E2E_SMALL_W = 6, 384, 512
+# phase 22: PoissonMeshingOptions' default depth 13 gives a 256^3 grid
+POISSON_N = 256
+# phase 23's place database: BASELINE.md C5's 1,000 images along a closed
+# sequence of 200 places, five consecutive images a place, the last 50
+# revisiting places 0-9; 4,096 descriptors an image (phase 21 averaged
+# 3,536 keypoints), 512 of them from a pool all places share
+RET_IMAGES, RET_PER_PLACE, RET_REVISITS = 1000, 5, 50
+RET_DESCS, RET_SHARED, RET_NOISE = 4096, 512, 4
+RET_PARITY_IMAGES = 100
 
 
 def log(msg):
@@ -2090,8 +2134,7 @@ def dense_pipeline(tmp):
         mvs_controller.patch_match_kernel = kernel
     split = dict(undistort=t2 - t1, **split, fusion=t4 - t3)
     valid, med = depth_accuracy(tmp / "dense")
-    dist = np.minimum(*(np.abs(xyz[:, 2] - z) for z in MVS_PLANES))
-    fused_med = float(np.median(dist)) if len(xyz) else math.inf
+    fused_med = plane_distance(xyz)
     log(f"phase 14 scene: {MVS_IMAGES} images {MVS_H}x{MVS_W} SIMPLE_RADIAL "
         f"k {MVS_RADIAL_K}, rendered in {t_render:.2f} s")
     log(f"phase 14 wall: {t4 - t1:.3f} s: " + ", ".join(
@@ -3516,6 +3559,274 @@ def images_to_model_phase(tmp):
     return dict(launches=launches, numbers=numbers)
 
 
+def read_mesh_ply(path):
+    """(vertices [V, 3] float32, faces [F, 3] int32) of a mesh PLY that
+    ``write_mesh_ply`` wrote."""
+    b = Path(path).read_bytes()
+    h = b.index(b"end_header\n") + len(b"end_header\n")
+    head = b[:h].decode()
+    nv = int(head.split("element vertex ")[1].split()[0])
+    verts = np.frombuffer(b[h:h + 12 * nv], "<f4").reshape(nv, 3)
+    faces = np.frombuffer(b[h + 12 * nv:],
+                          np.dtype([("n", "u1"), ("i", "<i4", (3,))]))["i"]
+    return verts, faces
+
+
+def plane_distance(xyz):
+    """Median distance of points to the nearer of phase 14's planes."""
+    if not len(xyz):
+        return math.inf
+    return float(np.median(np.minimum(
+        *(np.abs(xyz[:, 2] - z) for z in MVS_PLANES))))
+
+
+def meshing_phase(dense, model, out):
+    """Phase 22: the three meshers on phase 14's workspace (``dense``) and
+    phase 21's model, at full size: Poisson on the card by stage and its
+    solve on the CPU beside it, dense Delaunay by stage, sparse Delaunay."""
+    t22 = time.perf_counter()
+    numbers = {}
+    # (a) Poisson on the card with default options (a 256^3 grid)
+    stages = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poisson_meshing(dense / "fused.ply", out / "poisson.ply", timings=stages)
+    wall = time.perf_counter() - t0
+    verts, faces = read_mesh_ply(out / "poisson.ply")
+    dist = plane_distance(verts[faces].mean(axis=1)) if len(faces) else math.inf
+    numbers["poisson"] = dict(seconds=wall, stages=stages, vertices=len(verts),
+                              faces=len(faces), median_plane_dist=dist)
+    log(f"phase 22 poisson_meshing on the card ({POISSON_N}^3): "
+        f"{json.dumps(numbers['poisson'])}")
+    if not (len(faces) > 10_000 and dist < 0.02):
+        raise AssertionError(f"phase 22: Poisson mesh of {len(faces)} faces "
+                             f"at {dist} from the planes (need > 10,000 "
+                             "faces at < 0.02)")
+
+    # (b) the same solve on the port's CPU path: chi and the vertex count
+    xyz, normals, _ = meshing.read_fused_ply(dense / "fused.ply")
+    fields, nverts, secs = {}, {}, {}
+    for name in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        f = meshing.poisson_field(xyz, normals, POISSON_N,
+                                  meshing.resolve_device(name))
+        v, _ = meshing.marching_tetrahedra(
+            f["chi"], f["iso"], f["lo"] + 0.5 * f["spacing"], f["spacing"])
+        secs[name] = time.perf_counter() - t0
+        fields[name], nverts[name] = f, len(v)
+    _, chi_err = scaled_err(fields["cuda"]["chi"], fields["cpu"]["chi"])
+    iso_err = abs(fields["cuda"]["iso"] - fields["cpu"]["iso"])
+    del fields
+    torch.cuda.empty_cache()
+    numbers["poisson_parity"] = dict(
+        points=len(xyz), chi_scaled_err=chi_err, iso_abs_err=iso_err,
+        vertices_card=nverts["cuda"], vertices_cpu=nverts["cpu"],
+        field_and_mt_s=secs)
+    log(f"phase 22 Poisson card vs CPU: {json.dumps(numbers['poisson_parity'])}")
+    if not (chi_err < 1e-4 and abs(nverts["cuda"] - nverts["cpu"])
+            <= 0.005 * nverts["cpu"]):
+        raise AssertionError("phase 22: the card's chi or vertex count "
+                             "disagrees with the CPU's (1e-4 scaled, 0.5%)")
+
+    # (c) dense Delaunay on the workspace: the 200k subsample, the
+    # visibility votes and the native min-cut, on the host
+    stages = {}
+    t0 = time.perf_counter()
+    dense_delaunay_meshing(dense, out / "delaunay.ply", timings=stages)
+    wall = time.perf_counter() - t0
+    verts, faces = read_mesh_ply(out / "delaunay.ply")
+    dist = plane_distance(verts[faces].mean(axis=1)) if len(faces) else math.inf
+    numbers["dense_delaunay"] = dict(
+        seconds=wall, stages=stages, vertices=len(verts), faces=len(faces),
+        median_plane_dist=dist, native_min_cut=native.get_lib() is not None)
+    log(f"phase 22 dense_delaunay_meshing: "
+        f"{json.dumps(numbers['dense_delaunay'])}")
+    if not (len(faces) > 0 and dist < 0.02):
+        raise AssertionError(f"phase 22: dense Delaunay mesh of {len(faces)} "
+                             f"faces at {dist} from the planes (need < 0.02)")
+
+    # (d) sparse Delaunay on phase 21's model
+    t0 = time.perf_counter()
+    sparse_delaunay_meshing(model, out / "sparse_mesh.ply")
+    wall = time.perf_counter() - t0
+    verts, faces = read_mesh_ply(out / "sparse_mesh.ply")
+    numbers["sparse_delaunay"] = dict(seconds=wall, vertices=len(verts),
+                                      faces=len(faces))
+    log(f"phase 22 sparse_delaunay_meshing of phase 21's model: "
+        f"{json.dumps(numbers['sparse_delaunay'])}")
+    if not len(faces):
+        raise AssertionError("phase 22: the sparse Delaunay mesh is empty")
+    numbers["phase_s"] = time.perf_counter() - t22
+    return numbers
+
+
+def place_of_image(i):
+    """Phase 23's place of image i: five consecutive images a place; the
+    last RET_REVISITS images revisit places 0, 1, ..."""
+    places = (RET_IMAGES - RET_REVISITS) // RET_PER_PLACE
+    return (i // RET_PER_PLACE) % places
+
+
+def write_place_database(path, seed=0):
+    """Phase 23's database: each image's descriptors are its place's pool
+    plus noise, and RET_SHARED rows of a pool all places share (which idf
+    must down-weight) plus noise. Returns the image ids in sequence
+    order."""
+    rng = np.random.default_rng(seed)
+    own = RET_DESCS - RET_SHARED
+    places = (RET_IMAGES - RET_REVISITS) // RET_PER_PLACE
+    pools = rng.integers(0, 256, (places, own, 128), dtype=np.uint8)
+    shared = rng.integers(0, 256, (4 * RET_SHARED, 128), dtype=np.uint8)
+    db = Database(path)
+    try:
+        cam_id = db.write_camera(Camera.create(0, "SIMPLE_PINHOLE", 1125.0,
+                                               SIFT_W, SIFT_H))
+        ids = []
+        for i in range(RET_IMAGES):
+            base = np.concatenate([
+                pools[place_of_image(i)],
+                shared[rng.choice(len(shared), RET_SHARED, replace=False)]])
+            noise = rng.integers(-RET_NOISE, RET_NOISE + 1, base.shape,
+                                 dtype=np.int16)
+            ids.append(db.write_image(Image(name=f"place{i:04d}.ppm",
+                                            camera_id=cam_id)))
+            db.write_descriptors(ids[-1], np.clip(base + noise, 0, 255)
+                                 .astype(np.uint8))
+        db.commit()
+    finally:
+        db.close()
+    return ids
+
+
+def clear_matches(path):
+    """A copy of a database's features without its matches or geometries."""
+    import sqlite3
+
+    con = sqlite3.connect(path)
+    try:
+        con.execute("DELETE FROM matches")
+        con.execute("DELETE FROM two_view_geometries")
+        con.commit()
+    finally:
+        con.close()
+
+
+def retrieval_phase(tmp, e2e_db):
+    """Phase 23: vocabulary-tree retrieval at C5's 1,000 images on the card,
+    its recall, the card against the CPU on the first 100 images, and the
+    retrieval-driven matchers on a copy of phase 21's database."""
+    t23 = time.perf_counter()
+    numbers = {}
+    t0 = time.perf_counter()
+    ids = write_place_database(tmp / "places.db")
+    numbers["setup_s"] = time.perf_counter() - t0
+    place = {iid: place_of_image(k) for k, iid in enumerate(ids)}
+    db = Database(tmp / "places.db")
+    try:
+        # (a) build_visual_index with defaults: 200k training rows, 4,096
+        # words, every descriptor quantized on the card
+        stages = {}
+        t0 = time.perf_counter()
+        tree, index = retrieval.build_visual_index(db, ids, timings=stages)
+        build_s = time.perf_counter() - t0
+        # a query of every 10th image (retrieve_ranked_pairs below queries
+        # all of them)
+        rows = range(0, len(ids), 10)
+        t0 = time.perf_counter()
+        for row in rows:
+            index.query_row(row, 5)
+        query_s = time.perf_counter() - t0
+        numbers["build"] = dict(
+            seconds=build_s, stages=stages, words=tree.num_words,
+            depth=tree.depth, descriptors=RET_IMAGES * RET_DESCS,
+            quantize_ms_per_image=stages["quantize"] / len(ids) * 1e3,
+            query_ms_per_image=query_s / len(rows) * 1e3)
+        log(f"phase 23 build_visual_index ({RET_IMAGES} images, "
+            f"{RET_DESCS} descriptors each): {json.dumps(numbers['build'])}")
+
+        # (b) recall of the entry points
+        t0 = time.perf_counter()
+        ranked = retrieval.retrieve_ranked_pairs(db, ids, num_images=5)
+        ranked_s = time.perf_counter() - t0
+        hit = np.mean([any(place[m] == place[q] for m, _ in c)
+                       for q, c in ranked])
+        t0 = time.perf_counter()
+        loops = dict(retrieval.detect_loops(db, ids, period=10))
+        loops_s = time.perf_counter() - t0
+        planted = [iid for k, iid in enumerate(ids[::10])
+                   if place_of_image(10 * k) < RET_REVISITS // RET_PER_PLACE]
+        found = np.mean([bool(loops.get(q)) and place[loops[q][0][0]]
+                         == place[q] for q in planted])
+        numbers["recall"] = dict(
+            top5_same_place=float(hit), retrieve_ranked_pairs_s=ranked_s,
+            planted_loop_queries=len(planted), loops_found=float(found),
+            detect_loops_s=loops_s, loop_queries=len(loops))
+        log(f"phase 23 recall: {json.dumps(numbers['recall'])}")
+        if hit < 0.95 or found < 0.9:
+            raise AssertionError(f"phase 23: top-5 same-place recall {hit} "
+                                 f"(need 0.95), planted loops found {found} "
+                                 "(need 0.9)")
+
+        # (c) the card against the CPU on the first 100 images
+        sub = ids[:RET_PARITY_IMAGES]
+        trees, indexes, words, secs = {}, {}, {}, {}
+        unit = _to_unit_float(np.concatenate(
+            [db.read_descriptors(i) for i in sub]))
+        for name in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            trees[name], indexes[name] = retrieval.build_visual_index(
+                db, sub, device=name)
+            words[name] = trees[name].quantize(unit, device=name)
+            secs[name] = time.perf_counter() - t0
+    finally:
+        db.close()
+    center_err = max(float(np.abs(a - b).max()) for a, b in
+                     zip(trees["cuda"].levels, trees["cpu"].levels))
+    same_words = float((words["cuda"] == words["cpu"]).mean())
+    lists = {name: [ix.query_row(r, 10) for r in range(len(sub))]
+             for name, ix in indexes.items()}
+    same_lists = all(
+        [m for m, _ in a] == [m for m, _ in b]
+        and np.allclose([s for _, s in a], [s for _, s in b], atol=1e-5)
+        for a, b in zip(lists["cuda"], lists["cpu"]))
+    numbers["parity"] = dict(images=len(sub), center_max_abs_err=center_err,
+                             words_equal=same_words, same_ranked_lists=same_lists,
+                             seconds=secs)
+    log(f"phase 23 card vs CPU: {json.dumps(numbers['parity'])}")
+    if not (center_err < 1e-4 and same_words >= 0.999 and same_lists):
+        raise AssertionError("phase 23: the card's tree, words or ranked lists "
+                             "disagree with the CPU's")
+
+    # (d) the retrieval-driven matchers on phase 21's 30 images
+    matchers = {}
+    buckets = 0
+    for name, call in (
+            ("match_vocabtree", lambda p: match_vocabtree(
+                p, matching_options=VocabTreeMatchingOptions(num_images=10))),
+            ("match_sequential_loops", lambda p: match_sequential(
+                p, matching_options=SequentialMatchingOptions(
+                    overlap=2, loop_detection=True,
+                    loop_detection_period=5)))):
+        path = tmp / f"{name}.db"
+        shutil.copy(e2e_db, path)
+        clear_matches(path)
+        with MatchRecorder() as rm:
+            t0 = time.perf_counter()
+            verified = call(path)
+            wall = time.perf_counter() - t0
+        buckets += rm.buckets
+        matchers[name] = dict(seconds=wall, candidates=rm.matched,
+                              verified=verified, top2_buckets=rm.buckets,
+                              match_s=rm.match_s, verify_s=rm.verify_s)
+        if not (rm.matched and verified >= rm.matched / 2):
+            raise AssertionError(f"phase 23: {name} verified {verified} of "
+                                 f"{rm.matched} candidate pairs (need half)")
+    numbers["matchers"] = matchers
+    log(f"phase 23 matchers on phase 21's database: {json.dumps(matchers)}")
+    numbers["phase_s"] = time.perf_counter() - t23
+    return numbers, buckets
+
+
 def ba_kernel_registers(build_log):
     """ptxas register counts of the resjac / cost / finish instances, by
     kernel and camera policy (Single<model id> or Mixed<width>)."""
@@ -3703,6 +4014,8 @@ def main():
     schur = schur_kernels()
     results["matvec16"] = schur["matvec16"]
     (ROOT / "build").mkdir(exist_ok=True)
+    # phase 14's workspace stays for phase 22's meshers
+    dense_dir = tempfile.TemporaryDirectory(dir=ROOT / "build")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         known_pose = dict(bundle_adjustment=model_bundle_adjustment(Path(tmp)))
         model_ba_parity(Path(tmp))
@@ -3726,7 +4039,8 @@ def main():
         log(f"mixed summary: {json.dumps(mixed)}")
 
         # --- phases 14 and 13: the dense pipeline and its cost kernel -----
-        pm_launches, dense, captured, first_call = dense_pipeline(Path(tmp))
+        pm_launches, dense, captured, first_call = dense_pipeline(
+            Path(dense_dir.name))
     for kind in ("photometric", "geometric"):
         dense[f"{kind}_busy_share"], dense[f"{kind}_kernel_share"] = \
             profile_patch_match(first_call[kind], kind)
@@ -3759,7 +4073,34 @@ def main():
     # --- phase 21: images to model ------------------------------------------
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         e2e = images_to_model_phase(Path(tmp))
-    log(f"images-to-model summary: {json.dumps(e2e['numbers'])}")
+        log(f"images-to-model summary: {json.dumps(e2e['numbers'])}")
+
+        # --- phases 22 and 23: meshing and retrieval ----------------------
+        # every launch count zeroed just before and read just after: only
+        # top-2 launches, from the retrieval matchers' descriptor matching
+        for mod in (ck, mk, ws, pmk, pg):
+            mod.reset_counts()
+        tmp = Path(tmp)
+        meshes = Path(dense_dir.name) / "meshes"
+        meshes.mkdir()
+        mesh = meshing_phase(Path(dense_dir.name) / "dense",
+                             tmp / "e2e" / "model" / "0", meshes)
+        log(f"meshing summary: {json.dumps(mesh)}")
+        ret, buckets = retrieval_phase(tmp, tmp / "e2e" / "e2e.db")
+        log(f"retrieval summary: {json.dumps(ret)}")
+        late = {**ck.LAUNCHES, **other_launch_counts()}
+        late_plain = {**ck.PLAIN_ON_CUDA, **pmk.PLAIN_ON_CUDA,
+                      **ws.PLAIN_ON_CUDA, **mk.PLAIN_ON_CUDA}
+        log(f"phases 22-23 launches: {json.dumps(late)}; expected top-2 "
+            f"{2 * buckets} (2 per shape bucket over {buckets} buckets), "
+            "nothing else")
+        if ({k: v for k, v in late.items() if v}
+                != ({"top2": 2 * buckets} if buckets else {})
+                or any(late_plain.values())):
+            raise AssertionError(f"phases 22-23: launches {late}, expected "
+                                 f"top-2 {2 * buckets} and nothing else; "
+                                 f"plain on CUDA {late_plain}")
+    dense_dir.cleanup()
 
     kernels = []
     for name in SINGLE_BA:
@@ -3920,6 +4261,9 @@ def main():
         name = row["name"]
         row["launches_images_to_model"] = e2e["launches"].get(name, 0) + (
             e2e["launches"]["pm_cost_parity"] if name == "pm_cost" else 0)
+        # phases 22-23: meshing and retrieval
+        row["launches_meshing_retrieval"] = late.get(name, 0) + (
+            late["pm_cost_parity"] if name == "pm_cost" else 0)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

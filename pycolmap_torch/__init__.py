@@ -12,7 +12,8 @@ CPU fallback.
 
 The public surface re-exports what is ported of the reference's: scene
 objects, geometry types, the estimators (not the alignment ones yet),
-features, and the pipeline stages (not meshing or ``match_vocabtree`` yet).
+features, vocabulary-tree retrieval, and the pipeline stages from images
+to a model and on to a mesh (not ``hierarchical_mapping`` yet).
 """
 
 from __future__ import annotations
@@ -107,12 +108,19 @@ from pycolmap_torch.features import (  # noqa: E402
     match_descriptors,
     match_guided,
 )
+from pycolmap_torch.features.retrieval import (  # noqa: E402
+    InvertedIndex,
+    VocabTree,
+    build_visual_index,
+)
 from pycolmap_torch.pipeline import (  # noqa: E402
     CameraMode,
+    DelaunayMeshingOptions,
     ExhaustiveMatchingOptions,
     ImageReaderOptions,
     IncrementalPipelineOptions,
     PatchMatchOptions,
+    PoissonMeshingOptions,
     ReconstructionManager,
     SequentialMatchingOptions,
     SpatialMatchingOptions,
@@ -120,6 +128,7 @@ from pycolmap_torch.pipeline import (  # noqa: E402
     UndistortCameraOptions,
     VocabTreeMatchingOptions,
     bundle_adjustment,
+    dense_delaunay_meshing,
     extract_features,
     import_images,
     incremental_mapping,
@@ -127,7 +136,10 @@ from pycolmap_torch.pipeline import (  # noqa: E402
     match_exhaustive,
     match_sequential,
     match_spatial,
+    match_vocabtree,
     patch_match_stereo,
+    poisson_meshing,
+    sparse_delaunay_meshing,
     stereo_fusion,
     triangulate_points,
     undistort_images,

@@ -2,9 +2,10 @@
 
 The reference's ``BundleProblem`` and its options (BA, SIFT extraction,
 SIFT matching, the incremental pipeline, PatchMatch, stereo fusion,
-undistortion, RANSAC and the estimators', image reading and the pair
-matchers') cross as plain data (numpy arrays, dicts), never as reference
-objects, so this module imports nothing of ``pycolmap_tpu``. Parity tests
+undistortion, RANSAC and the estimators', image reading, the pair
+matchers' and meshing's) and the vocabulary tree cross as plain data
+(numpy arrays, dicts), never as reference objects, so this module imports
+nothing of ``pycolmap_tpu``. Parity tests
 build one problem, hand its fields to both packages, and compare the
 results. The pipeline has no other state: its database (COLMAP's SQLite
 schema), models, images and depth maps cross as files, which both packages
@@ -26,8 +27,13 @@ from pycolmap_torch.estimators.ransac import RANSACOptions
 from pycolmap_torch.estimators.triangulation import EstimateTriangulationOptions
 from pycolmap_torch.estimators.two_view_geometry import TwoViewGeometryOptions
 from pycolmap_torch.features.matcher import SiftMatchingOptions
+from pycolmap_torch.features.retrieval import VocabTree
 from pycolmap_torch.features.sift import SiftExtractionOptions
 from pycolmap_torch.mvs.fusion import StereoFusionOptions
+from pycolmap_torch.mvs.meshing import (
+    DelaunayMeshingOptions,
+    PoissonMeshingOptions,
+)
 from pycolmap_torch.mvs.patch_match import PatchMatchOptions
 from pycolmap_torch.pipeline.images import (
     ImageReaderOptions,
@@ -200,3 +206,24 @@ def vocab_tree_matching_options_from_dict(
     """The port's ``VocabTreeMatchingOptions`` from the reference options'
     ``todict()``."""
     return _options_from(VocabTreeMatchingOptions, values)
+
+
+def poisson_meshing_options_from_dict(
+        values: Mapping) -> PoissonMeshingOptions:
+    """The port's ``PoissonMeshingOptions`` from the reference options'
+    ``todict()``."""
+    return _options_from(PoissonMeshingOptions, values)
+
+
+def delaunay_meshing_options_from_dict(
+        values: Mapping) -> DelaunayMeshingOptions:
+    """The port's ``DelaunayMeshingOptions`` from the reference options'
+    ``todict()``."""
+    return _options_from(DelaunayMeshingOptions, values)
+
+
+def vocab_tree_from_reference(tree) -> VocabTree:
+    """The port's ``VocabTree`` from a reference ``VocabTree``: its levels
+    cross as numpy arrays, with its branching."""
+    return VocabTree([np.asarray(c, np.float32) for c in tree.levels],
+                     int(tree.branching))

@@ -1,6 +1,6 @@
-"""SIFT extraction, descriptor matching and guided matching (port of
-``pycolmap_tpu/features``; the vocabulary-tree retrieval module is not
-ported yet, see ROADMAP.md)."""
+"""SIFT extraction, descriptor matching, guided matching and
+vocabulary-tree retrieval (``features/retrieval.py``); port of
+``pycolmap_tpu/features``."""
 
 from pycolmap_torch.features.matcher import (
     SiftMatchingOptions,

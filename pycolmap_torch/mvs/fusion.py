@@ -287,21 +287,47 @@ def write_fused_vis(path, counts, flat):
         f.write(buf.astype("<u4").tobytes())
 
 
+_VIS_STRIDE = 256  # chain steps per jump table entry in read_fused_vis
+
+
 def read_fused_vis(path):
-    """Read fused.ply.vis -> (counts uint32 [N], flat uint32 ids)."""
+    """Read fused.ply.vis -> (counts uint32 [N], flat uint32 ids).
+
+    The counts are self-delimiting: the count of point i+1 sits at
+    p(i+1) = p(i) + 1 + buf[p(i)]. Every word gets that successor at once,
+    a jump table of ``_VIS_STRIDE`` successors is built by pointer doubling,
+    the chain from word 0 is walked in strides on it, and the words between
+    strides are filled in for all strides at once."""
     raw = np.fromfile(path, dtype=np.uint8)
     n = int(np.frombuffer(raw[:8].tobytes(), dtype="<u8")[0])
     buf = np.frombuffer(raw[8:].tobytes(), dtype="<u4")
-    counts = np.empty(n, np.uint32)
-    pos = 0
-    starts = np.empty(n, np.int64)
-    # counts are self-delimiting; one pass to locate them
-    for i in range(n):
-        counts[i] = buf[pos]
-        starts[i] = pos + 1
-        pos += 1 + int(buf[pos])
-    mask = np.ones(len(buf), bool)
-    mask[starts - 1] = False
+    L = len(buf)
+    if n == 0:
+        return np.zeros(0, np.uint32), buf.copy()
+    # successor of every word read as a count; L is an absorbing end
+    nxt = np.empty(L + 1, np.int64)
+    nxt[:L] = np.arange(1, L + 1, dtype=np.int64) + buf
+    nxt[L] = L
+    np.minimum(nxt, L, out=nxt)
+    jump = nxt
+    for _ in range(int(np.log2(_VIS_STRIDE))):
+        jump = jump[jump]
+    heads = np.empty(-(-n // _VIS_STRIDE), np.int64)
+    p = 0
+    for j in range(len(heads)):
+        heads[j] = p
+        p = jump[p]
+    pos = np.empty((len(heads), _VIS_STRIDE), np.int64)
+    pos[:, 0] = heads
+    for t in range(1, _VIS_STRIDE):
+        pos[:, t] = nxt[pos[:, t - 1]]
+    starts = pos.reshape(-1)[:n]
+    if starts[-1] >= L or starts[-1] + 1 + int(buf[starts[-1]]) > L:
+        raise ValueError(f"{path}: malformed visibility file (the counts of "
+                         f"{n} points run past its end)")
+    counts = buf[starts].copy()
+    mask = np.ones(L, bool)
+    mask[starts] = False
     return counts, buf[mask]
 
 

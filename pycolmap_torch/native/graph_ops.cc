@@ -1,7 +1,7 @@
 // Native correspondence-graph traversal kernels (host C++).
 //
-// Copy of pycolmap_tpu/native/graph_ops.cc for the PyTorch port: the
-// counterpart of the reference's C++ scene/correspondence_graph.cc hot
+// Copy of pycolmap_tpu/native/graph_ops.cc for the PyTorch port (its
+// min-cut's max-flow replaced, see graph_min_cut): the counterpart of the reference's C++ scene/correspondence_graph.cc hot
 // paths, breadth-first expansion over the CSR adjacency used by
 // transitive-correspondence extraction
 // (ref: pycolmap/scene/correspondence_graph.h:76-77) and track completion
@@ -17,6 +17,7 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <deque>
 #include <vector>
 
 extern "C" {
@@ -161,11 +162,17 @@ int64_t expand_merge_pairs(
   return std::unique(out_codes, out_codes + n) - out_codes;
 }
 
-// s-t min-cut labeling by Dinic max-flow — the energy minimizer of the
-// Delaunay mesher's graph-cut (the reference delegates to CGAL's
-// visibility-consistent surface extraction, ref meshing.h:52-117; the
-// Labatut-Pons construction puts per-cell terminal capacities and
-// face-area-weighted n-links between adjacent tetrahedra).
+// s-t min-cut labeling by Boykov-Kolmogorov max-flow — the energy
+// minimizer of the Delaunay mesher's graph-cut (the reference delegates to
+// CGAL's visibility-consistent surface extraction, ref meshing.h:52-117;
+// the Labatut-Pons construction puts per-cell terminal capacities and
+// face-area-weighted n-links between adjacent tetrahedra). The JAX
+// package's copy of this file runs Dinic; on the dense mesher's ~1.2M
+// cells that took minutes, where these two search trees (grown from the
+// source and the sink, kept across augmentations and repaired by
+// adoption) take seconds. Both end at a maximum flow, and the labels are
+// the same function of it: the nodes that reach the source through
+// residual arcs above EPS, the unique smallest min-cut source side.
 //
 // Inputs: m undirected n-links (eu[i], ev[i], ecap[i]) with equal capacity
 // both ways; per-node net terminal capacity net_cap[i] (>0: arc from the
@@ -175,108 +182,213 @@ int64_t expand_merge_pairs(
 int64_t graph_min_cut(int64_t n, const int64_t* eu, const int64_t* ev,
                       const float* ecap, int64_t m, const float* net_cap,
                       uint8_t* label) {
-  const int64_t S = n, T = n + 1, N = n + 2;
-  std::vector<int64_t> head, to, nxt;
-  std::vector<double> cap;
+  const int64_t NONE = -1, TERMINAL = -2, ORPHAN = -3;
+  const int64_t INF_D = INT64_MAX;
+  // arcs in pairs: the sister of arc e is e ^ 1; first/nxt list each
+  // node's outgoing arcs, head is an arc's end, rcap its residual
+  std::vector<int64_t> first, nxt, head, parent, ts, dist;
+  std::vector<double> rcap, tr;
+  std::vector<uint8_t> sink, queued;
+  std::deque<int64_t> active, orphans;
   try {
-    head.assign(N, -1);
-    to.reserve(2 * m + 2 * n);
-    nxt.reserve(2 * m + 2 * n);
-    cap.reserve(2 * m + 2 * n);
+    first.assign(n, -1);
+    nxt.reserve(2 * m);
+    head.reserve(2 * m);
+    rcap.reserve(2 * m);
+    parent.assign(n, NONE);
+    ts.assign(n, 0);
+    dist.assign(n, 0);
+    tr.assign(n, 0.0);
+    sink.assign(n, 0);
+    queued.assign(n, 0);
+    for (int64_t i = 0; i < m; ++i) {
+      const int64_t u = eu[i], v = ev[i];
+      if (u < 0 || u >= n || v < 0 || v >= n) continue;
+      head.push_back(v);
+      rcap.push_back(ecap[i]);
+      nxt.push_back(first[u]);
+      first[u] = (int64_t)head.size() - 1;
+      head.push_back(u);
+      rcap.push_back(ecap[i]);
+      nxt.push_back(first[v]);
+      first[v] = (int64_t)head.size() - 1;
+    }
   } catch (...) {
     return -1;
   }
-  auto add_arc = [&](int64_t u, int64_t v, double c, double crev) {
-    to.push_back(v);
-    cap.push_back(c);
-    nxt.push_back(head[u]);
-    head[u] = (int64_t)to.size() - 1;
-    to.push_back(u);
-    cap.push_back(crev);
-    nxt.push_back(head[v]);
-    head[v] = (int64_t)to.size() - 1;
+  auto set_active = [&](int64_t i) {
+    if (!queued[i]) {
+      queued[i] = 1;
+      active.push_back(i);
+    }
   };
-  for (int64_t i = 0; i < m; ++i) {
-    if (eu[i] < 0 || eu[i] >= n || ev[i] < 0 || ev[i] >= n) continue;
-    add_arc(eu[i], ev[i], ecap[i], ecap[i]);
-  }
+  auto orphan = [&](int64_t i) {
+    parent[i] = ORPHAN;
+    orphans.push_front(i);
+  };
+  // every node with a terminal capacity roots its own tree
   for (int64_t i = 0; i < n; ++i) {
-    if (net_cap[i] > 0.0f) add_arc(S, i, net_cap[i], 0.0);
-    else if (net_cap[i] < 0.0f) add_arc(i, T, -(double)net_cap[i], 0.0);
+    tr[i] = net_cap[i];
+    if (tr[i] != 0.0) {
+      sink[i] = tr[i] < 0.0;
+      parent[i] = TERMINAL;
+      dist[i] = 1;
+      set_active(i);
+    }
   }
-  std::vector<int32_t> level(N);
-  std::vector<int64_t> it(N), q(N), path;
-  const double EPS = 1e-12;
-  auto bfs = [&]() -> bool {
-    std::fill(level.begin(), level.end(), -1);
-    int64_t qh = 0, qt = 0;
-    q[qt++] = S;
-    level[S] = 0;
-    while (qh < qt) {
-      int64_t u = q[qh++];
-      for (int64_t e = head[u]; e != -1; e = nxt[e]) {
-        if (cap[e] > EPS && level[to[e]] < 0) {
-          level[to[e]] = level[u] + 1;
-          q[qt++] = to[e];
-        }
+  int64_t TIME = 0, cur = -1;
+  for (;;) {
+    // the node that found the last path grows on; else the next active one
+    int64_t i = cur >= 0 && parent[cur] != NONE ? cur : -1;
+    while (i < 0 && !active.empty()) {
+      i = active.front();
+      active.pop_front();
+      queued[i] = 0;
+      if (parent[i] == NONE) i = -1;  // freed since it was queued
+    }
+    if (i < 0) break;
+    // growth: a = the arc from the source tree to the sink tree, if met
+    int64_t a = -1;
+    for (int64_t e = first[i]; e != -1; e = nxt[e]) {
+      if (!(sink[i] ? rcap[e ^ 1] > 0.0 : rcap[e] > 0.0)) continue;
+      const int64_t j = head[e];
+      if (parent[j] == NONE) {
+        sink[j] = sink[i];
+        parent[j] = e ^ 1;
+        ts[j] = ts[i];
+        dist[j] = dist[i] + 1;
+        set_active(j);
+      } else if (sink[j] != sink[i]) {
+        a = sink[i] ? e ^ 1 : e;
+        break;
+      } else if (ts[j] <= ts[i] && dist[j] > dist[i]) {
+        // a shorter way to j's terminal
+        parent[j] = e ^ 1;
+        ts[j] = ts[i];
+        dist[j] = dist[i] + 1;
       }
     }
-    return level[T] >= 0;
-  };
-  while (bfs()) {
-    for (int64_t i = 0; i < N; ++i) it[i] = head[i];
-    for (;;) {
-      // one augmenting path via current-arc iterative DFS
-      path.clear();
-      int64_t u = S;
-      bool found = false;
-      for (;;) {
-        if (u == T) {
-          found = true;
-          break;
+    ++TIME;
+    if (a < 0) {
+      cur = -1;
+      continue;
+    }
+    cur = i;
+    // augmentation: the bottleneck from the source root through a to the
+    // sink root, pushed; saturated tree arcs orphan their child
+    double f = rcap[a];
+    int64_t k = head[a ^ 1];
+    for (; parent[k] != TERMINAL; k = head[parent[k]])
+      f = std::min(f, rcap[parent[k] ^ 1]);
+    f = std::min(f, tr[k]);
+    for (k = head[a]; parent[k] != TERMINAL; k = head[parent[k]])
+      f = std::min(f, rcap[parent[k]]);
+    f = std::min(f, -tr[k]);
+    rcap[a ^ 1] += f;
+    rcap[a] -= f;
+    for (k = head[a ^ 1]; parent[k] != TERMINAL;) {
+      const int64_t pa = parent[k], up = head[pa];
+      rcap[pa] += f;
+      rcap[pa ^ 1] -= f;
+      if (rcap[pa ^ 1] == 0.0) orphan(k);
+      k = up;
+    }
+    tr[k] -= f;
+    if (tr[k] == 0.0) orphan(k);
+    for (k = head[a]; parent[k] != TERMINAL;) {
+      const int64_t pa = parent[k], up = head[pa];
+      rcap[pa ^ 1] += f;
+      rcap[pa] -= f;
+      if (rcap[pa] == 0.0) orphan(k);
+      k = up;
+    }
+    tr[k] += f;
+    if (tr[k] == 0.0) orphan(k);
+    // adoption: each orphan takes the neighbour in its tree that still
+    // reaches the terminal by the shortest known way, or is freed
+    while (!orphans.empty()) {
+      const int64_t o = orphans.front();
+      orphans.pop_front();
+      const bool s = sink[o];
+      int64_t best = NONE, dmin = INF_D;
+      for (int64_t e = first[o]; e != -1; e = nxt[e]) {
+        if (!(s ? rcap[e] > 0.0 : rcap[e ^ 1] > 0.0)) continue;
+        const int64_t j = head[e];
+        if (sink[j] != s || parent[j] == NONE) continue;
+        int64_t d = 0, jj = j;
+        for (;;) {  // j's origin, and its distance
+          if (ts[jj] == TIME) {
+            d += dist[jj];
+            break;
+          }
+          const int64_t pa = parent[jj];
+          ++d;
+          if (pa == TERMINAL) {
+            ts[jj] = TIME;
+            dist[jj] = 1;
+            break;
+          }
+          if (pa == ORPHAN) {
+            d = INF_D;
+            break;
+          }
+          jj = head[pa];
         }
-        int64_t e = it[u];
-        while (e != -1 && !(cap[e] > EPS && level[to[e]] == level[u] + 1)) {
-          e = nxt[e];
+        if (d == INF_D) continue;
+        if (d < dmin) {
+          best = e;
+          dmin = d;
         }
-        it[u] = e;
-        if (e == -1) {
-          if (path.empty()) break;  // no more paths this phase
-          level[u] = -1;            // dead end: prune from the level graph
-          int64_t pe = path.back();
-          path.pop_back();
-          u = to[pe ^ 1];  // arc pairs: reverse of e is e^1, tail = to[e^1]
-        } else {
-          path.push_back(e);
-          u = to[e];
+        for (jj = j; ts[jj] != TIME; jj = head[parent[jj]]) {
+          ts[jj] = TIME;
+          dist[jj] = d--;
         }
       }
-      if (!found) break;
-      double f = 1e300;
-      for (int64_t pe : path) f = std::min(f, cap[pe]);
-      for (int64_t pe : path) {
-        cap[pe] -= f;
-        cap[pe ^ 1] += f;
+      if (best != NONE) {
+        parent[o] = best;
+        ts[o] = TIME;
+        dist[o] = dmin + 1;
+        continue;
+      }
+      parent[o] = NONE;
+      for (int64_t e = first[o]; e != -1; e = nxt[e]) {
+        const int64_t j = head[e];
+        if (sink[j] != s || parent[j] == NONE) continue;
+        if (s ? rcap[e] > 0.0 : rcap[e ^ 1] > 0.0) set_active(j);
+        const int64_t pa = parent[j];
+        if (pa != TERMINAL && pa != ORPHAN && head[pa] == o) {
+          parent[j] = ORPHAN;
+          orphans.push_back(j);
+        }
       }
     }
   }
   // min-cut: source side = residual-reachable from S
-  std::fill(level.begin(), level.end(), -1);
-  int64_t qh = 0, qt = 0;
-  q[qt++] = S;
-  level[S] = 0;
-  while (qh < qt) {
-    int64_t u = q[qh++];
-    for (int64_t e = head[u]; e != -1; e = nxt[e]) {
-      if (cap[e] > EPS && level[to[e]] < 0) {
-        level[to[e]] = 0;
-        q[qt++] = to[e];
+  const double EPS = 1e-12;
+  std::vector<int64_t> q;
+  std::fill(queued.begin(), queued.end(), 0);
+  try {
+    q.reserve(n);
+  } catch (...) {
+    return -1;
+  }
+  for (int64_t i = 0; i < n; ++i) {
+    if (tr[i] > EPS) {
+      queued[i] = 1;
+      q.push_back(i);
+    }
+  }
+  for (size_t h = 0; h < q.size(); ++h) {
+    for (int64_t e = first[q[h]]; e != -1; e = nxt[e]) {
+      if (rcap[e] > EPS && !queued[head[e]]) {
+        queued[head[e]] = 1;
+        q.push_back(head[e]);
       }
     }
   }
   int64_t n_src = 0;
   for (int64_t i = 0; i < n; ++i) {
-    label[i] = level[i] == 0 ? 1 : 0;
+    label[i] = queued[i];
     n_src += label[i];
   }
   return n_src;

@@ -15,6 +15,7 @@ from pycolmap_torch.pipeline.match_features import (
     match_exhaustive,
     match_sequential,
     match_spatial,
+    match_vocabtree,
     verify_matches,
 )
 from pycolmap_torch.pipeline.mvs import (
@@ -22,6 +23,13 @@ from pycolmap_torch.pipeline.mvs import (
     StereoFusionOptions,
     patch_match_stereo,
     stereo_fusion,
+)
+from pycolmap_torch.mvs.meshing import (
+    DelaunayMeshingOptions,
+    PoissonMeshingOptions,
+    dense_delaunay_meshing,
+    poisson_meshing,
+    sparse_delaunay_meshing,
 )
 from pycolmap_torch.pipeline.sfm import (
     IncrementalPipelineOptions,
@@ -36,14 +44,17 @@ from pycolmap_torch.sfm.incremental_mapper import (
     IncrementalMapperOptions,
 )
 
-__all__ = ["CameraMode", "ExhaustiveMatchingOptions", "ImageReaderOptions",
+__all__ = ["CameraMode", "DelaunayMeshingOptions",
+           "ExhaustiveMatchingOptions", "ImageReaderOptions",
            "ImageSelectionMethod", "IncrementalMapper",
            "IncrementalMapperOptions", "IncrementalPipelineOptions",
-           "PatchMatchOptions", "ReconstructionManager",
-           "SequentialMatchingOptions", "SpatialMatchingOptions",
-           "StereoFusionOptions", "UndistortCameraOptions",
-           "VocabTreeMatchingOptions", "bundle_adjustment",
-           "extract_features", "import_images", "incremental_mapping",
-           "infer_camera_from_image", "match_exhaustive", "match_sequential",
-           "match_spatial", "patch_match_stereo", "stereo_fusion",
-           "triangulate_points", "undistort_images", "verify_matches"]
+           "PatchMatchOptions", "PoissonMeshingOptions",
+           "ReconstructionManager", "SequentialMatchingOptions",
+           "SpatialMatchingOptions", "StereoFusionOptions",
+           "UndistortCameraOptions", "VocabTreeMatchingOptions",
+           "bundle_adjustment", "dense_delaunay_meshing", "extract_features",
+           "import_images", "incremental_mapping", "infer_camera_from_image",
+           "match_exhaustive", "match_sequential", "match_spatial",
+           "match_vocabtree", "patch_match_stereo", "poisson_meshing",
+           "sparse_delaunay_meshing", "stereo_fusion", "triangulate_points",
+           "undistort_images", "verify_matches"]

@@ -4,16 +4,16 @@ Port of ``pycolmap_tpu/pipeline/match_features.py`` (API parity:
 pycolmap/pipeline/match_features.h — ``match_exhaustive`` :219
 (ExhaustiveMatchingOptions :102-108), ``match_sequential`` :228
 (SequentialMatchingOptions :110-152), ``match_spatial`` :237
-(SpatialMatchingOptions :154-175), ``verify_matches`` :51-68, and the
-options of ``match_vocabtree`` :246 (VocabTreeMatchingOptions :177-214)).
+(SpatialMatchingOptions :154-175), ``match_vocabtree`` :246
+(VocabTreeMatchingOptions :177-214) and ``verify_matches`` :51-68).
 
 The pair list is generated on the host; descriptor matching runs in chunks
 of 64 pairs through ``match_descriptors_batch`` (the top-2 kernel on the
 card) and verification in blocks of 16 pairs through
 ``verify_pairs_batch``, both on the entry point's device (default: the
-card). ``match_vocabtree`` and sequential loop detection need the
-vocabulary-tree retrieval module, which is not ported yet (ROADMAP.md
-queue 1 item 12): ``loop_detection=True`` raises.
+card). ``match_vocabtree`` and sequential loop detection rank candidates
+with the vocabulary tree (``features/retrieval.py``), trained and
+quantized on the same device.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from pycolmap_torch.estimators.two_view_geometry import (
     TwoViewGeometryOptions,
     estimate_calibrated_two_view_geometry,
 )
+from pycolmap_torch.features import retrieval
 from pycolmap_torch.features.matcher import (
     SiftMatchingOptions,
     match_descriptors_batch,
@@ -64,8 +65,6 @@ class SpatialMatchingOptions(BaseOptions):
 
 @options_dataclass
 class VocabTreeMatchingOptions(BaseOptions):
-    """Options only: ``match_vocabtree`` waits for the retrieval module."""
-
     num_images: int = 100
     num_nearest_neighbors: int = 5
     num_checks: int = 256
@@ -309,17 +308,13 @@ def match_sequential(
     verbose: bool = False,
 ):
     """Window + quadratic overlap pairs (ref: match_features.h:110-152,
-    :228). Runs on ``device`` (default: the card). Loop detection needs the
-    vocabulary-tree retrieval module, not ported yet: it raises."""
+    :228), and with ``loop_detection`` the vocabulary tree's loop
+    candidates of every ``loop_detection_period``-th image. Runs on
+    ``device`` (default: the card)."""
     device = resolve_device(device)
     sift_options, matching_options, verification_options = _defaults(
         sift_options, matching_options, verification_options,
         SequentialMatchingOptions)
-    if matching_options.loop_detection:
-        raise NotImplementedError(
-            "match_sequential(loop_detection=True) needs the vocabulary-tree "
-            "retrieval module (features/retrieval.py), which pycolmap_torch "
-            "has not ported yet (ROADMAP.md queue 1 item 12)")
     db = Database(database_path)
     try:
         # sequential order = sorted by name (upstream orders by name)
@@ -335,9 +330,31 @@ def match_sequential(
                     q = i + (1 << k)
                     if q < n:
                         pairs.add((min(ids[i], ids[q]), max(ids[i], ids[q])))
-        return _match_and_verify_pairs(
-            db, sorted(pairs), sift_options, verification_options, device,
-            verbose)
+        matcher = _PairMatcher(db, sift_options, verification_options,
+                               device, verbose)
+        num = sum(matcher.run(sorted(pairs)))
+        if matching_options.loop_detection:
+            mo = matching_options
+            ranked = retrieval.detect_loops(
+                db, ids, period=mo.loop_detection_period,
+                num_images=mo.loop_detection_num_images,
+                num_nearest_neighbors=mo.loop_detection_num_nearest_neighbors,
+                num_checks=mo.loop_detection_num_checks,
+                max_num_features=mo.loop_detection_max_num_features,
+                vocab_tree_path=mo.vocab_tree_path, device=device,
+            )
+            # drop candidates already matched by the sequential window
+            ranked = [
+                (q, [(m, s) for m, s in cands
+                     if (min(q, m), max(q, m)) not in pairs])
+                for q, cands in ranked
+            ]
+            num += matcher.run_ranked(
+                ranked,
+                cap_after_verification=(
+                    mo.loop_detection_num_images_after_verification),
+            )
+        return num
     finally:
         db.close()
 
@@ -381,6 +398,59 @@ def match_spatial(
         return _match_and_verify_pairs(
             db, sorted(pairs), sift_options, verification_options, device,
             verbose)
+    finally:
+        db.close()
+
+
+def match_vocabtree(
+    database_path,
+    sift_options: SiftMatchingOptions = None,
+    matching_options: VocabTreeMatchingOptions = None,
+    verification_options: TwoViewGeometryOptions = None,
+    device=None,
+    verbose: bool = False,
+):
+    """Visual-retrieval pairs (ref: match_features.h:177-214, :246): each
+    image's ``num_images`` most similar images by the vocabulary tree,
+    verified in descending score order (at most
+    ``num_images_after_verification`` passing per query when > 0), or the
+    pairs of ``match_list_path``. Runs on ``device`` (default: the
+    card)."""
+    device = resolve_device(device)
+    sift_options, matching_options, verification_options = _defaults(
+        sift_options, matching_options, verification_options,
+        VocabTreeMatchingOptions)
+    db = Database(database_path)
+    try:
+        images = db.read_all_images()
+        if matching_options.match_list_path:
+            # explicit pair list file: "name1 name2" per line (ref
+            # VocabTreeMatchingOptions::match_list_path)
+            with open(matching_options.match_list_path) as f:
+                name_pairs = [ln.split() for ln in f if ln.strip()]
+            by_name = {im.name: im.image_id for im in images}
+            pairs = sorted(
+                {
+                    (min(by_name[a], by_name[b]), max(by_name[a], by_name[b]))
+                    for a, b in name_pairs
+                    if a in by_name and b in by_name
+                }
+            )
+            return _match_and_verify_pairs(
+                db, pairs, sift_options, verification_options, device,
+                verbose)
+        mo = matching_options
+        ranked = retrieval.retrieve_ranked_pairs(
+            db, [im.image_id for im in images], num_images=mo.num_images,
+            max_num_features=mo.max_num_features,
+            num_nearest_neighbors=mo.num_nearest_neighbors,
+            num_checks=mo.num_checks, vocab_tree_path=mo.vocab_tree_path,
+            device=device,
+        )
+        matcher = _PairMatcher(db, sift_options, verification_options,
+                               device, verbose)
+        return matcher.run_ranked(
+            ranked, cap_after_verification=mo.num_images_after_verification)
     finally:
         db.close()
 

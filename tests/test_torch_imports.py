@@ -58,13 +58,18 @@ def test_the_port_is_scanned():
                 "sfm/resident.py", "native/__init__.py",
                 "pipeline/__init__.py", "pipeline/extract_features.py",
                 "pipeline/match_features.py", "estimators/batch_two_view.py",
-                "features/matcher.py", "__init__.py"):
+                "features/matcher.py", "__init__.py", "mvs/meshing.py",
+                "features/retrieval.py"):
         assert f"pycolmap_torch/{mod}" in names
     assert len(FILES) > 20
 
 
 QUICK_START = ("extract_features", "match_exhaustive", "incremental_mapping",
                "import_images", "match_sequential", "match_spatial",
+               "match_vocabtree", "poisson_meshing", "sparse_delaunay_meshing",
+               "dense_delaunay_meshing", "VocabTree", "InvertedIndex",
+               "build_visual_index", "PoissonMeshingOptions",
+               "DelaunayMeshingOptions",
                "verify_matches", "match_guided", "infer_camera_from_image",
                "Reconstruction", "Database", "Camera", "Rigid3d",
                "SiftExtractionOptions", "SiftMatchingOptions",
@@ -84,7 +89,7 @@ def test_cold_import(first):
             f"missing = [n for n in {QUICK_START!r} if not hasattr(pt, n)]; "
             "assert not missing, missing; "
             "assert pt.resolve_device(pt.Device.cpu).type == 'cpu'; "
-            "assert not hasattr(pt, 'match_vocabtree'); "
+            "assert hasattr(pt, 'match_vocabtree'); "
             "assert 'jax' not in sys.modules and "
             "'pycolmap_tpu' not in sys.modules")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -12,7 +12,9 @@ against the reference on the CPU, and images to model on the port.
   on the port alone (a reference run would compile blocks of one pair);
 - guided matching: each pair's inliers at least the unguided run's (the
   same blocks, so the same draws);
-- ``loop_detection=True`` raises: the retrieval module is not ported;
+- sequential loop detection on the port finds and verifies the planted
+  revisits of tests/test_torch_retrieval.py's loop database, which the
+  window alone misses;
 - the README's flow on the port from rendered images: 5 images at 320x240
   through ``extract_features`` -> ``match_exhaustive`` ->
   ``incremental_mapping`` with tests/test_dense_e2e.py's options, at least
@@ -35,6 +37,7 @@ from pycolmap_torch.ops.solvers import umeyama
 from pycolmap_torch.pipeline import match_features as tmf
 from test_full_pipeline import render_scene
 from test_pipeline_matchers import make_feature_db
+from test_torch_retrieval import loop_pairs, make_loop_db
 
 CPU = "cpu"
 
@@ -169,12 +172,24 @@ def test_run_ranked(tmp_path):
     assert set(_geometries(tmp_path / "db.db")) == {(1, 2), (4, 5)}
 
 
-def test_loop_detection_raises(tmp_path):
-    opts = pt.SequentialMatchingOptions(loop_detection=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tmf.match_sequential(tmp_path / "db.db", matching_options=opts,
-                             device=CPU)
-    assert not hasattr(pt, "match_vocabtree")
+def test_loop_detection_finds_the_planted_loop(tmp_path):
+    ids = make_loop_db(tmp_path / "src.db")
+    found = {}
+    for loop in (False, True):
+        db = tmp_path / f"loop_{loop}.db"
+        shutil.copy(tmp_path / "src.db", db)
+        opts = pt.SequentialMatchingOptions(
+            overlap=1, quadratic_overlap=False, loop_detection=loop,
+            loop_detection_period=2)
+        n = tmf.match_sequential(db, matching_options=opts, device=CPU)
+        found[loop] = (n, {p for p, g in _geometries(db).items()
+                           if len(g.inlier_matches) >= 15})
+    # the window alone verifies nothing (each place is seen once there);
+    # every other query finds its revisit
+    want = {p for p in loop_pairs(ids) if ids.index(p[0]) % 2 == 0}
+    assert found[False] == (0, set())
+    assert found[True] == (len(want), want) and len(want) == 3
+    assert hasattr(pt, "match_vocabtree")
 
 
 @pytest.fixture(scope="module")

@@ -207,8 +207,8 @@ def _random_cut_graph(seed, n=300):
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_min_cut_matches_reference(seed):
-    """The native Dinic, the port's iterative Python Dinic and the
-    reference's recursive one give the same labels."""
+    """The native Boykov-Kolmogorov cut, the port's iterative Python Dinic
+    and the reference's recursive one give the same labels."""
     _lib()
     n, eu, ev, cap, net = _random_cut_graph(seed)
     want = j_min_cut_py(n, eu, ev, cap, net)
