@@ -7,12 +7,15 @@ Two versions of a kernel are compared only inside one process tree on one
 card: each checkout runs in its own process (its own ``chip_smoke.py``,
 package and kernel build), in the order A, B, B, A, and each run prints
 ``chip_smoke.check_case``'s times at phase 2's bench case (resjac, cost,
-finish, prepare, the f32 matvec; median of 25 CUDA events each). With
-``--mapper-errors`` the B runs also map bench.py run_mapping's 30-image
-database on the card, record one global and one local-window BA step
-(``chip_smoke.ResJacRecorder``) and print, per output of resjac and
-prepare, the kernel's and the f32 plain version's scaled error against
-the float64 plain version.
+finish, prepare, the f32 matvec; median of 25 CUDA events each) and the
+Schur kernels' times at the width-9 operands phase 16's two-model solve
+gives them (``chip_smoke.check_case_schur``). With ``--mapper-errors``
+the first B run also maps bench.py run_mapping's 30-image database on the
+card, and the same orbit with its images alternating between a
+SIMPLE_RADIAL and a PINHOLE camera, records one global and one
+local-window BA step of each (``chip_smoke.ResJacRecorder``) and prints,
+per output of resjac and prepare, the kernel's and the f32 plain
+version's scaled error against the float64 plain version.
 
 Run from the root of checkout B on a host with the card, checkout A
 unpacked anywhere (e.g. ``git archive <commit> | tar -x -C build/parent``):
@@ -95,22 +98,42 @@ def one(tree: Path, mapper_errors: bool) -> int:
     case, _ = cs.bench_case(torch.device("cuda"))
     res = {}
     cs.check_case(case, "bench", res)
+    del case
+    torch.cuda.empty_cache()
+    # the Schur kernels at phase 16's width-9 operands (phase 11's numbers,
+    # which phase 16 only logs beside its own, stand in)
+    single = {"lm": 1, "solve": 1.0, "entry_s": 1.0,
+              "launches": {k: 1 for k in cs.SINGLE_BA}}
+    (tree / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=tree / "build") as tmp:
+        _, captured = cs.mixed_model_bundle_adjustment(Path(tmp), single)
+    buckets, pts, *rest = captured
+    schur = {k: {} for k in ck.TILE_KINDS}
+    cs.check_case_schur("width 9", cs.Case(
+        [b._replace(points=p) for b, p in zip(buckets, pts)], *rest, 0),
+        "chip_ab", schur)
     print("AB " + json.dumps({"tree": str(tree), **{
-        k: round(v["ms"], 5) for k, v in res.items()}}), flush=True)
+        k: round(v["ms"], 5) for k, v in res.items()}, **{
+        f"{k} width 9": round(v["width 9"]["ms"], 5)
+        for k, v in schur.items()}}), flush=True)
     if mapper_errors:
-        (tree / "build").mkdir(exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=tree / "build") as tmp:
-            tmp = Path(tmp)
-            gt = cs.write_orbit_database(tmp / "map.db", cs.MAP_IMAGES,
-                                         cs.MAP_POINTS, cs.MAP_NOISE)
-            with cs.ResJacRecorder() as rec:
-                cs.map_and_check(tmp / "map.db", tmp / "map", gt,
-                                 cs.mapping_options(), "cuda", "chip_ab",
-                                 cs.MAP_IMAGES)
-        _errors(cs, ck, torch, cs.mapping_case(rec.global_args, 201),
-                "mapping global")
-        _errors(cs, ck, torch, cs.mapping_case(rec.local_args, 202),
-                "mapping local")
+        two = [cs.Camera.create(1, "SIMPLE_RADIAL", 600.0, 640, 480),
+               cs.Camera.create(2, "PINHOLE", 600.0, 640, 480)]
+        for tag, cameras in (("mapping", None), ("two-model mapping", two)):
+            with tempfile.TemporaryDirectory(dir=tree / "build") as tmp:
+                tmp = Path(tmp)
+                gt = cs.write_orbit_database(tmp / "map.db", cs.MAP_IMAGES,
+                                             cs.MAP_POINTS, cs.MAP_NOISE,
+                                             cameras=cameras)
+                with cs.ResJacRecorder() as rec:
+                    cs.map_and_check(tmp / "map.db", tmp / "map", gt,
+                                     cs.mapping_options(4 if cameras else 6),
+                                     "cuda", f"chip_ab {tag}",
+                                     cs.MAP_IMAGES - (1 if cameras else 0))
+            _errors(cs, ck, torch, cs.mapping_case(rec.global_args, 201),
+                    f"{tag} global")
+            _errors(cs, ck, torch, cs.mapping_case(rec.local_args, 202),
+                    f"{tag} local")
     return 0
 
 

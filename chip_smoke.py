@@ -6,7 +6,9 @@ with known poses), the dense pipeline (undistortion, PatchMatch stereo,
 stereo fusion), the gather probe, the geometric estimators, the
 incremental mapper, the way from image files to a model (import,
 extraction, the pair matchers with batched verification, mapping), the
-meshers, and vocabulary-tree retrieval with the matchers built on it.
+meshers, vocabulary-tree retrieval with the matchers built on it,
+hierarchical mapping with alignment, the rig pose, and mapping with two
+camera models.
 
 Run from the repository root on a host with an H100 (or another sm_90a
 card) and the CUDA toolkit:
@@ -133,16 +135,16 @@ Phases (each raises on failure; the script then exits nonzero):
 20. ``incremental_mapping`` at bench.py run_mapping's size: the
     30-image / 2,000-point orbit database of tests/test_incremental_mapping.py
     (written with the port's Database), run_mapping's options, on the card
-    twice (the first call in the process, then a second with every launch
-    count zeroed just before and read just after): registered img/s and the
-    stage split of each; 30/30 registered, mean reprojection error under
+    (every launch count zeroed just before and read just after):
+    registered img/s and the stage split; 30/30 registered, mean
+    reprojection error under
     1 px, median rotation error under 0.5 degrees after a similarity
     alignment, more than half the points, the model read back; matvec16
     launched once per CG iteration, prepare and finish once per LM step,
     the cost once per solve (the mapper's resident-BA cache counts them),
     no kernel off the BA path; resjac, cost, finish, prepare, the f32 and
     the bf16 matvec held to their plain versions (phases 2 and 10) at the
-    operands of one global step (the deepest buckets, recorded in the first
+    operands of one global step (the deepest buckets, recorded in the same
     call) and one local-window step, the global step's timed; the 8-image /
     300-point database on the card and on the CPU, both checked; the native
     graph library built from the checkout and the correspondence graph
@@ -190,7 +192,44 @@ Phases (each raises on failure; the script then exits nonzero):
     ``match_sequential`` (overlap 2, loop detection every 5th image), each
     verifying at least half its candidate pairs, timed; every launch count
     zeroed just before phase 22 and read after phase 23: top-2 twice per
-    shape bucket of those matchers, nothing else.
+    shape bucket of those matchers, nothing else;
+24. ``hierarchical_mapping`` of a 90-image / 12,000-point sequential
+    database (phase 12's scene; about 700 points an image, 6 images a
+    point, verified pairs of >= 30 shared points) in 3 parts with overlap
+    6 on the card, run_mapping's options, every launch count zeroed just
+    before and read just after: at least 86 of 90 registered in model 0,
+    mean reprojection error under 1 px, median rotation error under 0.5
+    degrees after a similarity alignment by ``pose_errors`` and by
+    ``compare_reconstructions(..., "proj_center")`` (within 0.01 of each
+    other), ``check()``, the model read back; per part its images,
+    registered img/s and stage split, the partition and merge seconds; the
+    BA kernels as in phase 20, summed over the parts, nothing else; then
+    ``align_reconstruction_to_locations`` of the merged model onto its
+    images' true centers under a known Sim3 (scale 2, a 0.3 rad turn, a
+    shift) with 0.01 noise and 10% gross outliers (``max_error`` 0.1):
+    every outlier rejected, every other center within 0.01 of where the
+    least-squares Sim3 of those centers maps it (their residuals carry
+    the model's own center errors, doubled), the card's Sim3 within 1e-4
+    of the CPU's;
+25. ``rig_absolute_pose_estimation`` of a four-camera rig (front, back,
+    left, right, 0.2 apart; PINHOLE 960x1280, f 1000) on 2,000
+    correspondences with 30% outliers and 0.5 px noise, on the card and on
+    the CPU, each within 0.5 degrees and 0.05 of the truth; the card's ms
+    per call (median of 5 after a warm-up), LO-RANSAC chunks, host
+    synchronisations and device ops of one call, the CPU's ms, and the
+    share of minimal samples whose three observations share a camera; no
+    kernel launched;
+26. ``incremental_mapping`` of phase 20's 30-image / 2,000-point orbit with
+    the images alternating between a SIMPLE_RADIAL and a PINHOLE camera (f
+    600, 640x480), tests/test_mixed_models.py's options, every launch count
+    zeroed just before and read just after: 29 of 30 registered, both
+    models in the model, under 1 px, median rotation error under 0.5
+    degrees; the mixed resjac, cost and finish launched (the single-model
+    forms only for windows of one model), matvec16 once per CG iteration,
+    prepare once per LM step, finish of either form once per LM step and
+    the cost once per solve; the mixed kernels, prepare and both matvecs
+    held to their plain versions (phases 15 and 10) and timed at the
+    operands of one recorded global step.
 
 The last lines are one JSON object describing every kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -267,6 +306,8 @@ try:
         VocabTreeMatchingOptions, dense_delaunay_meshing, match_vocabtree,
         poisson_meshing, sparse_delaunay_meshing,
     )
+    from pycolmap_torch.parallel.graph_partition import hierarchical_mapping
+    from pycolmap_torch.estimators import alignment as est_alignment
 except ImportError as e:  # run outside the repository
     sys.exit(f"chip_smoke: the pycolmap_torch package is missing ({e})")
 
@@ -387,6 +428,12 @@ POISSON_N = 256
 RET_IMAGES, RET_PER_PLACE, RET_REVISITS = 1000, 5, 50
 RET_DESCS, RET_SHARED, RET_NOISE = 4096, 512, 4
 RET_PARITY_IMAGES = 100
+# phase 24's database: write_sequential_database's scene (C4's sequential
+# shape, BASELINE.md) at 90 images of 12,000 points, mapped in 3 parts
+HIER_IMAGES, HIER_POINTS, HIER_NOISE = 90, 12_000, 0.4
+HIER_PARTS, HIER_OVERLAP = 3, 6
+# phase 25's rig: 2,000 correspondences over four cameras
+RIG_OBS = 2000
 
 
 def log(msg):
@@ -2817,11 +2864,11 @@ def host_syncs(fn):
     return n or None
 
 
-def est_measure(tag, call, check):
-    """Phase 19's record of one case: the card's and the CPU's results,
-    each held to `check`; the card's host wall ms per call (median of
-    EST_REPS after one warm-up), chunks, host syncs and device ops of one
-    call; the CPU's wall ms of one call."""
+def est_measure(tag, call, check, phase="phase 19"):
+    """Phase 19's (or `phase`'s) record of one case: the card's and the
+    CPU's results, each held to `check`; the card's host wall ms per call
+    (median of EST_REPS after one warm-up), chunks, host syncs and device
+    ops of one call; the CPU's wall ms of one call."""
     t_case = time.perf_counter()
     card = call("cuda")
     cpu_t0 = time.perf_counter()
@@ -2843,7 +2890,7 @@ def est_measure(tag, call, check):
                device_ops=device_ops(lambda: call("cuda"), tries=1),
                card=card_out, cpu=cpu_out,
                phase_s=time.perf_counter() - t_case)
-    log(f"phase 19 {tag} ({rec['phase_s']:.1f} s): card {card_out} | cpu "
+    log(f"{phase} {tag} ({rec['phase_s']:.1f} s): card {card_out} | cpu "
         f"{cpu_out}; card "
         f"{rec['ms']:.1f} ms per call (median of {EST_REPS}: "
         f"{', '.join(f'{t:.1f}' for t in times)}), cpu {cpu_ms:.1f} ms; "
@@ -2994,23 +3041,28 @@ def estimators_phase(shifted):
 
 
 def write_orbit_database(path, num_images, num_points, pixel_noise=0.4,
-                         seed=0):
+                         seed=0, cameras=None):
     """tests/test_incremental_mapping.py make_synthetic_database's default
     mode="orbit" with the port's Database: one SIMPLE_PINHOLE camera (f 600,
-    640x480), the cameras on an arc of 1.2 rad at 5 units from a cube of
-    points, each image's true keypoints plus noise in a random order,
-    verified pairs of every two images that share >= 30 points. The same
-    random draws in the same order, so keypoints and matches are the
-    reference's; descriptors are not written (mapping does not read them).
-    Returns the ground-truth model (poses and keypoints, no points)."""
+    640x480) unless `cameras` lists several (image i through camera
+    i % len(cameras), as that function's ``cameras`` argument), the cameras
+    on an arc of 1.2 rad at 5 units from a cube of points, each image's true
+    keypoints plus noise in a random order, verified pairs of every two
+    images that share >= 30 points. The same random draws in the same
+    order, so keypoints and matches are the reference's; descriptors are
+    not written (mapping does not read them). Returns the ground-truth
+    model (poses and keypoints, no points)."""
     rng = np.random.default_rng(seed)
-    cam = Camera.create(1, "SIMPLE_PINHOLE", 600.0, 640, 480)
+    if cameras is None:
+        cameras = [Camera.create(1, "SIMPLE_PINHOLE", 600.0, 640, 480)]
     target = np.array([0.0, 0.0, 5.0])
     points = rng.uniform(-1.5, 1.5, (num_points, 3)) + target
     gt = Reconstruction()
-    gt.add_camera(cam)
+    for cam in cameras:
+        gt.add_camera(cam)
     kp_pid = []
     for i in range(num_images):
+        cam = cameras[i % len(cameras)]
         theta = -0.6 + i * (1.2 / max(num_images - 1, 1))
         center = target + 5.0 * np.array(
             [np.sin(theta), 0.15 * np.sin(2 * theta), -np.cos(theta)])
@@ -3026,9 +3078,9 @@ def write_orbit_database(path, num_images, num_points, pixel_noise=0.4,
         ids = np.nonzero(vis)[0]
         ids = ids[rng.permutation(len(ids))]
         kp_pid.append(ids)
-        img = Image(name=f"img{i:03d}.jpg", camera_id=1, id=i + 1,
-                    keypoints_xy=xy[ids] + rng.normal(0, pixel_noise,
-                                                      (len(ids), 2)))
+        img = Image(name=f"img{i:03d}.jpg", camera_id=cam.camera_id,
+                    id=i + 1, keypoints_xy=xy[ids] + rng.normal(
+                        0, pixel_noise, (len(ids), 2)))
         img.cam_from_world = pose
         img.registered = True
         gt.add_image(img)
@@ -3144,6 +3196,37 @@ def other_launch_counts():
             **{f"probe_{k}": v for k, v in pg.LAUNCHES.items()}}
 
 
+def zero_counts():
+    """Every kernel's launch count and plain-on-CUDA count to 0."""
+    for mod in (ck, mk, ws, pmk, pg):
+        mod.reset_counts()
+
+
+def read_counts():
+    """(every kernel's launches, plain versions run on CUDA tensors) since
+    the last zero_counts()."""
+    return ({**ck.LAUNCHES, **other_launch_counts()},
+            {**ck.PLAIN_ON_CUDA, **pmk.PLAIN_ON_CUDA, **ws.PLAIN_ON_CUDA,
+             **mk.PLAIN_ON_CUDA})
+
+
+def launch_check(phase, launches, plain_on_cuda, want, used):
+    """The launch rule of a stretch of a main path: every kernel in `used`
+    launched, each count in `want` met exactly (a key naming several
+    kernels, "a+b", sums them), no other kernel launched and no plain
+    version run on a CUDA tensor."""
+    missing = [k for k in used if launches[k] <= 0]
+    off_path = {k: v for k, v in launches.items() if k not in used and v}
+    got = {k: sum(launches[n] for n in k.split("+")) for k in want}
+    if missing or off_path or got != want:
+        raise AssertionError(f"{phase}: kernels never launched {missing}, "
+                             f"launched off the path {off_path}, or launches "
+                             f"{got} != {want}")
+    if any(plain_on_cuda.values()):
+        raise AssertionError(f"{phase}: plain versions ran on CUDA tensors: "
+                             f"{plain_on_cuda}")
+
+
 def mapping_phase(tmp):
     """Phase 20: incremental_mapping on the card at bench.py run_mapping's
     size, checked against the truth and launch by launch; the BA kernels at
@@ -3165,55 +3248,35 @@ def mapping_phase(tmp):
                              "traverse natively")
     opts = mapping_options()
 
-    # (b) the first call in the process (recording one global and one
-    # local step's operands), then the timed run, every launch count zeroed
-    # just before it and read just after
+    # (b) the timed run, every launch count zeroed just before it and read
+    # just after, recording one global and one local step's operands (the
+    # recorder keeps references only)
+    zero_counts()
     with ResJacRecorder() as rec_ops:
-        rec1, dt1, t1 = map_and_check(db, tmp / "map1", gt, opts, "cuda",
-                                      "phase 20 first call", MAP_IMAGES)
-    for mod in (ck, mk, ws, pmk, pg):
-        mod.reset_counts()
-    rec2, dt2, t2 = map_and_check(db, tmp / "map2", gt, opts, "cuda",
-                                  "phase 20 second call", MAP_IMAGES)
-    launches = dict(ck.LAUNCHES)
-    others = other_launch_counts()
-    plain_on_cuda = {**ck.PLAIN_ON_CUDA, **pmk.PLAIN_ON_CUDA}
-    for rec, t in ((rec1, t1), (rec2, t2)):
-        if not rec.num_points3D > MAP_POINTS // 2:
-            raise AssertionError(f"phase 20: {rec.num_points3D} points of "
-                                 f"{MAP_POINTS} reconstructed")
+        rec, dt, t = map_and_check(db, tmp / "map2", gt, opts, "cuda",
+                                      "phase 20", MAP_IMAGES)
+    launches, plain_on_cuda = read_counts()
+    if not rec.num_points3D > MAP_POINTS // 2:
+        raise AssertionError(f"phase 20: {rec.num_points3D} points of "
+                             f"{MAP_POINTS} reconstructed")
     stages = ("load", "initial_pair", "register", "triangulate", "local_ba",
               "global_ba", "pose_graph", "write")
-    for tag, dt, rec, t in (("first", dt1, rec1, t1),
-                            ("second", dt2, rec2, t2)):
-        log(f"phase 20 {tag} call: {rec.num_reg_images / dt:.4f} registered "
-            f"img/s ({rec.num_reg_images} / {dt:.3f} s); split "
-            + ", ".join(f"{k} {t.get(k, 0.0):.3f} s" for k in stages)
-            + "; detail " + json.dumps({k: round(v, 4) for k, v in t.items()
-                                        if k not in stages}))
+    log(f"phase 20: {rec.num_reg_images / dt:.4f} registered img/s "
+        f"({rec.num_reg_images} / {dt:.3f} s); split "
+        + ", ".join(f"{k} {t.get(k, 0.0):.3f} s" for k in stages)
+        + "; detail " + json.dumps({k: round(v, 4) for k, v in t.items()
+                                    if k not in stages}))
     # (d) launch counts of the timed run
-    solves, steps, cg = (t2["ba_solves"], t2["ba_lm_steps"],
-                         t2["ba_cg_iterations"])
-    log(f"phase 20 launches: {launches}; other kernels {others}; "
-        f"{solves} BA solves ({t2['ba_cache_hits']} resident-cache hits, "
-        f"{t2['ba_cache_misses']} misses), {steps} LM steps, {cg} CG "
+    solves, steps, cg = (t["ba_solves"], t["ba_lm_steps"],
+                         t["ba_cg_iterations"])
+    log(f"phase 20 launches: {launches}; {solves} BA solves "
+        f"({t['ba_cache_hits']} resident-cache hits, "
+        f"{t['ba_cache_misses']} misses), {steps} LM steps, {cg} CG "
         f"iterations")
-    want = {"matvec16": cg, "prepare": steps, "finish": steps,
-            "cost": solves}
-    missing = [k for k in ("resjac", "prepare", "finish", "cost", "matvec16")
-               if launches[k] <= 0]
-    idle = ("matvec", "gather", "resjac_mixed", "cost_mixed", "finish_mixed")
-    if missing or any(launches[k] for k in idle) or any(others.values()):
-        raise AssertionError(f"phase 20: kernels never launched {missing}, "
-                             f"or launched off the path: "
-                             f"{ {k: launches[k] for k in idle} } {others}")
-    if any(launches[k] != v for k, v in want.items()):
-        raise AssertionError(f"phase 20: launches "
-                             f"{ {k: launches[k] for k in want} }, expected "
-                             f"{want}")
-    if any(plain_on_cuda.values()):
-        raise AssertionError(f"phase 20: plain versions ran on CUDA tensors: "
-                             f"{plain_on_cuda}")
+    launch_check("phase 20", launches, plain_on_cuda,
+                 {"matvec16": cg, "prepare": steps, "finish": steps,
+                  "cost": solves},
+                 ("resjac", "prepare", "finish", "cost", "matvec16"))
 
     # (e) the kernels at the mapper's operands: one global step (the
     # deepest buckets) checked and timed, one local-window step checked
@@ -3252,9 +3315,8 @@ def mapping_phase(tmp):
     total = time.perf_counter() - t20
     log(f"phase 20: {total:.2f} s")
     return dict(launches=launches, kernels=kern, seconds=total,
-                img_per_s=[rec1.num_reg_images / dt1,
-                           rec2.num_reg_images / dt2],
-                timings=t2, lm_steps=steps, cg_iterations=cg, solves=solves,
+                img_per_s=rec.num_reg_images / dt,
+                timings=t, lm_steps=steps, cg_iterations=cg, solves=solves,
                 cpu_8=dict(cuda=out8["cuda"][1], cpu=out8["cpu"][1]))
 
 
@@ -3466,8 +3528,7 @@ def images_to_model_phase(tmp):
 
     # (a) images -> database -> model, every launch count zeroed just
     # before and read just after
-    for mod in (ck, mk, ws, pmk, pg):
-        mod.reset_counts()
+    zero_counts()
     torch.cuda.synchronize()
     t_start = t0 = time.perf_counter()
     extract_features(db, images)
@@ -3482,9 +3543,7 @@ def images_to_model_phase(tmp):
                                     e2e_options(6), timings=timings)
     stages["map"] = time.perf_counter() - t0
     total = time.perf_counter() - t_start
-    launches = {**ck.LAUNCHES, **other_launch_counts()}
-    plain_on_cuda = {**ck.PLAIN_ON_CUDA, **pmk.PLAIN_ON_CUDA,
-                     **ws.PLAIN_ON_CUDA, **mk.PLAIN_ON_CUDA}
+    launches, plain_on_cuda = read_counts()
 
     d = Database(db)
     try:
@@ -3529,19 +3588,9 @@ def images_to_model_phase(tmp):
         f"finish once per LM step ({steps}), matvec16 once per CG iteration "
         f"({cg}), the cost once per solve ({solves})); resjac "
         f"{launches['resjac'] / max(steps, 1):.3f} per LM step")
-    used = ("window_sampler", "top2", "resjac", "prepare", "finish", "cost",
-            "matvec16")
-    missing = [k for k in used if launches[k] <= 0]
-    off_path = {k: v for k, v in launches.items() if k not in used and v}
-    if missing or off_path:
-        raise AssertionError(f"phase 21: kernels never launched {missing}, "
-                             f"or launched off the path {off_path}")
-    if any(launches[k] != v for k, v in want.items()):
-        raise AssertionError(f"phase 21: launches "
-                             f"{ {k: launches[k] for k in want} } != {want}")
-    if any(plain_on_cuda.values()):
-        raise AssertionError(f"phase 21: plain versions ran on CUDA tensors: "
-                             f"{plain_on_cuda}")
+    launch_check("phase 21", launches, plain_on_cuda, want,
+                 ("window_sampler", "top2", "resjac", "prepare", "finish",
+                  "cost", "matvec16"))
 
     # (b) the small scene on the card and on the CPU, then the other
     # matchers on the card
@@ -3827,6 +3876,313 @@ def retrieval_phase(tmp, e2e_db):
     return numbers, buckets
 
 
+# ---------------------------------------------------------------------------
+# phases 24-26: hierarchical mapping, the rig pose, two camera models
+# ---------------------------------------------------------------------------
+
+
+def axis_rotation(axis, angle):
+    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * K @ K
+
+
+def sim3_gap(a, b):
+    """Largest difference of two Sim3s' scale, rotation matrix entries and
+    translation, each scaled by max(1, |b's value|)."""
+    return max(abs(a.scale - b.scale) / max(1.0, abs(b.scale)),
+               float(np.abs(a.rotation.matrix() - b.rotation.matrix()).max()),
+               float(np.abs(a.translation - b.translation).max())
+               / max(1.0, float(np.abs(b.translation).max())))
+
+
+def align_to_locations_check(rec, gt):
+    """Phase 24 (b): ``align_reconstruction_to_locations`` of the merged
+    model onto its images' true centers under a known Sim3 (scale 2, a 0.3
+    rad turn, a shift) plus 0.01 noise, 10% of them gross outliers, on the
+    card and on the CPU (the same inputs and seed). The residuals carry the
+    model's own center errors, doubled by the scale, so the alignment is
+    held to the least-squares Sim3 of the planted inliers (float64
+    Umeyama): every planted outlier rejected, every planted inlier within
+    0.01 of its residual there, and the card's Sim3 within 1e-4 of the
+    CPU's."""
+    rng = np.random.default_rng(24)
+    truth = {img.name: img for img in gt.images.values()}
+    names = [rec.images[i].name for i in rec.reg_image_ids]
+    centers = np.stack([rec.images[i].projection_center()
+                        for i in rec.reg_image_ids])
+    R = axis_rotation([0.2, 1.0, -0.3], 0.3)
+    shift = np.array([10.0, -5.0, 2.0])
+    locations = np.stack([2.0 * R @ truth[n].projection_center() + shift
+                          for n in names])
+    locations += rng.normal(0, 0.01, locations.shape)
+    bad = rng.random(len(names)) < 0.1
+    locations[bad] += rng.choice([-1.0, 1.0], (int(bad.sum()), 3)) \
+        * rng.uniform(5.0, 10.0, (int(bad.sum()), 3))
+    opts = est.RANSACOptions()
+    opts.max_error = 0.1
+    tf, ms = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        tf[dev] = est.align_reconstruction_to_locations(
+            rec, names, locations, 3, opts, device=dev)
+        ms[dev] = (time.perf_counter() - t0) * 1e3
+        if tf[dev] is None:
+            raise AssertionError(f"phase 24 locations on {dev}: no Sim3")
+    oracle = est_alignment._sim3_from_umeyama(centers[~bad], locations[~bad])
+    resid = np.linalg.norm(tf["cuda"] * centers - locations, axis=1)
+    best = np.linalg.norm(oracle * centers - locations, axis=1)
+    gap = sim3_gap(tf["cuda"], tf["cpu"])
+    out = dict(images=len(names), outliers=int(bad.sum()),
+               scale=tf["cuda"].scale, max_inlier_resid=float(
+                   resid[~bad].max()), max_inlier_resid_least_squares=float(
+                   best[~bad].max()),
+               max_gap_to_least_squares=float(
+                   np.abs(resid - best)[~bad].max()),
+               min_outlier_resid=float(resid[bad].min()) if bad.any()
+               else None, card_cpu_gap=gap, card_ms=ms["cuda"],
+               cpu_ms=ms["cpu"])
+    log(f"phase 24 align_reconstruction_to_locations: {json.dumps(out)}")
+    if not (out["max_gap_to_least_squares"] < 0.01 and gap < 1e-4
+            and (out["min_outlier_resid"] or math.inf) > opts.max_error):
+        raise AssertionError(f"phase 24 locations: an inlier center maps "
+                             f"{out['max_gap_to_least_squares']:.4f} from "
+                             f"the least-squares Sim3 (need < 0.01), an "
+                             f"outlier within {opts.max_error}, or card and "
+                             f"CPU differ by {gap:.2e} (need < 1e-4)")
+    return out
+
+
+def hierarchical_phase(tmp):
+    """Phase 24: ``hierarchical_mapping`` of a 90-image sequential database
+    in 3 parts (overlap 6) on the card, checked against the truth and launch
+    by launch; then the merged model aligned to located centers."""
+    t24 = time.perf_counter()
+    db = tmp / "hier.db"
+    gt, kp_pid, n_pairs = write_sequential_database(
+        db, HIER_IMAGES, HIER_POINTS, HIER_NOISE)
+    seen = np.bincount(np.concatenate(kp_pid), minlength=HIER_POINTS)
+    shared = [len(np.intersect1d(kp_pid[i], kp_pid[i + 1]))
+              for i in range(HIER_IMAGES - 1)]
+    data = dict(images=HIER_IMAGES, points=HIER_POINTS,
+                points_per_image=float(np.mean([len(k) for k in kp_pid])),
+                images_per_point=float(seen[seen > 0].mean()),
+                verified_pairs=n_pairs, min_neighbour_shared=min(shared),
+                seconds=time.perf_counter() - t24)
+    log(f"phase 24 database: {json.dumps(data)}")
+
+    zero_counts()
+    timings = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recs = hierarchical_mapping(db, tmp, tmp / "hier", HIER_PARTS,
+                                HIER_OVERLAP, options=mapping_options(),
+                                device="cuda", timings=timings)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, plain_on_cuda = read_counts()
+    if not recs:
+        raise AssertionError("phase 24: no model")
+    rec = recs[0]
+    err = rec.compute_mean_reprojection_error()
+    rot = float(np.median(pose_errors(rec, gt)[0]))
+    cmp = est.compare_reconstructions(rec, gt, "proj_center")
+    rot_cmp = float(np.median([e.rotation_error_deg for e in cmp["errors"]]))
+    rec.check()
+    back = Reconstruction(tmp / "hier" / "0")
+    parts = timings["parts"]
+    stages = ("load", "initial_pair", "register", "triangulate", "local_ba",
+              "global_ba", "pose_graph", "write")
+    for k, p in enumerate(parts):
+        log(f"phase 24 part {k}: {p['images']} images, {p['registered']} "
+            f"registered in {p['seconds']:.2f} s "
+            f"({p['registered'] / p['seconds']:.4f} registered img/s); "
+            + ", ".join(f"{s} {p['timings'].get(s, 0.0):.3f} s"
+                        for s in stages)
+            + f"; {p['timings']['ba_solves']} BA solves, "
+            f"{p['timings']['ba_lm_steps']} LM steps, "
+            f"{p['timings']['ba_cg_iterations']} CG iterations")
+    numbers = dict(
+        seconds=dt, registered=rec.num_reg_images, models=len(recs),
+        img_per_s=rec.num_reg_images / dt, points3D=rec.num_points3D,
+        err=err, rot_pose_errors=rot, rot_compare=rot_cmp,
+        partition_s=timings["partition"], merge_s=timings["merge"],
+        parts=[dict(images=p["images"], registered=p["registered"],
+                    seconds=p["seconds"],
+                    img_per_s=p["registered"] / p["seconds"],
+                    **{s: p["timings"].get(s, 0.0) for s in stages})
+               for p in parts])
+    log(f"phase 24 hierarchical_mapping ({HIER_PARTS} parts, overlap "
+        f"{HIER_OVERLAP}): {rec.num_reg_images} of {HIER_IMAGES} registered "
+        f"in {dt:.2f} s ({numbers['img_per_s']:.4f} registered img/s), "
+        f"{len(recs)} model(s), {rec.num_points3D} points, mean "
+        f"reprojection error {err:.4f} px, median rotation error {rot:.4f} "
+        f"deg (compare_reconstructions {rot_cmp:.4f}); partition "
+        f"{timings['partition']:.3f} s, merge {timings['merge']:.3f} s")
+    # the BA kernels as in phase 20, summed over the parts
+    solves, steps, cg = (sum(p["timings"][k] for p in parts) for k in
+                         ("ba_solves", "ba_lm_steps", "ba_cg_iterations"))
+    log(f"phase 24 launches: {launches}; {solves} BA solves, {steps} LM "
+        f"steps, {cg} CG iterations")
+    launch_check("phase 24", launches, plain_on_cuda,
+                 {"matvec16": cg, "prepare": steps, "finish": steps,
+                  "cost": solves},
+                 ("resjac", "prepare", "finish", "cost", "matvec16"))
+    if not (rec.num_reg_images >= HIER_IMAGES - 4 and err < 1.0
+            and rot < 0.5 and abs(rot - rot_cmp) < 0.01):
+        raise AssertionError(f"phase 24: {rec.num_reg_images} registered "
+                             f"(need {HIER_IMAGES - 4}), error {err:.4f} px, "
+                             f"rotation {rot:.4f} / {rot_cmp:.4f} deg")
+    if (sorted(back.reg_image_ids) != sorted(rec.reg_image_ids)
+            or back.num_points3D != rec.num_points3D):
+        raise AssertionError("phase 24: the model read back differs")
+
+    numbers["locations"] = align_to_locations_check(rec, gt)
+    numbers["phase_s"] = time.perf_counter() - t24
+    numbers.update(lm_steps=steps, cg_iterations=cg, solves=solves)
+    log(f"phase 24: {numbers['phase_s']:.2f} s")
+    return dict(launches=launches, numbers=numbers)
+
+
+def rig_case(seed=25):
+    """Phase 25's rig: four PINHOLE cameras (f 1000, run_sift's 960x1280)
+    facing front, back, left and right, 0.1 from the rig origin (0.2
+    apart); RIG_OBS correspondences, observation i in camera i % 4 at a
+    random pixel and depth 3-8, 0.5 px noise, 30% replaced by random
+    pixels. Returns (camera, per-observation cams_from_rig, pixels, world
+    points, true rig_from_world, outlier mask)."""
+    rng = np.random.default_rng(seed)
+    cam = est_camera()
+    f, n = EST_F, RIG_OBS
+    cams = []
+    for d in ([0, 0, 1], [0, 0, -1], [1, 0, 0], [-1, 0, 0]):
+        fwd = np.asarray(d, np.float64)
+        right = np.cross([0.0, -1.0, 0.0], fwd)
+        right /= np.linalg.norm(right)
+        R = np.stack([right, np.cross(fwd, right), fwd])
+        cams.append(Rigid3d(Rotation3d(R), -R @ (0.1 * fwd)))
+    truth = Rigid3d(Rotation3d(np.array([0.1, -0.2, 0.05])),
+                    np.array([0.3, 0.1, 1.0]))
+    idx = np.arange(n) % len(cams)
+    xy = rng.uniform([0, 0], [SIFT_W, SIFT_H], (n, 2))
+    depth = rng.uniform(3.0, 8.0, n)
+    X_cam = np.stack([(xy[:, 0] - SIFT_W / 2) / f, (xy[:, 1] - SIFT_H / 2)
+                      / f, np.ones(n)], axis=1) * depth[:, None]
+    world_from_rig = truth.inverse()
+    X = np.zeros((n, 3))
+    for k, c in enumerate(cams):
+        sel = idx == k
+        X[sel] = world_from_rig * (c.inverse() * X_cam[sel])
+    obs = xy + rng.normal(0, 0.5, (n, 2))
+    bad = rng.random(n) < 0.3
+    obs[bad] = rng.uniform([0, 0], [SIFT_W, SIFT_H], (int(bad.sum()), 2))
+    return cam, [cams[k] for k in idx], obs, X, truth, bad
+
+
+def rig_phase():
+    """Phase 25: ``rig_absolute_pose_estimation`` of a four-camera rig on
+    the card and on the CPU against the truth, timed as phase 19 times the
+    estimators, with the share of minimal samples whose three observations
+    share a camera."""
+    t25 = time.perf_counter()
+    cam, extr, obs, X, truth, bad = rig_case()
+    zero_counts()
+
+    def check(r, where):
+        pose = r["rig_from_world"]
+        err_r = _rot_deg(pose, truth)
+        err_t = float(np.abs(pose.translation - truth.translation).max())
+        inl = r["inliers"]
+        if not (err_r < 0.5 and err_t < 0.05):
+            raise AssertionError(f"phase 25 {where}: rotation {err_r} deg, "
+                                 f"translation {err_t}")
+        return dict(inliers=int(r["num_inliers"]), rot_err_deg=err_r,
+                    t_err=err_t, true_inliers_kept=int((inl & ~bad).sum()),
+                    outliers_kept=int((inl & bad).sum()))
+
+    rec = est_measure(
+        f"rig pose, 4 cameras, {RIG_OBS} correspondences, 30% outliers",
+        lambda d: est.rig_absolute_pose_estimation(
+            obs, X, [cam] * RIG_OBS, extr, device=d), check,
+        phase="phase 25")
+    stats = {}
+    est.rig_absolute_pose_estimation(obs, X, [cam] * RIG_OBS, extr,
+                                     device="cuda", stats=stats)
+    rec.update(samples=stats["samples"], valid_samples=stats["valid_samples"],
+               valid_share=stats["valid_samples"] / stats["samples"])
+    launch_check("phase 25", *read_counts(), {}, ())
+    rec["phase_s"] = time.perf_counter() - t25
+    log(f"phase 25: {rec['phase_s']:.2f} s; {stats['samples']} samples, "
+        f"{stats['valid_samples']} within one camera (share "
+        f"{rec['valid_share']:.4f}; 1/16 = 0.0625 expected)")
+    return rec
+
+
+def mixed_mapping_phase(tmp):
+    """Phase 26: ``incremental_mapping`` of phase 20's orbit with the
+    images alternating between a SIMPLE_RADIAL and a PINHOLE camera, on the
+    card, every launch count zeroed just before and read just after; the
+    mixed kernels held to their plain versions and timed at one recorded
+    global step of the mapping."""
+    t26 = time.perf_counter()
+    db = tmp / "mixed.db"
+    cameras = [Camera.create(1, "SIMPLE_RADIAL", 600.0, 640, 480),
+               Camera.create(2, "PINHOLE", 600.0, 640, 480)]
+    gt = write_orbit_database(db, MAP_IMAGES, MAP_POINTS, MAP_NOISE,
+                              cameras=cameras)
+    opts = mapping_options(4)
+    opts.ba_refine_principal_point = False
+    zero_counts()
+    with ResJacRecorder() as rec_ops:
+        rec, dt, t = map_and_check(db, tmp / "mixed", gt, opts, "cuda",
+                                   "phase 26 two camera models",
+                                   MAP_IMAGES - 1)
+    launches, plain_on_cuda = read_counts()
+    models = sorted({c.model for c in rec.cameras.values()})
+    if models != ["PINHOLE", "SIMPLE_RADIAL"]:
+        raise AssertionError(f"phase 26: camera models {models}")
+    solves, steps, cg = t["ba_solves"], t["ba_lm_steps"], t["ba_cg_iterations"]
+    log(f"phase 26 launches: {launches}; {solves} BA solves, {steps} LM "
+        f"steps, {cg} CG iterations; "
+        f"{launches['resjac'] + launches['resjac_mixed']} resjac launches "
+        f"({launches['resjac_mixed']} mixed)")
+    # the single-model forms serve windows of one camera model, if any
+    used = ("resjac_mixed", "cost_mixed", "finish_mixed", "prepare",
+            "matvec16") + tuple(k for k in ("resjac", "cost", "finish")
+                                if launches[k])
+    launch_check("phase 26", launches, plain_on_cuda,
+                 {"matvec16": cg, "prepare": steps,
+                  "finish+finish_mixed": steps, "cost+cost_mixed": solves},
+                 used)
+    if rec_ops.global_args is None:
+        raise AssertionError("phase 26: no global step recorded")
+    case = mapping_case(rec_ops.global_args, 261)
+    del rec_ops
+    if not isinstance(case.model_id, tuple):
+        raise AssertionError(f"phase 26: the recorded global step has model "
+                             f"{case.model_id}, not two")
+    kern, schur = {}, {"prepare": {}, "matvec": {}, "matvec16": {}}
+    shapes = [tuple(b.mask.shape) for b in case.buckets]
+    errs = check_case(case, "mixed mapping global", kern)
+    errs.update(check_case_schur("mixed mapping global", case, "phase 26",
+                                 schur))
+    kern["matvec16"] = schur["matvec16"]["mixed mapping global"]
+    log(f"phase 26 global step: model {case.model_id}, NP {case.NP}, I "
+        f"{case.I}, C {case.C}, buckets [T, P] {shapes}; scaled errors "
+        + ", ".join(f"{k} {v[1]:.2e}" for k, v in errs.items()))
+    for name, r in kern.items():
+        log(f"phase 26 global step {name}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), max abs err {r['max_abs_err']:.3e}")
+    numbers = dict(seconds=dt, registered=rec.num_reg_images,
+                   img_per_s=rec.num_reg_images / dt, err=t["err"],
+                   rot=t["rot"], models=models, solves=solves, lm_steps=steps,
+                   cg_iterations=cg, phase_s=time.perf_counter() - t26)
+    log(f"phase 26: {numbers['phase_s']:.2f} s")
+    return dict(launches=launches, kernels=kern, numbers=numbers)
+
+
 def ba_kernel_registers(build_log):
     """ptxas register counts of the resjac / cost / finish instances, by
     kernel and camera policy (Single<model id> or Mixed<width>)."""
@@ -4078,8 +4434,7 @@ def main():
         # --- phases 22 and 23: meshing and retrieval ----------------------
         # every launch count zeroed just before and read just after: only
         # top-2 launches, from the retrieval matchers' descriptor matching
-        for mod in (ck, mk, ws, pmk, pg):
-            mod.reset_counts()
+        zero_counts()
         tmp = Path(tmp)
         meshes = Path(dense_dir.name) / "meshes"
         meshes.mkdir()
@@ -4088,9 +4443,7 @@ def main():
         log(f"meshing summary: {json.dumps(mesh)}")
         ret, buckets = retrieval_phase(tmp, tmp / "e2e" / "e2e.db")
         log(f"retrieval summary: {json.dumps(ret)}")
-        late = {**ck.LAUNCHES, **other_launch_counts()}
-        late_plain = {**ck.PLAIN_ON_CUDA, **pmk.PLAIN_ON_CUDA,
-                      **ws.PLAIN_ON_CUDA, **mk.PLAIN_ON_CUDA}
+        late, late_plain = read_counts()
         log(f"phases 22-23 launches: {json.dumps(late)}; expected top-2 "
             f"{2 * buckets} (2 per shape bucket over {buckets} buckets), "
             "nothing else")
@@ -4101,6 +4454,18 @@ def main():
                                  f"top-2 {2 * buckets} and nothing else; "
                                  f"plain on CUDA {late_plain}")
     dense_dir.cleanup()
+
+    # --- phases 24-26: hierarchical mapping, the rig pose, two models ------
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        hier = hierarchical_phase(Path(tmp))
+    log(f"hierarchical summary: {json.dumps(hier['numbers'])}")
+    rig = rig_phase()
+    log(f"rig summary: {json.dumps(rig)}")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        mixed_map = mixed_mapping_phase(Path(tmp))
+    log(f"mixed mapping summary: {json.dumps(mixed_map['numbers'])}")
+    late_map = {k: v + mixed_map["launches"][k]
+                for k, v in hier["launches"].items()}
 
     kernels = []
     for name in SINGLE_BA:
@@ -4264,6 +4629,18 @@ def main():
         # phases 22-23: meshing and retrieval
         row["launches_meshing_retrieval"] = late.get(name, 0) + (
             late["pm_cost_parity"] if name == "pm_cost" else 0)
+        # phases 24-26: hierarchical mapping (24) and mapping with two
+        # camera models (26); the rig pose (25) launches none
+        row["launches_phases_24_26"] = late_map.get(name, 0)
+        row["launches_hierarchical"] = hier["launches"].get(name, 0)
+        row["launches_mixed_mapping"] = mixed_map["launches"].get(name, 0)
+        # the kernels at phase 26's recorded mixed global step
+        m = mixed_map["kernels"].get(name)
+        if m is not None:
+            row.update(ms_mixed_mapping=m["ms"],
+                       plain_ms_mixed_mapping=m["plain_ms"],
+                       bound_ms_mixed_mapping=m["bound_ms"],
+                       max_abs_err_mixed_mapping=m["max_abs_err"])
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,13 @@ Called with no device on a host without CUDA they raise: there is no silent
 CPU fallback.
 
 The public surface re-exports what is ported of the reference's: scene
-objects, geometry types, the estimators (not the alignment ones yet),
-features, vocabulary-tree retrieval, and the pipeline stages from images
-to a model and on to a mesh (not ``hierarchical_mapping`` yet).
+objects, geometry types, the estimators (alignment and the rig pose
+among them), features, vocabulary-tree retrieval, the pipeline stages from
+images to a model and on to a mesh, and ``hierarchical_mapping``. The
+reference's mesh selectors (``get_default_mesh``, ``resolve_mesh``,
+``set_default_mesh``) belong to the multi-device modules, which are not
+ported yet. ``has_cuda`` says whether this host has the card; ``has_tpu``
+is False.
 """
 
 from __future__ import annotations
@@ -23,6 +27,9 @@ import enum as _enum
 import torch
 
 __version__ = "0.1.0"
+
+has_cuda = torch.cuda.is_available()
+has_tpu = False
 
 
 class Device(_enum.IntEnum):
@@ -79,12 +86,20 @@ from pycolmap_torch.estimators import (  # noqa: E402
     AbsolutePoseEstimationOptions,
     AbsolutePoseRefinementOptions,
     EstimateTriangulationOptions,
+    ImageAlignmentError,
     RANSACOptions,
     TwoViewGeometry,
     TwoViewGeometryConfiguration,
     TwoViewGeometryOptions,
     absolute_pose_estimation,
+    align_reconstruction_to_locations,
+    align_reconstructions_via_points,
+    align_reconstructions_via_proj_centers,
+    align_reconstructions_via_reprojections,
+    align_reconstrution_to_locations,
+    compare_reconstructions,
     essential_matrix_estimation,
+    estimate_sim3d_robust,
     estimate_absolute_pose,
     estimate_calibrated_two_view_geometry,
     estimate_essential_matrix,
@@ -98,6 +113,7 @@ from pycolmap_torch.estimators import (  # noqa: E402
     homography_matrix_estimation,
     pose_refinement,
     refine_absolute_pose,
+    rig_absolute_pose_estimation,
 )
 from pycolmap_torch.features import (  # noqa: E402
     Normalization,
@@ -144,6 +160,9 @@ from pycolmap_torch.pipeline import (  # noqa: E402
     triangulate_points,
     undistort_images,
     verify_matches,
+)
+from pycolmap_torch.parallel.graph_partition import (  # noqa: E402
+    hierarchical_mapping,
 )
 from pycolmap_torch.sfm.bundle_adjustment import (  # noqa: E402
     BundleAdjustmentOptions,

@@ -176,27 +176,28 @@ _DISTORT_CF = {
 }
 
 
-def img_from_cam_cf(model_id, params, u, v):
+def img_from_cam_cf(model_id_static, params, u, v):
     """Normalized plane -> pixels, component-first. params: sequence of
     tensors in the model's parameter layout. Returns (x, y).
 
-    model_id may be a tuple (a mixed-model bundle): params then carries the
-    per-observation model id at ``mixed_sel_index(models)``; each model is
-    evaluated and selected with ``torch.where``, so another model's NaN
-    (FOV at omega 0) never leaks, and an id naming no listed model gives 0.
+    model_id_static may be a tuple (a mixed-model bundle): params then
+    carries the per-observation model id at ``mixed_sel_index(models)``;
+    each model is evaluated and selected with ``torch.where``, so another
+    model's NaN (FOV at omega 0) never leaks, and an id naming no listed
+    model gives 0.
     """
-    if isinstance(model_id, tuple):
-        sel = params[mixed_sel_index(model_id)]
+    if isinstance(model_id_static, tuple):
+        sel = params[mixed_sel_index(model_id_static)]
         px = torch.zeros_like(u)
         py = torch.zeros_like(v)
-        for m in model_id:
+        for m in model_id_static:
             xm, ym = img_from_cam_cf(m, params, u, v)
             c = sel == m
             px = torch.where(c, xm, px)
             py = torch.where(c, ym, py)
         return px, py
-    info = CAMERA_MODEL_BY_ID[model_id]
-    du, dv = _DISTORT_CF[model_id](params, u, v)
+    info = CAMERA_MODEL_BY_ID[model_id_static]
+    du, dv = _DISTORT_CF[model_id_static](params, u, v)
     if len(info.focal_idxs) == 1:
         fx = fy = params[info.focal_idxs[0]]
     else:
@@ -207,7 +208,7 @@ def img_from_cam_cf(model_id, params, u, v):
     return fx * du + cx, fy * dv + cy
 
 
-def project_cf(model_id, intr, quat, trans, X):
+def project_cf(model_id_static, intr, quat, trans, X):
     """Full projection: world point -> pixel, component-first.
 
     intr: sequence of parameter tensors; quat: (w,x,y,z); trans: (tx,ty,tz);
@@ -220,5 +221,5 @@ def project_cf(model_id, intr, quat, trans, X):
     z_safe = _where(torch.abs(cz) < 1e-8, 1e-8, cz)
     u = cx / z_safe
     v = cy / z_safe
-    px, py = img_from_cam_cf(model_id, intr, u, v)
+    px, py = img_from_cam_cf(model_id_static, intr, u, v)
     return px, py, cz

@@ -102,6 +102,16 @@ def solver_num_params(model_id) -> int:
     return CAMERA_MODEL_BY_ID[model_id].num_params
 
 
+def pad_params(params, dtype=torch.float32):
+    """Pad a per-model params vector to MAX_PARAMS (host-side helper)."""
+    import numpy as np
+
+    params = np.asarray(params, dtype=np.float64)
+    out = np.zeros(MAX_PARAMS)
+    out[: params.shape[0]] = params
+    return torch.as_tensor(out, dtype=dtype)
+
+
 # ---------------------------------------------------------------------------
 # Distortion in the normalized plane: uv -> duv (distorted normalized coords).
 # Each takes the padded params [..., MAX_PARAMS] and uv [..., 2].
@@ -371,3 +381,38 @@ def cam_from_img(model_id, params, xy):
     u = (xy[..., 0:1] - cx) / fx
     v = (xy[..., 1:2] - cy) / fy
     return _UNDISTORT_FNS[model_id](params, torch.cat([u, v], dim=-1))
+
+
+def img_from_cam_fixed(model_id_static):
+    """``img_from_cam`` as a closure over one model id, or a tuple of ids
+    (the mixed form: selected per point by the selector column at
+    ``mixed_sel_index(models)`` with ``torch.where``)."""
+    if not isinstance(model_id_static, tuple):
+        model_id_static = int(model_id_static)
+
+    def fn(params, uv):
+        return img_from_cam(model_id_static, params, uv)
+
+    return fn
+
+
+def cam_from_img_fixed(model_id_static: int):
+    """``cam_from_img`` as a closure over one model id."""
+    model_id_static = int(model_id_static)
+
+    def fn(params, xy):
+        return cam_from_img(model_id_static, params, xy)
+
+    return fn
+
+
+def calibration_matrix(model_id_static: int, params):
+    """3x3 K matrix (valid for the pinhole part of any model)."""
+    fx, fy, cx, cy = _focal_principal(int(model_id_static), params)
+    zeros = torch.zeros_like(fx[..., 0])
+    ones = torch.ones_like(fx[..., 0])
+    K = torch.stack(
+        [fx[..., 0], zeros, cx[..., 0],
+         zeros, fy[..., 0], cy[..., 0],
+         zeros, zeros, ones], dim=-1)
+    return K.reshape(params.shape[:-1] + (3, 3))

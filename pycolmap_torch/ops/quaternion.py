@@ -129,3 +129,51 @@ def quat_to_matrix(q):
         dim=-1,
     )
     return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def quat_angle(q):
+    """Rotation angle in radians of wxyz quaternion (q and -q agree)."""
+    q = quat_normalize(q)
+    return 2.0 * torch.atan2(
+        torch.linalg.norm(q[..., 1:], dim=-1), torch.abs(q[..., 0])
+    )
+
+
+def rigid_transform(quat, trans, points):
+    """Apply cam_from_world (quat wxyz [...,4], t [...,3]) to points [...,3]."""
+    return quat_rotate(quat, points) + trans
+
+
+def rigid_compose(quat_ab, t_ab, quat_bc, t_bc):
+    """(a_from_b) * (b_from_c) -> a_from_c."""
+    quat_ac = quat_mul(quat_ab, quat_bc)
+    t_ac = quat_rotate(quat_ab, t_bc) + t_ab
+    return quat_ac, t_ac
+
+
+def rigid_inverse(quat, trans):
+    q_inv = quat_conj(quat)
+    return q_inv, -quat_rotate(q_inv, trans)
+
+
+def cross_matrix(v):
+    """[..., 3] -> skew-symmetric [..., 3, 3]."""
+    zero = torch.zeros_like(v[..., 0])
+    rows = torch.stack(
+        [zero, -v[..., 2], v[..., 1],
+         v[..., 2], zero, -v[..., 0],
+         -v[..., 1], v[..., 0], zero], dim=-1)
+    return rows.reshape(v.shape[:-1] + (3, 3))
+
+
+def essential_from_pose(quat, trans):
+    """E = [t]_x R for cam2_from_cam1 (ref: geometry/bindings.h:82)."""
+    t = trans / torch.clamp(
+        torch.linalg.norm(trans, dim=-1, keepdim=True), min=1e-12
+    )
+    return cross_matrix(t) @ quat_to_matrix(quat)
+
+
+def project_center(quat, trans):
+    """Camera projection center in world coords: -R^T t."""
+    return -quat_rotate(quat_conj(quat), trans)

@@ -506,9 +506,11 @@ class TileLaunch:
         self.max_clusters = -(-8 * sms // TILE_CLUSTER)
         n_acc = (I * 33 + C * 2 * NP if kind == "prepare"
                  else I * 6 + C * NP)
+        if kind == "prepare":  # then its rhs rows in double (2 floats each)
+            n_acc += 2 * (I * 6 + C * NP)
         fixed = self.sums == SUMS_FIXED
-        self.partials = torch.empty(self.max_clusters * n_acc if fixed else 1,
-                                    device=dev)
+        self.partials = torch.empty(
+            self.max_clusters * n_acc + 1 if fixed else 1, device=dev)
         self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
 
 

@@ -69,7 +69,7 @@
 //   leaves 16 resident warps per SM (on the H100 matvec16's per-warp mode
 //   at 3 blocks per SM lost to the block's sums, and the block's sums at 1
 //   block per SM to global atomics); prepare takes the fixed order wherever
-//   its 33 I + 2 C NP floats fit.
+//   its 33 I + 2 C NP floats and its rhs, 6 I + C NP doubles, fit.
 // What still bounds them: the reads of J rows 64-128 bytes at a time from
 // rows a plane apart run at ~1.2-1.7 TB/s on the H100 (a fetch-only
 // variant of matvec16); a tile-contiguous J layout would stream. Prepare's
@@ -270,10 +270,11 @@ __device__ __forceinline__ ScatterPlan scatter_plan(int row) {
 
 // Add each lane's N values (the first n of them) into its row `row` of an
 // accumulator as planned. ATOMIC false: the warp's own accumulator, or one
-// no other warp adds into meanwhile, plain adds; true: one shared by other
-// warps or blocks, float atomics. All 32 lanes must call it.
-template <int N, bool ATOMIC>
-__device__ __forceinline__ void scatter_apply(float* acc, const ScatterPlan& s, int row,
+// no other warp adds into meanwhile, plain adds (into float or, widening
+// each sum of the warp, double entries); true: one shared by other warps
+// or blocks, float atomics. All 32 lanes must call it.
+template <int N, bool ATOMIC, class T = float>
+__device__ __forceinline__ void scatter_apply(T* acc, const ScatterPlan& s, int row,
                                               int stride, const float* vals, int n = N) {
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
@@ -313,11 +314,46 @@ __device__ __forceinline__ void scatter_apply(float* acc, const ScatterPlan& s, 
     for (int k = 0; k < N; ++k) {
       if (k >= n)
         break;
-      if (!ATOMIC)
-        acc[s.dst * stride + k] += v[k];
+      if constexpr (!ATOMIC)
+        acc[s.dst * stride + k] += (T)v[k];
       else if (v[k] != 0.f)  // a fixed parameter's zero column: no atomic
         atomicAdd(acc + s.dst * stride + k, v[k]);
     }
+  }
+}
+
+// scatter_apply<N, false, double> for values whose rows are few (a
+// camera's): where one row or a few hold the warp's lanes, each value is
+// summed over the lanes in double and added at once (a double per value
+// held across the values cost the widest instances their registers);
+// otherwise as scatter_apply, the warp's float sums added in double.
+template <int N>
+__device__ __forceinline__ void scatter_apply_wide(double* acc, const ScatterPlan& s, int row,
+                                                   int stride, const float* vals) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  if (s.how == kScatterOneRow) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      double t = row >= 0 ? (double)vals[k] : 0.0;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(full, t, o);
+      if (s.adds) acc[s.dst * stride + k] += t;
+    }
+  } else if (s.how == kScatterFewRows) {
+    for (unsigned todo = s.leads; todo; todo &= todo - 1u) {
+      const int first_lane = __ffs(todo) - 1;
+      const int r = __shfl_sync(full, row, first_lane);
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        double t = row == r ? (double)vals[k] : 0.0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(full, t, o);
+        if (lane == first_lane) acc[r * stride + k] += t;
+      }
+    }
+  } else {
+    scatter_apply<N, false, double>(acc, s, row, stride, vals);
   }
 }
 
@@ -593,23 +629,119 @@ matvec_kernel(const __grid_constant__ TileTable tab, const float* __restrict__ x
   matvec_tiles<kMatvec, NP, SUMS>(tab, xpose, xintr, I, C, partials, ticket, out_pose, out_intr);
 }
 
+// The end of a fixed-order prepare launch: tile_finish's sums for every
+// image and camera value but the rhs, which the blocks keep in double
+// (dacc [I 6 + C NP]) and which are summed the same way in double. The
+// cluster's partial rows go to `partials`: floats [ncl, n_acc] (their rhs
+// entries unused), then, from an 8-byte boundary, doubles [ncl, n_rhs];
+// the last cluster adds the rows in cluster order and writes the outputs
+// whole, each rhs rounded once to float.
+template <int NP>
+__device__ __forceinline__ void prepare_finish(const float* acc, const double* dacc, int I, int C,
+                                               float* __restrict__ partials,
+                                               int* __restrict__ ticket,
+                                               float* __restrict__ out_img,
+                                               float* __restrict__ out_cam) {
+  constexpr int NT = kTileSlots, NC = 2 * NP;
+  const int tid = threadIdx.x;
+  const int n_img = I * kImgRows, n_acc = n_img + C * NC, n_rhs = I * 6 + C * NP;
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();  // every block's sums are complete
+  const int cs = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int cid = blockIdx.x / cs, ncl = gridDim.x / cs;
+  double* dpart = reinterpret_cast<double*>(partials + (((size_t)ncl * n_acc + 1) & ~(size_t)1));
+  // a rhs entry of the float layout (its sums live in dacc)
+  auto is_rhs = [&](int i) { return i < n_img ? i % kImgRows < 6 : (i - n_img) % NC < NP; };
+  for (int i = rank * NT + tid; i < n_acc; i += cs * NT) {
+    if (is_rhs(i)) continue;
+    float part[kTileCluster];  // loaded together, added in rank order
+#pragma unroll
+    for (int r = 0; r < kTileCluster; ++r)
+      part[r] = r < cs ? cl.map_shared_rank(acc, r)[i] : 0.f;
+    float v = 0.f;
+#pragma unroll
+    for (int r = 0; r < kTileCluster; ++r) v += part[r];
+    partials[(size_t)cid * n_acc + i] = v;
+  }
+  for (int i = rank * NT + tid; i < n_rhs; i += cs * NT) {
+    double part[kTileCluster];
+#pragma unroll
+    for (int r = 0; r < kTileCluster; ++r)
+      part[r] = r < cs ? cl.map_shared_rank(dacc, r)[i] : 0.0;
+    double v = 0.0;
+#pragma unroll
+    for (int r = 0; r < kTileCluster; ++r) v += part[r];
+    dpart[(size_t)cid * n_rhs + i] = v;
+  }
+  __threadfence();
+  __shared__ int last;
+  cl.sync();  // the cluster's partial rows are written and fenced
+  if (rank == 0 && tid == 0) last = atomicAdd(ticket, 1) == ncl - 1;
+  cl.sync();
+  const bool is_last = *cl.map_shared_rank(&last, 0);
+  cl.sync();  // rank 0's flag is read before any block leaves
+  if (!is_last) return;
+  __threadfence();
+  for (int i = rank * NT + tid; i < n_acc; i += cs * NT) {
+    if (is_rhs(i)) continue;
+    float v = 0.f;  // rows loaded 32 at a time, added in cluster order
+    for (int c0 = 0; c0 < ncl; c0 += 32) {
+      float row[32];
+#pragma unroll
+      for (int c = 0; c < 32; ++c)
+        row[c] = c0 + c < ncl ? __ldcg(partials + (size_t)(c0 + c) * n_acc + i) : 0.f;
+#pragma unroll
+      for (int c = 0; c < 32; ++c) v += row[c];
+    }
+    if (i < n_img)
+      out_img[i] = v;
+    else
+      out_cam[i - n_img] = v;
+  }
+  for (int i = rank * NT + tid; i < n_rhs; i += cs * NT) {
+    double v = 0.0;  // rows loaded 8 at a time, added in cluster order
+    for (int c0 = 0; c0 < ncl; c0 += 8) {
+      double row[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        row[c] = c0 + c < ncl ? __ldcg(dpart + (size_t)(c0 + c) * n_rhs + i) : 0.0;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) v += row[c];
+    }
+    if (i < I * 6)
+      out_img[(i / 6) * kImgRows + i % 6] = (float)v;
+    else
+      out_cam[((i - I * 6) / NP) * NC + (i - I * 6) % NP] = (float)v;
+  }
+  if (rank == 0 && tid == 0) *ticket = 0;  // ready for the next launch
+}
+
 // The LM preparation for every bucket of the table: per column Vinv and
 // g_pt (written to the table's vinv and gpt), per slot the 33 image and
 // 2 NP camera values into acc_img [I, 33] and acc_cam [C, 2 NP]. One
 // thread per slot of a tile (256), at most 128 registers, so that two
-// blocks keep 16 warps per SM. kSumsFixed: one shared accumulator per
+// blocks keep 16 warps per SM; from NP 8 one block per SM, whose 158-227
+// registers spill nothing (at 128 the double rhs spilled 80-184 bytes a
+// thread and ran phase 16's width 9 in 0.372 ms on an H100, one block
+// 0.331, the float rhs 0.197 at two). kSumsFixed: one shared accumulator per
 // block; a slot's values form 8 groups (image values 0-5, 6-11, ..., 30-32,
 // the camera's rhs and its diagonal), and in step i of 8 warp w adds group
 // (w + i) % 8 of its lanes' slots, handed to one lane per row
 // (warp_scatter, plain adds), a __syncthreads between steps: no two warps
 // add into one entry at once, no atomics remain, and every entry's adds
-// come in a fixed order (tile_finish then sums the blocks' accumulators in
-// a fixed order and writes the outputs whole). kSumsGlobal: each lane's
+// come in a fixed order (prepare_finish then sums the blocks' accumulators
+// in a fixed order and writes the outputs whole). The image and camera
+// rhs, J_c^T (r - J_p V^-1 g_pt), are summed in double (a camera's over
+// the warp too, the image's from each warp's float sums): at a converged
+// model they are near-zero sums of terms that runs of neighbouring slots
+// share in sign, and a block's float partial sums of them lost ~1e-4 of
+// the result (a radial parameter's rhs at the mapper's operands of two
+// camera models). kSumsGlobal: each lane's
 // nonzero values by global atomics into outputs the caller zeroes. (Shared
 // float atomics are compare-and-swap loops on the H100: with them the
 // image rows took 0.13 of 0.22 ms at the bench.)
 template <int NP, int SUMS>
-__global__ void __launch_bounds__(kTileSlots, kMinWarps * 32 / kTileSlots)
+__global__ void __launch_bounds__(kTileSlots, NP >= 8 ? 1 : kMinWarps * 32 / kTileSlots)
 prepare_kernel(const __grid_constant__ TileTable tab, const float* __restrict__ lam_ptr, int I,
                int C, float* __restrict__ partials, int* __restrict__ ticket,
                float* __restrict__ acc_img, float* __restrict__ acc_cam) {
@@ -627,10 +759,14 @@ prepare_kernel(const __grid_constant__ TileTable tab, const float* __restrict__ 
   // [G, tile_p, 12]: V's 6 floats, then g_pt's 3 doubles
   float* ybuf = reinterpret_cast<float*>(tile_smem + kTileStages * kStage);
   float* acc = ybuf + NT * 12;  // kFixed: [n_acc]
+  // kFixed: the rhs in double [I 6 + C NP], from an 8-byte boundary
+  double* dacc = reinterpret_cast<double*>(acc + ((n_acc + 1) & ~1));
   float* aimg = kFixed ? acc : acc_img;
   float* acam = kFixed ? acc + n_img : acc_cam;
-  if (kFixed)
+  if (kFixed) {
     for (int i = tid; i < n_acc; i += NT) acc[i] = 0.f;
+    for (int i = tid; i < I * 6 + C * NP; i += NT) dacc[i] = 0.0;
+  }
   const float lam = *lam_ptr;
 
   const int per = (tab.n_tiles + gridDim.x - 1) / gridDim.x;
@@ -800,7 +936,11 @@ prepare_kernel(const __grid_constant__ TileTable tab, const float* __restrict__ 
 #pragma unroll 1
       for (int i = 0; i < 8; ++i) {  // the warps' turns
         const int grp = (warp + i) & 7;
-        if (grp < 6) {  // image values 6 grp .. 6 grp + 5 (30..32 in the last)
+        if (grp == 0) {  // the image's rhs, summed in double
+          scatter_apply<6, false, double>(dacc, pimg, ii, 6, vals);
+        } else if (grp == 6) {  // the camera's rhs, summed in double
+          scatter_apply_wide<NP>(dacc + I * 6, pcam, ci, NP, cv);
+        } else if (grp < 6) {  // image values 6 grp .. 6 grp + 5 (30..32 in the last)
           float v[6];
 #pragma unroll
           for (int k = 0; k < 6; ++k) {
@@ -811,11 +951,11 @@ prepare_kernel(const __grid_constant__ TileTable tab, const float* __restrict__ 
             v[k] = x;
           }
           scatter_apply<6, false>(aimg + 6 * grp, pimg, ii, kImgRows, v, grp < 5 ? 6 : 3);
-        } else {  // the camera's rhs, then its diagonal
+        } else {  // the camera's diagonal
           float v[NP];
 #pragma unroll
-          for (int j = 0; j < NP; ++j) v[j] = grp == 6 ? cv[j] : cv[NP + j];
-          scatter_apply<NP, false>(acam + NP * (grp - 6), pcam, ci, NC, v);
+          for (int j = 0; j < NP; ++j) v[j] = cv[NP + j];
+          scatter_apply<NP, false>(acam + NP, pcam, ci, NC, v);
         }
         __syncthreads();
       }
@@ -825,7 +965,8 @@ prepare_kernel(const __grid_constant__ TileTable tab, const float* __restrict__ 
       __syncthreads();  // the stage and ybuf are free again
     }
   }
-  tile_finish<SUMS, NT, 1>(acc, n_acc, n_img, partials, ticket, acc_img, acc_cam);
+  if constexpr (kFixed)
+    prepare_finish<NP>(acc, dacc, I, C, partials, ticket, acc_img, acc_cam);
 }
 
 // the kernel of a kind, width and mode
@@ -858,9 +999,11 @@ static size_t tile_smem_bytes(int I, int C, int sums) {
   const size_t n_acc =
       prep ? (size_t)I * kImgRows + (size_t)C * 2 * NP : (size_t)I * 6 + (size_t)C * NP;
   const int nt = tile_threads(KIND, sums);
-  const size_t acc_floats = sums == kSumsFixed   ? (prep ? 1 : nt / 32 + 1) * n_acc
-                            : sums == kSumsBlock ? n_acc
-                                                 : 0;
+  size_t acc_floats = sums == kSumsFixed   ? (prep ? 1 : nt / 32 + 1) * n_acc
+                      : sums == kSumsBlock ? n_acc
+                                           : 0;
+  if (prep && sums == kSumsFixed)  // the rhs in double, from an 8-byte boundary
+    acc_floats = ((n_acc + 1) & ~(size_t)1) + 2 * ((size_t)I * 6 + (size_t)C * NP);
   return kTileStages * tile_stage_bytes(KIND, 9 + NP) + (size_t)nt * (prep ? 12 : 3) * 4 +
          acc_floats * 4;
 }
@@ -1053,7 +1196,8 @@ extern "C" int ba_matvec(int np, const TileTable* tab, const float* xpose, const
 // each bucket's vinv and gpt written whole); lam is a device scalar.
 // acc_img [I, 33] and acc_cam [C, 2 NP] as a matvec's outputs: written
 // whole in the fixed order (partials: max_clusters rows of 33 I + 2 C NP
-// floats), else accumulated into zeroed outputs.
+// floats and, after them from an 8-byte boundary, max_clusters rows of
+// 6 I + C NP doubles), else accumulated into zeroed outputs.
 extern "C" int ba_prepare(int np, const TileTable* tab, const float* lam, int I, int C, int sums,
                           float* partials, int max_clusters, int* ticket, float* acc_img,
                           float* acc_cam, void* stream) {

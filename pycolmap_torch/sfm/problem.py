@@ -55,6 +55,7 @@ def build_bundle_problem(
     constant_tvec_x_ids=(),
     constant_point_ids=(),
     variable_point_ids=None,
+    dtype=torch.float32,
 ):
     """Flatten (a subset of) the reconstruction into a BundleProblem.
 
@@ -62,8 +63,14 @@ def build_bundle_problem(
     are those observed by >= 2 included images unless variable_point_ids is
     given; points observed by excluded registered images stay variable (their
     other observations are simply not part of this local problem, matching
-    local-BA semantics).
+    local-BA semantics). dtype: the float dtype of the problem's arrays (a
+    torch dtype or anything ``np.dtype`` reads); the card's kernels take
+    float32 only, and its solvers raise on any other.
     """
+    if not isinstance(dtype, torch.dtype):
+        dtype = torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
+    if not dtype.is_floating_point:
+        raise TypeError(f"dtype must be a float dtype, got {dtype}")
     if options is None:
         options = BundleAdjustmentOptions()
     if image_ids is None:
@@ -134,16 +141,16 @@ def build_bundle_problem(
     num_i, num_c, num_p, num_m = (
         len(image_ids), len(camera_ids), len(point_ids), len(obs_image),
     )
-    cam_quat = np.zeros((max(num_i, 1), 4), dtype=np.float32)
-    cam_trans = np.zeros((max(num_i, 1), 3), dtype=np.float32)
+    cam_quat = np.zeros((max(num_i, 1), 4), dtype=np.float64)
+    cam_trans = np.zeros((max(num_i, 1), 3), dtype=np.float64)
     cam_quat[:, 0] = 1.0
     for iid, k in image_index.items():
         q = reconstruction.images[iid].cam_from_world.rotation.quat  # xyzw
         cam_quat[k] = [q[3], q[0], q[1], q[2]]
         cam_trans[k] = reconstruction.images[iid].cam_from_world.translation
 
-    intrinsics = np.zeros((max(num_c, 1), intr_width), dtype=np.float32)
-    intr_free = np.zeros((max(num_c, 1), intr_width), dtype=np.float32)
+    intrinsics = np.zeros((max(num_c, 1), intr_width), dtype=np.float64)
+    intr_free = np.zeros((max(num_c, 1), intr_width), dtype=np.float64)
     for cid, k in camera_index.items():
         cam = reconstruction.cameras[cid]
         intrinsics[k, : len(cam.params)] = cam.params
@@ -154,11 +161,11 @@ def build_bundle_problem(
             intrinsics[k, sel_idx] = cm.model_id_from_name(cam.model)
             intr_free[k, sel_idx] = 0.0
 
-    points = np.zeros((max(num_p, 1), 3), dtype=np.float32)
+    points = np.zeros((max(num_p, 1), 3), dtype=np.float64)
     for pid, k in point_index.items():
         points[k] = reconstruction.points3D[pid].xyz
 
-    pose_free = np.ones((max(num_i, 1), 6), dtype=np.float32)
+    pose_free = np.ones((max(num_i, 1), 6), dtype=np.float64)
     if not options.refine_extrinsics:
         pose_free[:] = 0.0
     for iid in constant_pose_ids:
@@ -168,12 +175,15 @@ def build_bundle_problem(
         if iid in image_index:
             pose_free[image_index[iid], 3] = 0.0
 
-    point_free = np.ones(max(num_p, 1), dtype=np.float32)
+    point_free = np.ones(max(num_p, 1), dtype=np.float64)
     for pid in constant_point_ids:
         if pid in point_index:
             point_free[point_index[pid]] = 0.0
 
-    t = torch.from_numpy
+    def t(a):  # values are gathered in float64, rounded once to dtype
+        a = torch.from_numpy(a)
+        return a.to(dtype) if a.is_floating_point() else a
+
     problem = BundleProblem(
         cam_quat=t(cam_quat),
         cam_trans=t(cam_trans),
@@ -183,8 +193,8 @@ def build_bundle_problem(
         obs_image_idx=t(np.asarray(obs_image, dtype=np.int32).reshape(-1)),
         obs_camera_idx=t(np.asarray(obs_cam, dtype=np.int32).reshape(-1)),
         obs_point_idx=t(np.asarray(obs_point, dtype=np.int32).reshape(-1)),
-        obs_xy=t(np.asarray(obs_xy, dtype=np.float32).reshape(-1, 2)),
-        obs_mask=t(np.ones(num_m, dtype=np.float32)),
+        obs_xy=t(np.asarray(obs_xy, dtype=np.float64).reshape(-1, 2)),
+        obs_mask=t(np.ones(num_m, dtype=np.float64)),
         pose_free=t(pose_free),
         intr_free=t(intr_free),
         point_free=t(point_free),

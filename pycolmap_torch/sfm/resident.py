@@ -23,6 +23,28 @@ from pycolmap_torch.sfm import ba_kernels as bk
 from pycolmap_torch.sfm.bundle_adjustment import BASummary, BundleProblem
 
 
+_FLOAT_FIELDS = ("cam_quat", "cam_trans", "intrinsics", "points", "obs_xy",
+                 "obs_mask", "pose_free", "intr_free", "point_free")
+
+
+def check_kernel_dtype(problem: BundleProblem, device) -> None:
+    """Raise TypeError if a CUDA solve is given float arrays other than
+    float32: the card's kernels take float32 only, and a problem of another
+    dtype is never cast quietly. The CPU's plain path solves in float32, as
+    the reference's does."""
+    if torch.device(device).type != "cuda":
+        return
+    bad = sorted({
+        f"{f}: {bk._np(getattr(problem, f)).dtype}" for f in _FLOAT_FIELDS
+        if bk._np(getattr(problem, f)).dtype != np.float32
+    })
+    if bad:
+        raise TypeError(
+            "the card's BA kernels take float32 only; build the problem "
+            f"with dtype=torch.float32 ({', '.join(bad)})"
+        )
+
+
 class ResidentBundleSolver:
     """Re-solvable BA problem with device-resident structure AND parameters.
 
@@ -48,6 +70,7 @@ class ResidentBundleSolver:
                  device=None, cg_bf16=None):
         self.device = resolve_device(device)
         self.cg_bf16 = bk.cg_bf16_default(self.device, cg_bf16)
+        check_kernel_dtype(problem, self.device)
         if problem.num_obs == 0:
             raise ValueError("empty problem")
         self._problem = problem

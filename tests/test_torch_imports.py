@@ -59,7 +59,9 @@ def test_the_port_is_scanned():
                 "pipeline/__init__.py", "pipeline/extract_features.py",
                 "pipeline/match_features.py", "estimators/batch_two_view.py",
                 "features/matcher.py", "__init__.py", "mvs/meshing.py",
-                "features/retrieval.py"):
+                "features/retrieval.py", "estimators/alignment.py",
+                "estimators/generalized_absolute_pose.py",
+                "parallel/graph_partition.py", "parallel/__init__.py"):
         assert f"pycolmap_torch/{mod}" in names
     assert len(FILES) > 20
 
@@ -74,7 +76,10 @@ QUICK_START = ("extract_features", "match_exhaustive", "incremental_mapping",
                "Reconstruction", "Database", "Camera", "Rigid3d",
                "SiftExtractionOptions", "SiftMatchingOptions",
                "IncrementalPipelineOptions", "BundleAdjustmentOptions",
-               "ImageReaderOptions", "CameraMode", "Device", "logging")
+               "ImageReaderOptions", "CameraMode", "Device", "logging",
+               "hierarchical_mapping", "rig_absolute_pose_estimation",
+               "compare_reconstructions", "align_reconstruction_to_locations",
+               "has_cuda", "has_tpu")
 
 
 @pytest.mark.parametrize("first", ["pycolmap_torch",
@@ -95,3 +100,25 @@ def test_cold_import(first):
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_namespaces_match_the_reference():
+    """Every public name of the reference's top level is the port's, but
+    the multi-device modules' mesh selectors and the reference's private
+    module names; the estimators' names are all the port's. ``has_cuda``
+    says whether this host has the card, ``has_tpu`` is False."""
+    import torch
+
+    import pycolmap_torch as pt
+    import pycolmap_torch.estimators as te
+    import pycolmap_tpu as jt
+    import pycolmap_tpu.estimators as je
+
+    assert set(dir(jt)) - set(dir(pt)) == {
+        "_detect_tpu", "_os", "get_default_mesh", "resolve_mesh",
+        "set_default_mesh"}
+    assert set(dir(je)) - set(dir(te)) == set()
+    assert pt.has_cuda is torch.cuda.is_available()
+    assert pt.has_tpu is False
+    assert pt.parallel.graph_partition.hierarchical_mapping is (
+        pt.hierarchical_mapping)

@@ -260,3 +260,30 @@ def test_pipeline_options_convert():
     jd = jo.get_local_ba().todict()
     jd.pop("devices")
     assert to.get_local_ba().todict() == jd
+
+
+@pytest.mark.parametrize("mode", ["reprojection", "proj_center"])
+def test_port_compare_reconstructions_judges_alike(mapped, tmp_path, mode):
+    """The port's own compare_reconstructions beside the reference's: on
+    the port's model against the truth, the same images and errors within
+    1e-4; the two packages' models against each other align through their
+    common points (the robust Sim3) within 0.5 degrees."""
+    from pycolmap_torch.estimators import compare_reconstructions as t_compare
+
+    mapped["gt"].write_binary(tmp_path / "gt")
+    t_disk = Reconstruction(mapped["root"] / "sparse_t" / "0")
+    j_disk = JRec(mapped["root"] / "sparse_t" / "0")
+    got = t_compare(t_disk, Reconstruction(tmp_path / "gt"), mode,
+                    device="cpu")
+    ref = compare_reconstructions(j_disk, mapped["gt"], mode)
+    assert [e.image_name for e in got["errors"]] == [
+        e.image_name for e in ref["errors"]]
+    for g, r in zip(got["errors"], ref["errors"]):
+        assert abs(g.rotation_error_deg - r.rotation_error_deg) < 1e-4
+        assert abs(g.proj_center_error - r.proj_center_error) < 1e-4
+    assert np.median([e.rotation_error_deg for e in got["errors"]]) < 0.5
+    mapped["jrecs"][0].write_binary(tmp_path / "j")
+    cross = t_compare(t_disk, Reconstruction(tmp_path / "j"), mode,
+                      device="cpu")
+    assert len(cross["errors"]) == 6
+    assert np.median([e.rotation_error_deg for e in cross["errors"]]) < 0.5

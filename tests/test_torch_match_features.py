@@ -226,7 +226,13 @@ def test_images_to_model(mapped):
     # the projection centers at tests/test_full_pipeline.py's C2 gate bound
     # (0.006 here). Not its rotation bound: with five 320x240 views the
     # SIMPLE_RADIAL camera settles at f 444 and k -0.02 (the truth: 450,
-    # a pinhole), and every rotation sits 0.68-0.80 degrees off
+    # a pinhole), and every rotation sits 0.68-0.80 degrees off. The
+    # reference's flow meets the bound here (median 0.47 degrees), but its
+    # own mapper on the port's verified matches gives 0.75, and the port's
+    # on the reference's 0.47: the two match sets differ by one false match
+    # (6.4 px off the true epipolar geometry) that the port's essential
+    # matrix admits, with 479 inliers to the reference's 478, as their
+    # random streams fall. The rotation bound hangs on that one match
     ctrs = _center_errors(rec, poses)
     assert np.median(ctrs) < 0.05, ctrs
 

@@ -628,3 +628,68 @@ def test_triangulate_points_mixed_matches_reference(tmp_path):
     np.testing.assert_allclose(out.compute_mean_reprojection_error(),
                                jrec.compute_mean_reprojection_error(),
                                rtol=1e-3)
+
+
+def test_resident_cache_keys_each_model_set(tmp_path):
+    """The mapper's resident-BA cache on a two-model scene: a window of one
+    model's images solves as an int-model problem on that model's planes,
+    the whole scene as a tuple problem with the selector plane; each is its
+    own entry, and a repeated solve hits it."""
+    _write_mixed_model(tmp_path, ("SIMPLE_RADIAL", "OPENCV"))
+    trec = Reconstruction(tmp_path)
+    cache = tres.MapperResidentBA(device="cpu")
+    opts = convert.ba_options_from_dict({})
+    one, _ = t_build(trec, opts, image_ids=[1, 3, 5],
+                     constant_pose_ids=[1])
+    both, _ = t_build(trec, opts, constant_pose_ids=[1])
+    assert one.model_id == SIMPLE_RADIAL and both.model_id == (
+        SIMPLE_RADIAL, OPENCV)
+    new_one, _ = cache.solve(one, opts)
+    new_both, _ = cache.solve(both, opts)
+    assert sorted(s._NP for s in cache._entries.values()) == [4, 9]
+    assert cache.misses == 2 and cache.hits == 0
+    # the next refinement round re-solves the written-back problems
+    cache.solve(new_one, opts)
+    cache.solve(new_both, opts)
+    assert cache.misses == 2 and cache.hits == 2
+
+
+def test_incremental_mapping_mixed_cameras(tmp_path):
+    """incremental_mapping of an 8-image orbit whose images alternate
+    between a SIMPLE_RADIAL and a PINHOLE camera (tests/test_mixed_models.py's
+    mapping case at 8 images, judged at its bounds): its global BA solves
+    tuple problems."""
+    cameras = [JCamera.create(0, "SIMPLE_RADIAL", 600.0, 640, 480),
+               JCamera.create(0, "PINHOLE", 600.0, 640, 480)]
+    gt = make_synthetic_database(tmp_path / "db.db", num_images=8,
+                                 num_points=200, pixel_noise=0.3,
+                                 cameras=cameras)
+    gt.write_binary(tmp_path / "gt")
+    options = convert.pipeline_options_from_dict(JPipe().todict())
+    options.min_model_size = 4
+    options.extract_colors = False
+    options.ba_refine_principal_point = False
+    seen = []
+    solve = tres.MapperResidentBA.solve
+
+    def record(self, problem, *a, **kw):
+        seen.append(problem.model_id)
+        return solve(self, problem, *a, **kw)
+
+    from pycolmap_torch.pipeline import incremental_mapping
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tres.MapperResidentBA, "solve", record)
+        recs = incremental_mapping(tmp_path / "db.db", tmp_path,
+                                   tmp_path / "sparse", options, device="cpu")
+    rec = recs[0]
+    assert rec.num_reg_images >= 7
+    assert {c.model for c in rec.cameras.values()} == {"SIMPLE_RADIAL",
+                                                       "PINHOLE"}
+    assert rec.compute_mean_reprojection_error() < 1.0
+    assert (PINHOLE, SIMPLE_RADIAL) in seen
+    from pycolmap_torch.estimators import compare_reconstructions
+
+    result = compare_reconstructions(rec, Reconstruction(tmp_path / "gt"),
+                                     device="cpu")
+    assert np.median([e.rotation_error_deg for e in result["errors"]]) < 0.5

@@ -100,3 +100,38 @@ def test_mixed_models_build_but_do_not_solve(tmp_path):
         tp, convert.ba_options_from_dict({}), device="cpu")
     assert summary.final_cost < summary.initial_cost
     assert np.array_equal(out.intrinsics[:, 4].numpy(), [2.0, 1.0])
+
+
+@pytest.mark.parametrize("dtype", ["reference", "float64"])
+def test_build_bundle_problem_dtype(tmp_path, dtype):
+    """The reference's ``dtype`` keyword: its own call
+    (``dtype=jnp.float32``) builds the reference's problem; float64 keeps
+    the float arrays in float64 (rounding to the reference's float32
+    values), solves on the CPU, and raises for the card's float32-only
+    kernels rather than being cast."""
+    import jax.numpy as jnp
+
+    from pycolmap_torch.sfm.resident import check_kernel_dtype
+
+    jrec, trec = _models(tmp_path)
+    jp, _ = j_build(jrec, dtype=jnp.float32)
+    want = jnp.float32 if dtype == "reference" else torch.float64
+    tp, _ = build_bundle_problem(trec, dtype=want)
+    for f in BundleProblem._fields:
+        if f == "model_id":
+            continue
+        got, ref = getattr(tp, f), np.asarray(getattr(jp, f))
+        if f in INDEX_FIELDS:
+            assert got.dtype == torch.int32
+        else:
+            assert got.dtype == (torch.float32 if dtype == "reference"
+                                 else torch.float64)
+        np.testing.assert_array_equal(got.numpy().astype(ref.dtype), ref,
+                                      err_msg=f)
+    check_kernel_dtype(build_bundle_problem(trec)[0], "cuda")
+    if dtype == "float64":
+        with pytest.raises(TypeError, match="float32 only"):
+            check_kernel_dtype(tp, "cuda")
+        _, summary = tbk.solve_bundle_fast(
+            tp, convert.ba_options_from_dict({}), device="cpu")
+        assert summary.final_cost < summary.initial_cost
