@@ -17,16 +17,25 @@ local-window BA step of each (``chip_smoke.ResJacRecorder``) and prints,
 per output of resjac and prepare, the kernel's and the f32 plain
 version's scaled error against the float64 plain version.
 
+With ``--unsharded`` each checkout instead runs, once and in the order A,
+B, its unsharded BA paths: phase 4's bf16 bench solve and phase 20's
+timed ``incremental_mapping`` of the 30-image orbit. Each run prints one
+line ``UNSHARDED {json}`` with the launch counts, the LM steps and CG
+iterations, and SHA-1 digests of the solved points and quaternions and
+of the registered poses, so the two compare launch for launch and bit
+for bit.
+
 Run from the root of checkout B on a host with the card, checkout A
 unpacked anywhere (e.g. ``git archive <commit> | tar -x -C build/parent``):
 
-    python3 chip_ab.py build/parent . [--mapper-errors]
+    python3 chip_ab.py build/parent . [--mapper-errors | --unsharded]
 
 It exits 1 on a host without CUDA.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -81,7 +90,43 @@ def _errors(cs, ck, torch, case, tag):
               f"{float(ref.abs().max()):.3e}", flush=True)
 
 
-def one(tree: Path, mapper_errors: bool) -> int:
+def _sha(a) -> str:
+    import numpy as np
+
+    return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _unsharded(cs, tree: Path):
+    """Phase 4's bf16 bench solve and phase 20's timed mapping: their
+    launches, loop counts and result digests."""
+    import numpy as np
+
+    launches, _, solver, rate = cs.bench_solve(cg_bf16=True)
+    p = solver.fetch_problem()
+    out = {"tree": str(tree), "phase4": dict(
+        launches={k: v for k, v in launches.items() if v}, rate=rate,
+        points_sha=_sha(p.points.numpy()),
+        quat_sha=_sha(p.cam_quat.numpy()))}
+    del solver
+    with tempfile.TemporaryDirectory(dir=tree / "build") as tmp:
+        tmp = Path(tmp)
+        gt = cs.write_orbit_database(tmp / "map.db", cs.MAP_IMAGES,
+                                     cs.MAP_POINTS, cs.MAP_NOISE)
+        cs.zero_counts()
+        rec, dt, t = cs.map_and_check(tmp / "map.db", tmp / "m", gt,
+                                      cs.mapping_options(), "cuda",
+                                      "chip_ab unsharded", cs.MAP_IMAGES)
+        counts, _ = cs.read_counts()
+        poses = np.stack([rec.images[i].cam_from_world.rotation.quat
+                          for i in sorted(rec.reg_image_ids)])
+    out["phase20"] = dict(launches={k: v for k, v in counts.items() if v},
+                          seconds=dt, steps=t["ba_lm_steps"],
+                          cg=t["ba_cg_iterations"], solves=t["ba_solves"],
+                          err=t["err"], rot=t["rot"], poses_sha=_sha(poses))
+    print("UNSHARDED " + json.dumps(out), flush=True)
+
+
+def one(tree: Path, mapper_errors: bool, unsharded: bool) -> int:
     """The run of one checkout, in this process."""
     sys.path.insert(0, str(tree))
     import torch
@@ -95,6 +140,10 @@ def one(tree: Path, mapper_errors: bool) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     _cuda_build.libs()
+    (tree / "build").mkdir(exist_ok=True)
+    if unsharded:
+        _unsharded(cs, tree)
+        return 0
     case, _ = cs.bench_case(torch.device("cuda"))
     res = {}
     cs.check_case(case, "bench", res)
@@ -104,7 +153,6 @@ def one(tree: Path, mapper_errors: bool) -> int:
     # which phase 16 only logs beside its own, stand in)
     single = {"lm": 1, "solve": 1.0, "entry_s": 1.0,
               "launches": {k: 1 for k in cs.SINGLE_BA}}
-    (tree / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=tree / "build") as tmp:
         _, captured = cs.mixed_model_bundle_adjustment(Path(tmp), single)
     buckets, pts, *rest = captured
@@ -139,17 +187,21 @@ def one(tree: Path, mapper_errors: bool) -> int:
 
 def main(argv) -> int:
     if argv[:1] == ["--one"]:
-        return one(Path(argv[1]).resolve(), "--mapper-errors" in argv)
+        return one(Path(argv[1]).resolve(), "--mapper-errors" in argv,
+                   "--unsharded" in argv)
     flags = [a for a in argv if a.startswith("--")]
     trees = [Path(a).resolve() for a in argv if not a.startswith("--")]
-    if len(trees) != 2:
+    if len(trees) != 2 or len(flags) > 1:
         sys.exit(__doc__)
     a, b = trees
+    if "--unsharded" in flags:
+        runs = ((a, ["--unsharded"]), (b, ["--unsharded"]))
+    else:
+        runs = ((a, []), (b, flags), (b, []), (a, []))
     rc = 0
-    for tree, errs in ((a, False), (b, "--mapper-errors" in flags),
-                       (b, False), (a, False)):
+    for tree, extra in runs:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--one",
-               str(tree)] + (["--mapper-errors"] if errs else [])
+               str(tree)] + extra
         rc |= subprocess.run(cmd, cwd=tree).returncode
     return rc
 

@@ -7,8 +7,9 @@ stereo fusion), the gather probe, the geometric estimators, the
 incremental mapper, the way from image files to a model (import,
 extraction, the pair matchers with batched verification, mapping), the
 meshers, vocabulary-tree retrieval with the matchers built on it,
-hierarchical mapping with alignment, the rig pose, and mapping with two
-camera models.
+hierarchical mapping with alignment, the rig pose, mapping with two
+camera models, and multi-device bundle adjustment (point shards over a
+shard mesh, over gloo and NCCL process groups).
 
 Run from the repository root on a host with an H100 (or another sm_90a
 card) and the CUDA toolkit:
@@ -229,7 +230,25 @@ Phases (each raises on failure; the script then exits nonzero):
     prepare once per LM step, finish of either form once per LM step and
     the cost once per solve; the mixed kernels, prepare and both matvecs
     held to their plain versions (phases 15 and 10) and timed at the
-    operands of one recorded global step.
+    operands of one recorded global step;
+27. multi-device bundle adjustment on the one card, every launch count
+    zeroed just before and read just after each part: (a) the bench bundle
+    (5 LM steps, ``cg_iters`` 15, the bf16 matvec) through
+    ``solve_bundle(..., mesh=make_obs_mesh(["cuda:0", "cuda:0"]))`` and
+    unsharded: the same iteration count, the initial cost within 1e-4, the
+    final within 1e-3, camera translations within 1e-3; per shard prepare
+    and finish once per LM step, matvec16 once per CG iteration, the cost
+    once per solve; then ``dryrun_multichip(2)`` (a solve and two chained
+    resident solves on the mesh); (b) two processes of this script
+    (``--phase27-rank``) joined over gloo, one shard each on cuda:0: the
+    ranks agree (iterations, cost within 1e-5, a quaternion and a point
+    within 1e-5) and rank 0 equals (a)'s two-shard solve within 1e-6; (d)
+    phase 20's mapping with ``options.devices`` the two-shard mesh: at
+    least 29 of 30 registered under 1 px, the median rotation against
+    phase 20's model under 0.1 degrees and the reprojection error within
+    0.05 px of it; (c) one NCCL rank: a one-shard mesh over its group
+    equals the unsharded solve within 1e-6. The card's host has one card,
+    so no shard runs on a second card here.
 
 The last lines are one JSON object describing every kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -238,9 +257,12 @@ The last lines are one JSON object describing every kernel, the card's
 from __future__ import annotations
 
 import copy
+import datetime
 import json
 import math
+import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -308,6 +330,13 @@ try:
     )
     from pycolmap_torch.parallel.graph_partition import hierarchical_mapping
     from pycolmap_torch.estimators import alignment as est_alignment
+    from pycolmap_torch.parallel import distributed as pdist
+    from pycolmap_torch.parallel.sharded_ba import (
+        dryrun_multichip, make_obs_mesh,
+    )
+    from pycolmap_torch.sfm.bundle_adjustment import (
+        solve_bundle as sfm_solve_bundle,
+    )
 except ImportError as e:  # run outside the repository
     sys.exit(f"chip_smoke: the pycolmap_torch package is missing ({e})")
 
@@ -434,6 +463,11 @@ HIER_IMAGES, HIER_POINTS, HIER_NOISE = 90, 12_000, 0.4
 HIER_PARTS, HIER_OVERLAP = 3, 6
 # phase 25's rig: 2,000 correspondences over four cameras
 RIG_OBS = 2000
+# phase 27: the bench bundle at 5 LM steps of at most 15 CG iterations, on
+# two shards of the one card; a rank process's and the NCCL group's limit
+SHARD_LM_ITERS, SHARD_CG_ITERS = 5, 15
+SHARD_DEVICES = ("cuda:0", "cuda:0")
+RANK_TIMEOUT_S = 300
 
 
 def log(msg):
@@ -972,7 +1006,7 @@ def bench_solve(cg_bf16):
         f"iterations, prepare {launches['prepare']} and finish "
         f"{launches['finish']} over {lm_steps} LM steps, cost "
         f"{launches['cost']} over {len(runs + ones)} solves, "
-        f"{len(solver._buckets)} buckets (expected {want})")
+        f"{len(solver._buckets[0])} buckets (expected {want})")
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"{tag}: launches "
                              f"{ {k: launches[k] for k in want} }, "
@@ -3314,7 +3348,7 @@ def mapping_phase(tmp):
                              "different image counts")
     total = time.perf_counter() - t20
     log(f"phase 20: {total:.2f} s")
-    return dict(launches=launches, kernels=kern, seconds=total,
+    return dict(launches=launches, kernels=kern, seconds=total, model=rec,
                 img_per_s=rec.num_reg_images / dt,
                 timings=t, lm_steps=steps, cg_iterations=cg, solves=solves,
                 cpu_8=dict(cuda=out8["cuda"][1], cpu=out8["cpu"][1]))
@@ -4259,6 +4293,306 @@ def cost_row(r, resources, kind, policy):
                 resources=resources[f"{kind} {policy}"])
 
 
+# ---------------------------------------------------------------------------
+# phase 27: multi-device bundle adjustment
+# ---------------------------------------------------------------------------
+
+
+class SolveRecorder:
+    """Keeps the LMResult of each ResidentBundleSolver solve (through the
+    class attribute that solve_bundle's solver and the mapper's cache
+    call), for the launch rule: its LM steps and CG iterations."""
+
+    def __enter__(self):
+        self.results = []
+        self._solve = ResidentBundleSolver.solve
+        outer = self
+
+        def solve(solver, *args, **kw):
+            out = outer._solve(solver, *args, **kw)
+            outer.results.append(solver.last_result)
+            return out
+
+        ResidentBundleSolver.solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        ResidentBundleSolver.solve = self._solve
+
+    def want(self, shards):
+        """Per shard, the launches of phase 4's rule: prepare and finish
+        once per LM step, matvec16 once per CG iteration, the cost once per
+        solve."""
+        steps = sum(r.iterations for r in self.results)
+        cg = sum(r.cg_iterations for r in self.results)
+        return {"matvec16": shards * cg, "prepare": shards * steps,
+                "finish": shards * steps, "cost": shards * len(self.results)}
+
+
+def sharded_run(tag, shards, fn):
+    """fn() with every launch count zeroed just before and read just after,
+    its LM results recorded, timed (fn ends in a host read), and the launch
+    rule of `shards` shards checked. Returns (fn(), seconds, launches,
+    the rule's counts)."""
+    torch.cuda.synchronize()
+    zero_counts()
+    with SolveRecorder() as rec:
+        t0 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t0
+    launches, plain_on_cuda = read_counts()
+    want = rec.want(shards)
+    launch_check(tag, launches, plain_on_cuda, want,
+                 ("resjac", "prepare", "finish", "cost", "matvec16"))
+    log(f"{tag}: {dt:.3f} s; {shards} shard(s), launches "
+        f"{ {k: v for k, v in launches.items() if v} } ({want} by the "
+        f"rule: {len(rec.results)} solve(s), "
+        f"{sum(r.iterations for r in rec.results)} LM steps, "
+        f"{sum(r.cg_iterations for r in rec.results)} CG iterations)")
+    return out, dt, launches, want
+
+
+def rel_diff(a, b):
+    """max |a - b| / max(1, max |b|) of two arrays, and |a - b| / |b| of
+    two numbers."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.ndim == 0:
+        return float(abs(a - b) / max(abs(b), 1e-30))
+    return float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+
+
+def shard_solve(problem, mesh=None, device=None):
+    """Phase 27's solve of the bench bundle through ``solve_bundle``: on
+    `mesh`, or unsharded on `device`. Returns (problem, summary)."""
+    opts = options(SHARD_LM_ITERS)
+    opts.devices = "none"
+    return sfm_solve_bundle(problem, opts, cg_iters=SHARD_CG_ITERS,
+                            device=device, mesh=mesh)
+
+
+def phase27_rank(rank, port, out):
+    """One gloo rank of phase 27 (b): a process of ``chip_smoke.py
+    --phase27-rank RANK PORT OUT``, one shard on cuda:0, writing its
+    result and launch counts to OUT/rank<RANK>.npz."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = pdist.init_distributed(f"127.0.0.1:{port}", 2, rank,
+                                 backend="gloo", timeout_s=RANK_TIMEOUT_S)
+    if got != (rank, 2):
+        raise AssertionError(f"rank {rank} joined as {got}")
+    try:
+        _cuda_build.libs()
+        mesh = make_obs_mesh(["cuda:0"],
+                             group=torch.distributed.group.WORLD)
+        bench = make_synthetic_bundle(**BENCH)
+        (problem, s), dt, launches, _ = sharded_run(
+            f"phase 27 (b) rank {rank}", 1, lambda: shard_solve(bench, mesh))
+        np.savez(Path(out) / f"rank{rank}.npz",
+                 summary=np.array([s.initial_cost, s.final_cost,
+                                   s.num_iterations, dt], np.float64),
+                 cam_quat=problem.cam_quat.numpy(),
+                 cam_trans=problem.cam_trans.numpy(),
+                 points=problem.points.numpy(),
+                 launches=json.dumps({k: v for k, v in launches.items()
+                                      if v}))
+        pdist.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_phase(tmp, model20):
+    """Phase 27: multi-device bundle adjustment on the one card, every
+    launch count zeroed just before and read just after each part: (a)
+    the bench bundle through ``solve_bundle`` on a two-shard mesh of
+    cuda:0 against the unsharded solve, then ``dryrun_multichip(2)``; (b)
+    two gloo processes of one shard each against (a)'s two-shard solve;
+    (d) phase 20's mapping with ``options.devices`` the two-shard mesh
+    against phase 20's model `model20`; (c) one NCCL rank's one-shard mesh
+    against the unsharded solve. (b)'s processes run first and are joined
+    before (a) starts, so (a) and (d) have the card to themselves. Returns
+    the numbers and each part's launches."""
+    t27 = time.perf_counter()
+    numbers, launches = {}, {}
+    mesh = make_obs_mesh(list(SHARD_DEVICES))
+
+    # (b) starts: two gloo processes on cuda:0, one shard each
+    out = tmp / "ranks"
+    out.mkdir()
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--phase27-rank",
+         str(k), str(port), str(out)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for k in range(2)]
+    bench = make_synthetic_bundle(**BENCH)
+    try:
+        texts = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    b_seconds = time.perf_counter() - t27
+    numbers["a"], ref1, ref2, launches["a"] = shard_part_a(bench, mesh)
+    numbers["b"], launches["b"] = shard_part_b(
+        out, texts, [p.returncode for p in procs], ref2, b_seconds)
+    numbers["d"], launches["d"] = shard_part_d(tmp, mesh, model20)
+    numbers["c"], launches["c"] = shard_part_c(bench, ref1)
+    numbers["seconds"] = time.perf_counter() - t27
+    log(f"phase 27: {numbers['seconds']:.2f} s (b "
+        f"{numbers['b']['seconds']:.1f} from the start to both ranks' exit, "
+        f"a {numbers['a']['unsharded_s'] + numbers['a']['sharded_s']:.1f} + "
+        f"dryrun {numbers['a']['dryrun_s']:.1f}, d "
+        f"{numbers['d']['seconds']:.1f}, c {numbers['c']['seconds']:.1f})")
+    return dict(numbers=numbers, launches=launches)
+
+
+def shard_part_a(bench, mesh):
+    """Phase 27 (a): the bench bundle `bench` on `mesh` against the
+    unsharded solve, then ``dryrun_multichip(2)``. Returns the numbers, the
+    two solves' results (unsharded, sharded) and the launches."""
+    (p1, s1), dt1, _, _ = sharded_run(
+        "phase 27 (a) unsharded", 1,
+        lambda: shard_solve(bench, device="cuda"))
+    (p2, s2), dt2, launches, _ = sharded_run(
+        "phase 27 (a) 2 shards", 2, lambda: shard_solve(bench, mesh))
+    d_trans = float((p2.cam_trans - p1.cam_trans).abs().max())
+    a = dict(unsharded=s1._asdict(), sharded=s2._asdict(),
+             unsharded_s=dt1, sharded_s=dt2,
+             initial_rel=rel_diff(s2.initial_cost, s1.initial_cost),
+             final_rel=rel_diff(s2.final_cost, s1.final_cost),
+             cam_trans_max_abs=d_trans)
+    log(f"phase 27 (a): unsharded {s1} in {dt1:.3f} s, 2 shards {s2} in "
+        f"{dt2:.3f} s; initial cost rel {a['initial_rel']:.2e} (tol 1e-4), "
+        f"final {a['final_rel']:.2e} (tol 1e-3), camera translations "
+        f"{d_trans:.2e} (tol 1e-3)")
+    if not (s2.num_iterations == s1.num_iterations
+            and a["initial_rel"] <= 1e-4 and a["final_rel"] <= 1e-3
+            and d_trans <= 1e-3 and s2.final_cost < s2.initial_cost):
+        raise AssertionError(f"phase 27 (a): the sharded solve {s2} differs "
+                             f"from the unsharded {s1}")
+    dry, dt, dry_launches, _ = sharded_run(
+        "phase 27 (a) dryrun_multichip(2)", 2, lambda: dryrun_multichip(2))
+    a.update(dryrun=dry, dryrun_s=dt)
+    log(f"phase 27 (a) dryrun_multichip(2): {json.dumps(dry)}")
+    refs = [dict(summary=s, cam_quat=p.cam_quat.numpy(),
+                 cam_trans=p.cam_trans.numpy(), points=p.points.numpy())
+            for p, s in ((p1, s1), (p2, s2))]
+    return (a, *refs,
+            {k: v + dry_launches[k] for k, v in launches.items()})
+
+
+def shard_part_d(tmp, mesh, model20):
+    """Phase 27 (d): phase 20's mapping with ``options.devices`` `mesh`,
+    against phase 20's model. Returns the numbers and the launches."""
+    db = tmp / "map.db"
+    gt = write_orbit_database(db, MAP_IMAGES, MAP_POINTS, MAP_NOISE)
+    opts = mapping_options()
+    opts.devices = mesh
+    (rec, dt, t), _, launches, _ = sharded_run(
+        "phase 27 (d) incremental_mapping", 2,
+        lambda: map_and_check(db, tmp / "map27", gt, opts, "cuda",
+                              "phase 27 (d)", MAP_IMAGES - 1))
+    cmp = est.compare_reconstructions(rec, model20)
+    if cmp is None:
+        raise AssertionError("phase 27 (d): no alignment to phase 20's model")
+    rot = float(np.median([e.rotation_error_deg for e in cmp["errors"]]))
+    err20 = model20.compute_mean_reprojection_error()
+    d = dict(seconds=dt, img_per_s=rec.num_reg_images / dt,
+             registered=rec.num_reg_images, err=t["err"], err20=err20,
+             rot_vs_phase20=rot, lm_steps=t["ba_lm_steps"],
+             cg_iterations=t["ba_cg_iterations"], solves=t["ba_solves"],
+             split={k: t.get(k, 0.0) for k in ("register", "local_ba",
+                                               "global_ba")})
+    log(f"phase 27 (d): {rec.num_reg_images} registered in {dt:.2f} s "
+        f"({d['img_per_s']:.4f} img/s), {t['err']:.4f} px against phase "
+        f"20's {err20:.4f}; median rotation against phase 20's model "
+        f"{rot:.4f} deg (tol 0.1); {json.dumps(d['split'])}")
+    if not (rot < 0.1 and abs(t["err"] - err20) < 0.05):
+        raise AssertionError(f"phase 27 (d): rotation {rot:.4f} deg, "
+                             f"reprojection {t['err']:.4f} against "
+                             f"{err20:.4f} px")
+    return d, launches
+
+
+def shard_part_b(out, texts, codes, ref2, seconds):
+    """Phase 27 (b): the two gloo ranks' results (in `out`; their output
+    `texts`, exit codes `codes`) against each other and against (a)'s
+    two-shard solve `ref2`. Returns the numbers and the ranks' launches
+    summed."""
+    r = []
+    for k, (text, code) in enumerate(zip(texts, codes)):
+        log("\n".join(f"phase 27 (b) rank {k} | {ln}"
+                      for ln in text.strip().splitlines()[-6:]))
+        if code != 0:
+            raise AssertionError(f"phase 27 (b): rank {k} exited {code}")
+        r.append(np.load(out / f"rank{k}.npz"))
+    b = dict(seconds=seconds,
+             rank_solve_s=[float(x["summary"][3]) for x in r],
+             ranks_final_rel=rel_diff(r[0]["summary"][1], r[1]["summary"][1]),
+             ranks_quat=float(np.abs(r[0]["cam_quat"][1]
+                                     - r[1]["cam_quat"][1]).max()),
+             ranks_point=float(np.abs(r[0]["points"][7]
+                                      - r[1]["points"][7]).max()),
+             vs_a={f: rel_diff(r[0][f], ref2[f])
+                   for f in ("cam_quat", "cam_trans", "points")})
+    b["vs_a"].update(initial_cost=rel_diff(r[0]["summary"][0],
+                                           ref2["summary"].initial_cost),
+                     final_cost=rel_diff(r[0]["summary"][1],
+                                         ref2["summary"].final_cost))
+    launches = {}
+    for x in r:
+        for k, v in json.loads(str(x["launches"])).items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"phase 27 (b): ranks agree: final cost rel "
+        f"{b['ranks_final_rel']:.2e} (tol 1e-5), quaternion "
+        f"{b['ranks_quat']:.2e}, point {b['ranks_point']:.2e} (tol 1e-5); "
+        f"rank 0 against (a)'s two shards {json.dumps(b['vs_a'])} (tol "
+        f"1e-6)")
+    if not (r[0]["summary"][2] == r[1]["summary"][2]
+            == ref2["summary"].num_iterations
+            and b["ranks_final_rel"] <= 1e-5 and b["ranks_quat"] <= 1e-5
+            and b["ranks_point"] <= 1e-5
+            and max(b["vs_a"].values()) <= 1e-6):
+        raise AssertionError("phase 27 (b): the ranks disagree, or differ "
+                             "from (a)'s two-shard solve")
+    return b, launches
+
+
+def shard_part_c(bench, ref1):
+    """Phase 27 (c): one NCCL rank, the bench bundle `bench` on a one-shard
+    mesh over its group, against the unsharded solve `ref1`. Returns the
+    numbers and the launches."""
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        nccl = make_obs_mesh(["cuda:0"], group=torch.distributed.group.WORLD)
+        (p3, s3), dt, launches, _ = sharded_run(
+            "phase 27 (c) one NCCL rank", 1,
+            lambda: shard_solve(bench, nccl))
+    finally:
+        torch.distributed.destroy_process_group()
+    c = dict(seconds=dt, vs_unsharded={
+        f: rel_diff(getattr(p3, f).numpy(), ref1[f])
+        for f in ("cam_quat", "cam_trans", "points")})
+    c["vs_unsharded"].update(
+        initial_cost=rel_diff(s3.initial_cost, ref1["summary"].initial_cost),
+        final_cost=rel_diff(s3.final_cost, ref1["summary"].final_cost))
+    log(f"phase 27 (c): {s3} in {dt:.3f} s; against the unsharded solve "
+        f"{json.dumps(c['vs_unsharded'])} (tol 1e-6)")
+    if not (s3.num_iterations == ref1["summary"].num_iterations
+            and max(c["vs_unsharded"].values()) <= 1e-6):
+        raise AssertionError("phase 27 (c): the NCCL rank's solve differs "
+                             "from the unsharded one")
+    return c, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4423,7 +4757,7 @@ def main():
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         mapping = mapping_phase(Path(tmp))
     summary = {k: v for k, v in mapping.items()
-               if k not in ("launches", "kernels")}
+               if k not in ("launches", "kernels", "model")}
     log(f"mapping summary: {json.dumps(summary)}")
 
     # --- phase 21: images to model ------------------------------------------
@@ -4466,6 +4800,11 @@ def main():
     log(f"mixed mapping summary: {json.dumps(mixed_map['numbers'])}")
     late_map = {k: v + mixed_map["launches"][k]
                 for k, v in hier["launches"].items()}
+
+    # --- phase 27: multi-device bundle adjustment ---------------------------
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        sharded = sharded_phase(Path(tmp), mapping.pop("model"))
+    log(f"sharded summary: {json.dumps(sharded['numbers'])}")
 
     kernels = []
     for name in SINGLE_BA:
@@ -4634,6 +4973,11 @@ def main():
         row["launches_phases_24_26"] = late_map.get(name, 0)
         row["launches_hierarchical"] = hier["launches"].get(name, 0)
         row["launches_mixed_mapping"] = mixed_map["launches"].get(name, 0)
+        # phase 27, by part: (a) the two-shard solve and the dryrun, (b)
+        # both gloo ranks, (c) the NCCL rank, (d) the sharded mapping
+        row["launches_phase_27"] = {
+            part: counts.get(name, 0)
+            for part, counts in sorted(sharded["launches"].items())}
         # the kernels at phase 26's recorded mixed global step
         m = mixed_map["kernels"].get(name)
         if m is not None:
@@ -4650,4 +4994,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--phase27-rank":
+        phase27_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -13,11 +13,11 @@ CPU fallback.
 The public surface re-exports what is ported of the reference's: scene
 objects, geometry types, the estimators (alignment and the rig pose
 among them), features, vocabulary-tree retrieval, the pipeline stages from
-images to a model and on to a mesh, and ``hierarchical_mapping``. The
-reference's mesh selectors (``get_default_mesh``, ``resolve_mesh``,
-``set_default_mesh``) belong to the multi-device modules, which are not
-ported yet. ``has_cuda`` says whether this host has the card; ``has_tpu``
-is False.
+images to a model and on to a mesh, ``hierarchical_mapping``, and the
+shard-mesh selectors of multi-device bundle adjustment
+(``get_default_mesh``, ``resolve_mesh``, ``set_default_mesh``;
+``parallel/device_ctx.py``). ``has_cuda`` says whether this host has the
+card; ``has_tpu`` is False.
 """
 
 from __future__ import annotations
@@ -163,6 +163,11 @@ from pycolmap_torch.pipeline import (  # noqa: E402
 )
 from pycolmap_torch.parallel.graph_partition import (  # noqa: E402
     hierarchical_mapping,
+)
+from pycolmap_torch.parallel.device_ctx import (  # noqa: E402
+    get_default_mesh,
+    resolve_mesh,
+    set_default_mesh,
 )
 from pycolmap_torch.sfm.bundle_adjustment import (  # noqa: E402
     BundleAdjustmentOptions,

@@ -52,9 +52,6 @@ from pycolmap_torch.sfm.bundle_adjustment import (
 )
 
 _INT_FIELDS = ("obs_image_idx", "obs_camera_idx", "obs_point_idx")
-# reference options with no counterpart in the port: the JAX mesh selector
-# (BA and the pipeline)
-_DROPPED_OPTIONS = ("devices",)
 # PatchMatch's GPU selector: the port's entry points take ``device``
 _DROPPED_PM_OPTIONS = ("gpu_index",)
 
@@ -85,10 +82,18 @@ def ba_options_from_dict(values: Mapping) -> BundleAdjustmentOptions:
     opts = BundleAdjustmentOptions()
     opts.mergedict({
         k: (int(v) if k == "loss_function_type" else v)
-        for k, v in values.items()
-        if k not in _DROPPED_OPTIONS
+        for k, v in _portable(values).items()
     })
     return opts
+
+
+def _portable(values: Mapping) -> dict:
+    """The options values without a ``devices`` that is a JAX mesh: a
+    selector string or count carries over, a mesh object has no
+    counterpart (the port's own is a ShardMesh)."""
+    dev = values.get("devices")
+    return {k: v for k, v in values.items()
+            if k != "devices" or dev is None or isinstance(dev, (str, int))}
 
 
 def _options_from(cls, values: Mapping):
@@ -113,8 +118,7 @@ def pipeline_options_from_dict(values: Mapping) -> IncrementalPipelineOptions:
     ``IncrementalPipelineOptions.todict()``, nested mapper and
     triangulation options included; enums map by value."""
     opts = IncrementalPipelineOptions()
-    opts.mergedict({k: v for k, v in values.items()
-                    if k not in _DROPPED_OPTIONS})
+    opts.mergedict(_portable(values))
     return opts
 
 

@@ -1,5 +1,5 @@
-"""Partitioned mapping and synthetic problems (port of
-``pycolmap_tpu/parallel``: ``graph_partition`` and ``synthetic``; the
-multi-device modules are still to be ported)."""
+"""Partitioned mapping, synthetic problems and the multi-device layer
+(port of ``pycolmap_tpu/parallel``: ``graph_partition``, ``synthetic``,
+``device_ctx``, ``sharded_ba``, ``camera_sharding`` and ``distributed``)."""
 
 from pycolmap_torch.parallel import graph_partition  # noqa: F401

@@ -59,8 +59,10 @@ from pycolmap_torch.utils.options import BaseOptions, options_dataclass
 class IncrementalPipelineOptions(BaseOptions):
     """Mirrors reference IncrementalPipelineOptions (pipeline/sfm.h:117-258).
 
-    The reference's ``devices`` option (a JAX mesh selector) has no
-    counterpart: the device is an argument of the entry points."""
+    ``devices`` selects the shard mesh of every BA solve of the pipeline
+    (``get_local_ba`` / ``get_global_ba`` pass it on), as the reference's
+    selects its JAX mesh: see ``BundleAdjustmentOptions``. The device of
+    everything else is an argument of the entry points."""
 
     min_num_matches: int = 15
     ignore_watermarks: bool = False
@@ -103,6 +105,9 @@ class IncrementalPipelineOptions(BaseOptions):
     # healthy scenes (residual check).
     pose_graph_relaxation: bool = True
     pose_graph_min_residual_deg: float = 1.0
+    # the shard mesh of every BA solve in the pipeline: "auto", "none", a
+    # card count, or a ShardMesh (parallel/device_ctx.resolve_mesh)
+    devices: object = "auto"
     mapper: IncrementalMapperOptions = None
     triangulation: IncrementalTriangulatorOptions = None
 
@@ -133,6 +138,7 @@ class IncrementalPipelineOptions(BaseOptions):
         ba.refine_extra_params = self.ba_refine_extra_params
         ba.max_num_iterations = self.ba_local_max_num_iterations
         ba.print_summary = False
+        ba.devices = self.devices
         return ba
 
     def get_global_ba(self) -> BundleAdjustmentOptions:
@@ -143,6 +149,7 @@ class IncrementalPipelineOptions(BaseOptions):
         ba.refine_extra_params = self.ba_refine_extra_params
         ba.max_num_iterations = self.ba_global_max_num_iterations
         ba.print_summary = False
+        ba.devices = self.devices
         return ba
 
 
@@ -517,8 +524,9 @@ def bundle_adjustment(reconstruction, options: BundleAdjustmentOptions = None,
     """Global BA on an existing reconstruction (ref: pipeline/sfm.h:95-103).
 
     The first registered image's pose and the second's x translation are
-    held constant (the gauge). Returns the BASummary, or None with fewer
-    than two registered images."""
+    held constant (the gauge). The solve is sharded over the mesh that
+    ``options.devices`` resolves to, if any. Returns the BASummary, or None
+    with fewer than two registered images."""
     device = resolve_device(device)
     if options is None:
         options = BundleAdjustmentOptions()

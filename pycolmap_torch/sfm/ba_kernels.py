@@ -64,45 +64,59 @@ def _np(a):
     return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
-def bucketize(problem: BundleProblem):
-    """Host-side: flat obs -> per-track-length buckets of numpy arrays.
-
-    Same output as the reference's ``bucketize`` (without its per-process
-    ``col_range`` split): only buckets up to the one covering the longest
-    track are emitted, empty ones inside that prefix at width 128."""
+def _track_lengths(problem: BundleProblem):
+    """The valid observations, their point-sorted order, each point's start
+    and end in that order, and the emitted buckets: (T, selected point
+    rows, padded width) up to the bucket covering the longest track, empty
+    ones inside that prefix at width 128."""
     obs_pt = _np(problem.obs_point_idx)
-    obs_img = _np(problem.obs_image_idx)
-    obs_cam = _np(problem.obs_camera_idx)
-    obs_xy = _np(problem.obs_xy)
     obs_mask = _np(problem.obs_mask)
-    points = _np(problem.points)
-    point_free = _np(problem.point_free)
-    P = points.shape[0]
-
+    P = _np(problem.points).shape[0]
     valid = obs_mask > 0
     order = np.argsort(obs_pt[valid], kind="stable")
     v_pt = obs_pt[valid][order]
-    v_img = obs_img[valid][order]
-    v_cam = obs_cam[valid][order]
-    v_xy = obs_xy[valid][order]
-
     starts = np.searchsorted(v_pt, np.arange(P))
     ends = np.searchsorted(v_pt, np.arange(P) + 1)
     lens = ends - starts
-
     max_len = int(lens.max()) if len(lens) else 1
     n_buckets = next(
         (k + 1 for k, T in enumerate(_BUCKET_TS) if max_len <= T),
         len(_BUCKET_TS),
     )
-    buckets = []
+    emitted = []
     for T in _BUCKET_TS[:n_buckets]:
         lo = 0 if T == _BUCKET_TS[0] else _BUCKET_TS[_BUCKET_TS.index(T) - 1]
         if T == _BUCKET_TS[n_buckets - 1]:
             sel = np.nonzero(lens > lo)[0]  # includes over-long tracks
         else:
             sel = np.nonzero((lens > lo) & (lens <= T))[0]
-        width = _pad_4x(len(sel), 128)
+        emitted.append((T, sel, _pad_4x(len(sel), 128)))
+    return valid, order, starts, ends, emitted
+
+
+def bucketize(problem: BundleProblem, col_range=None):
+    """Host-side: flat obs -> per-track-length buckets of numpy arrays.
+
+    The reference's ``bucketize``: only buckets up to the one covering the
+    longest track are emitted, empty ones inside that prefix at width 128.
+    col_range: optional (index, count): fill only that contiguous share of
+    each bucket's point columns, [index w, (index + 1) w) with w = width /
+    count; a width not divisible by count raises ValueError."""
+    valid, order, starts, ends, emitted = _track_lengths(problem)
+    v_img = _np(problem.obs_image_idx)[valid][order]
+    v_cam = _np(problem.obs_camera_idx)[valid][order]
+    v_xy = _np(problem.obs_xy)[valid][order]
+    points = _np(problem.points)
+    point_free = _np(problem.point_free)
+    buckets = []
+    for T, sel, width in emitted:
+        if col_range is not None:
+            pid, nproc = col_range
+            if width % nproc != 0:
+                raise ValueError(
+                    f"bucket width {width} not divisible by {nproc} shards")
+            width //= nproc
+            sel = sel[pid * width:(pid + 1) * width]
         n_sel = len(sel)
         flat_pos = starts[sel][None, :] + np.arange(T)[:, None]  # [T, n_sel]
         in_track = flat_pos < ends[sel][None, :]  # over-long tracks truncate
@@ -124,6 +138,41 @@ def bucketize(problem: BundleProblem):
         rows[:n_sel] = sel
         buckets.append(Bucket(img_idx, cam_idx, xy, mask, pts, pfree, rows))
     return tuple(buckets)
+
+
+def bucket_meta(problem: BundleProblem):
+    """Selection metadata only (no [T, P] planes): per bucket, the FULL
+    (point_rows [Pb], columns holding a point [Pb] bool, Pb, T), what a
+    process holding only its bucket slices needs to write every point
+    back."""
+    out = []
+    for T, sel, Pb in _track_lengths(problem)[4]:
+        rows = np.zeros(Pb, dtype=np.int32)
+        rows[: len(sel)] = sel
+        out.append((rows, np.arange(Pb) < len(sel), Pb, T))
+    return out
+
+
+def shard_buckets(problem: BundleProblem, mesh):
+    """This process's shards of the bucket columns: one tuple of host
+    buckets per local shard of ``mesh``, shard k holding columns [s w, (s +
+    1) w) of every bucket, s = ``mesh.shard_index(k)``, w = width /
+    ``mesh.size``. The process fills only its own share
+    (``bucketize(col_range=(rank, processes))``), then splits it among its
+    shards, as the reference places a process's slice on its local
+    devices. A width not divisible by the shard count raises
+    ValueError."""
+    nproc, n = mesh.num_processes, mesh.local_size
+    shards = [[] for _ in range(n)]
+    for b in bucketize(problem, col_range=(mesh.rank, nproc)):
+        width = b.mask.shape[1]
+        if width % n:
+            raise ValueError(f"bucket width {width * nproc} not divisible "
+                             f"by {mesh.size} shards")
+        w = width // n
+        for k in range(n):
+            shards[k].append(Bucket(*(a[..., k * w:(k + 1) * w] for a in b)))
+    return [tuple(bl) for bl in shards]
 
 
 def bucket_to(bucket: Bucket, device) -> Bucket:
@@ -372,7 +421,7 @@ class LMResult(NamedTuple):
     quat: torch.Tensor  # [I, 4]
     trans: torch.Tensor  # [I, 3]
     intr: torch.Tensor  # [C, NP]
-    points: list  # per bucket [3, P]
+    points: list  # per shard, per bucket [3, P]
     initial_cost: torch.Tensor  # 0-d
     final_cost: torch.Tensor  # 0-d
     iterations: int
@@ -389,25 +438,65 @@ def cg_bf16_default(device, cg_bf16=None) -> bool:
     return bool(cg_bf16)
 
 
+def _first(parts):
+    """The unsharded solve's reduction: its one partial, untouched."""
+    return parts[0]
+
+
+def _shards(shards, devs, mesh):
+    """(k, buckets, device) per shard; on a mesh the shard's card is the
+    current device while the caller's loop body runs, so the kernels launch
+    there, on its current stream."""
+    for k, (bl, d) in enumerate(zip(shards, devs)):
+        if mesh is not None and d.type == "cuda":
+            with torch.cuda.device(d):
+                yield k, bl, d
+        else:
+            yield k, bl, d
+
+
 def _lm_solve_bucketed(
     buckets, quat0, trans0, intr0, pose_free, intr_free, model_id,
     loss_type, loss_scale, cg_iters, max_iterations, eta=0.1, cg_bf16=False,
+    mesh=None,
 ):
-    """LM over device-resident buckets; every tensor on one device.
+    """LM over device-resident buckets.
 
     quat0 [I, 4], trans0 [I, 3], intr0 / intr_free [C, >= NP] (sliced to
-    the model's NP), pose_free [I, 6]. The bucket ``points`` fields are the
-    starting point positions. cg_bf16: run every CG matvec from J packed to
-    bf16 (the reference's ba_kernels.py:1064-1102). Returns an
-    :class:`LMResult`.
+    the model's NP), pose_free [I, 6]: the camera system, on one device.
+    The bucket ``points`` fields are the starting point positions.
+    cg_bf16: run every CG matvec from J packed to bf16 (the reference's
+    ba_kernels.py:1064-1102). Returns an :class:`LMResult`.
+
+    buckets: one tuple of buckets per local shard, each on its shard's
+    device; the result's ``points`` are one list per shard likewise.
+    mesh: None, with one shard on the camera system's device; or a
+    :class:`~pycolmap_torch.parallel.device_ctx.ShardMesh`, with the
+    shards of :func:`shard_buckets`, the camera system on the mesh's first
+    device. Each shard eliminates its own points. Every reduction over
+    observations (the costs, prepare's camera rows, each CG matvec) is a
+    partial per shard summed by ``mesh.reduce``, so every shard of every
+    rank solves one and the same camera system; the damping and the
+    preconditioner apply once, after the sum, and the loops' stop tests
+    read only reduced values, so every rank takes the same branch. Vinv,
+    g_pt and the points stay on their shards. Without a mesh the reduction
+    is the one partial itself and issues no operation.
     """
     from pycolmap_torch.sfm import cg_kernel as ck
+
+    shards = list(buckets)
+    reduce = _first if mesh is None else mesh.reduce
+    dev = quat0.device
+    devs = [bl[0].mask.device for bl in shards]
+
+    def each():
+        return _shards(shards, devs, mesh)
 
     I, C = quat0.shape[0], intr0.shape[0]
     NP = solver_num_params(model_id)
     intr0 = intr0[:, :NP].contiguous()
     intr_free = intr_free[:, :NP].contiguous()
-    dev = quat0.device
+    free_l = [intr_free.to(d) for d in devs]
     tri_i = torch.tensor([i for i, _ in _TRI], device=dev)
     tri_j = torch.tensor([j for _, j in _TRI], device=dev)
     eye6 = torch.eye(6, device=dev)
@@ -433,43 +522,61 @@ def _lm_solve_bucketed(
 
         return damp_pose, damp_intr, precond
 
-    pts = [b.points for b in buckets]
-    cost0 = ck.total_cost(buckets, pts, quat0, trans0, intr0, model_id,
-                          loss_type, loss_scale)
+    pts = [[b.points for b in bl] for bl in shards]
+    cost0 = reduce([
+        ck.total_cost(bl, pts[s], quat0.to(d), trans0.to(d), intr0.to(d),
+                      model_id, loss_type, loss_scale)
+        for s, bl, d in each()])
     quat, trans, intr = quat0, trans0, intr0
     lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
     cost = cost0
     done = torch.tensor(False, device=dev)
     it = 0
     while it < max_iterations:
-        # --- residuals, Jacobians, robust weights ------------------------
-        res_l, J_l = ck.res_and_jac(buckets, pts, quat, trans, intr,
-                                    intr_free, model_id, loss_type,
-                                    loss_scale)
-        # --- V inverses, gradients, reduced rhs, damping diagonals,
-        # SCHUR_JACOBI blocks ----------------------------------------------
-        (Vinv_l, g_pt_l, rhs_pose, rhs_intr, udp, udi,
-         S_blocks) = ck.schur_prepare(buckets, J_l, res_l, lam, I, C)
+        # --- per shard: residuals, Jacobians, robust weights; V inverses,
+        # gradients and the shard's part of the reduced rhs, damping
+        # diagonals and SCHUR_JACOBI blocks --------------------------------
+        J_l, Vinv_l, g_pt_l, cam_l = [], [], [], []
+        for s, bl, d in each():
+            res, J = ck.res_and_jac(bl, pts[s], quat.to(d), trans.to(d),
+                                    intr.to(d), free_l[s], model_id,
+                                    loss_type, loss_scale)
+            Vinv, g_pt, *cam = ck.schur_prepare(bl, J, res, lam.to(d), I, C)
+            J_l.append(J)
+            Vinv_l.append(Vinv)
+            g_pt_l.append(g_pt)
+            cam_l.append(cam)
+        rhs_pose, rhs_intr, udp, udi, S_blocks = reduce(cam_l)
         rhs_pose = rhs_pose * pose_free
         rhs_intr = rhs_intr * intr_free
         damp_pose, damp_intr, precond = precond_factory(lam, udp, udi,
                                                         S_blocks)
-        # one pack (bf16) and one kernel table per LM step, for the
-        # matvecs and for finish
-        if cg_bf16:
-            J16_l = [ck.pack_j_bf16(J) for J in J_l]
-            mv = ck.matvec_launch("matvec16", buckets, J16_l, Vinv_l, I, C)
-        else:
-            mv = ck.matvec_launch("matvec", buckets, J_l, Vinv_l, I, C)
-        fin = ck.finish_launch(buckets, pts, J_l, Vinv_l, g_pt_l)
+        # one pack (bf16) and one kernel table per LM step and shard, for
+        # the matvecs and for finish
+        J16_l, mv_l, fin_l = [], [], []
+        for s, bl, d in each():
+            if cg_bf16:
+                J16_l.append([ck.pack_j_bf16(J) for J in J_l[s]])
+                mv_l.append(ck.matvec_launch("matvec16", bl, J16_l[s],
+                                             Vinv_l[s], I, C))
+            else:
+                mv_l.append(ck.matvec_launch("matvec", bl, J_l[s],
+                                             Vinv_l[s], I, C))
+            fin_l.append(ck.finish_launch(bl, pts[s], J_l[s], Vinv_l[s],
+                                          g_pt_l[s]))
 
         def matvec(x_pose, x_intr):
-            if cg_bf16:
-                mp, mi = ck.schur_matvec16(buckets, J16_l, Vinv_l, x_pose,
-                                           x_intr, I, C, launch=mv)
-            else:
-                mp, mi = ck.schur_matvec(buckets, J_l, Vinv_l, x_pose,
-                                         x_intr, I, C, launch=mv)
+            parts = []
+            for s, bl, d in each():
+                if cg_bf16:
+                    parts.append(ck.schur_matvec16(
+                        bl, J16_l[s], Vinv_l[s], x_pose.to(d),
+                        x_intr.to(d), I, C, launch=mv_l[s]))
+                else:
+                    parts.append(ck.schur_matvec(
+                        bl, J_l[s], Vinv_l[s], x_pose.to(d), x_intr.to(d),
+                        I, C, launch=mv_l[s]))
+            mp, mi = reduce(parts)
             return ((damp_pose * x_pose + mp) * pose_free,
                     (damp_intr * x_intr + mi) * intr_free)
 
@@ -513,18 +620,23 @@ def _lm_solve_bucketed(
         new_quat = torch.stack(nq, dim=1)
         new_trans = trans - x_pose[:, 3:6]
         new_intr = intr - x_intr
-        new_pts, new_cost = ck.backsub_and_cost(
-            buckets, pts, J_l, Vinv_l, g_pt_l, x_pose, x_intr,
-            new_quat, new_trans, new_intr, model_id, loss_type, loss_scale,
-            launch=fin,
-        )
+        fin = [
+            ck.backsub_and_cost(
+                bl, pts[s], J_l[s], Vinv_l[s], g_pt_l[s], x_pose.to(d),
+                x_intr.to(d), new_quat.to(d), new_trans.to(d),
+                new_intr.to(d), model_id, loss_type, loss_scale,
+                launch=fin_l[s])
+            for s, bl, d in each()]
+        new_cost = reduce([c for _, c in fin])
 
         # --- accept/reject -----------------------------------------------
         improved = new_cost < cost
         quat = torch.where(improved, new_quat, quat)
         trans = torch.where(improved, new_trans, trans)
         intr = torch.where(improved, new_intr, intr)
-        pts = [torch.where(improved, n, o) for n, o in zip(new_pts, pts)]
+        pts = [[torch.where(improved.to(d), n, o)
+                for n, o in zip(new_pts, old)]
+               for (new_pts, _), old, d in zip(fin, pts, devs)]
         cost_out = torch.where(improved, new_cost, cost)
         lam = torch.where(improved, torch.clamp(lam / 3.0, min=1e-10),
                           lam * 4.0)
@@ -540,26 +652,30 @@ def _lm_solve_bucketed(
             syncs += 1
             if bool(done):
                 break
-    return LMResult(quat, trans, intr, pts, cost0, cost, it, syncs, cg_total)
+    return LMResult(quat, trans, intr, pts, cost0, cost, it, syncs,
+                    cg_total)
 
 
 def solve_bundle_fast(problem: BundleProblem, options, cg_iters: int = 30,
-                      device=None, cg_bf16=None):
+                      device=None, cg_bf16=None, mesh=None):
     """Bucketed solver; same contract as bundle_adjustment.solve_bundle.
 
     Runs one solve of a :class:`~pycolmap_torch.sfm.resident.
     ResidentBundleSolver` and fetches the result. ``device``: None = the
     card (raises on a host without CUDA), or ``"cpu"``. ``cg_bf16``: the CG
     matvec's J type, None = the device's default (:func:`cg_bf16_default`);
-    False is the reference's ``PYCOLMAP_TPU_BA_CG_BF16=0``.
+    False is the reference's ``PYCOLMAP_TPU_BA_CG_BF16=0``. ``mesh``: a
+    :class:`~pycolmap_torch.parallel.device_ctx.ShardMesh` to shard the
+    points over (its devices take the place of ``device``; one that
+    disagrees raises), or None for one device.
     """
-    from pycolmap_torch import resolve_device
+    from pycolmap_torch.parallel.device_ctx import mesh_device
     from pycolmap_torch.sfm.resident import ResidentBundleSolver
 
-    device = resolve_device(device)
+    mesh_device(mesh, device)  # raises before any work, as the solver would
     if problem.num_obs == 0 or float(_np(problem.obs_mask).sum()) == 0:
         return problem, BASummary(0.0, 0.0, 0, 0)
     solver = ResidentBundleSolver(problem, options, cg_iters=cg_iters,
-                                  device=device, cg_bf16=cg_bf16)
+                                  device=device, cg_bf16=cg_bf16, mesh=mesh)
     summary = solver.solve()
     return solver.fetch_problem(), summary

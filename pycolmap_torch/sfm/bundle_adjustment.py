@@ -4,7 +4,8 @@ preconditioned CG on the reduced camera system.
 Port of ``pycolmap_tpu/sfm/bundle_adjustment.py`` (which replaces Ceres,
 ref: pipeline/sfm.h:95-103, 260-333): the problem container, the options,
 the robust losses and ``solve_bundle``, which delegates to the bucketed
-solver in ``sfm/ba_kernels.py``. The reference's flat-layout ``_lm_core``
+solver in ``sfm/ba_kernels.py``, sharded over ``options.devices``'s mesh
+where there is one. The reference's flat-layout ``_lm_core``
 is not ported yet (ROADMAP.md).
 
 Parameter blocks: image poses [num_images, 6] (tangent), shared camera
@@ -32,8 +33,14 @@ class LossFunctionType(enum.IntEnum):
 class BundleAdjustmentOptions(BaseOptions):
     """Mirrors reference BundleAdjustmentOptions (ref: pipeline/sfm.h:260-333).
 
-    The reference's ``devices`` option (a JAX mesh selector) has no
-    counterpart: the device is an argument of the port's entry points."""
+    ``devices`` selects the shard mesh of the solve, as the reference's
+    selects its JAX mesh: ``"auto"`` (the default mesh, else one shard per
+    rank of an initialized process group, else the one card the entry
+    point's ``device`` names, else every local card where there are more
+    than one), ``"none"``, a card count, or a
+    :class:`~pycolmap_torch.parallel.device_ctx.ShardMesh`
+    (``parallel/device_ctx.resolve_mesh``). The device of an unsharded
+    solve is an argument of the entry points."""
 
     loss_function_type: LossFunctionType = LossFunctionType.TRIVIAL
     loss_function_scale: float = 1.0
@@ -52,6 +59,9 @@ class BundleAdjustmentOptions(BaseOptions):
     parameter_tolerance: float = 0.0
     min_num_residuals_for_multi_threading: int = 50000
     print_summary: bool = True
+    # the solve's shard mesh (see the class docstring); the counterpart of
+    # the reference's Ceres num_threads (ref: pipeline/sfm.h:294)
+    devices: object = "auto"
 
 
 class BundleProblem(NamedTuple):
@@ -136,15 +146,21 @@ def _robust_cost(sq_norm, loss_type: int, scale: float):
 
 
 def solve_bundle(problem: BundleProblem, options: BundleAdjustmentOptions,
-                 cg_iters: int = 30, device=None, cg_bf16=None):
+                 cg_iters: int = 30, device=None, cg_bf16=None, mesh=None):
     """Run LM to convergence. Returns (new BundleProblem, BASummary).
 
     Dispatches to the bucketed solver (sfm/ba_kernels.py). ``device``:
     None = the card (raises on a host without CUDA), or ``"cpu"`` for the
     plain PyTorch versions of the kernels. ``cg_bf16``: the CG matvec's J
-    type, None = bf16 on the card, f32 on the CPU.
+    type, None = bf16 on the card, f32 on the CPU. ``mesh``: a ShardMesh,
+    or None to resolve one from ``options.devices`` (for ``device``, see
+    ``parallel/device_ctx.resolve_mesh``); a mesh's devices take the place
+    of ``device``, and ones that disagree with it raise ValueError.
     """
+    from pycolmap_torch.parallel.device_ctx import resolve_mesh
     from pycolmap_torch.sfm.ba_kernels import solve_bundle_fast
 
+    if mesh is None:
+        mesh = resolve_mesh(getattr(options, "devices", "auto"), device)
     return solve_bundle_fast(problem, options, cg_iters=cg_iters,
-                             device=device, cg_bf16=cg_bf16)
+                             device=device, cg_bf16=cg_bf16, mesh=mesh)

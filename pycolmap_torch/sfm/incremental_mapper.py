@@ -42,6 +42,7 @@ from pycolmap_torch.sfm.incremental_triangulator import (
 )
 from pycolmap_torch.sfm.link_index import LinkIndex
 from pycolmap_torch.sfm.problem import apply_bundle_solution, build_bundle_problem
+from pycolmap_torch.parallel.device_ctx import resolve_mesh
 from pycolmap_torch.sfm.resident import MapperResidentBA
 from pycolmap_torch.utils.options import BaseOptions, options_dataclass
 
@@ -145,8 +146,12 @@ class IncrementalMapper:
 
     def _solve_bundle(self, problem, ba_options):
         """Solve through the mapper's resident-solver cache (device-resident
-        structure AND parameters across refinement rounds)."""
-        return self.resident_ba.solve(problem, ba_options, cg_iters=30)
+        structure AND parameters across refinement rounds), sharded over
+        the mesh ``ba_options.devices`` resolves to, as solve_bundle is."""
+        mesh = resolve_mesh(getattr(ba_options, "devices", "auto"),
+                            self.device)
+        return self.resident_ba.solve(problem, ba_options, cg_iters=30,
+                                      mesh=mesh)
 
     # -- lifecycle -----------------------------------------------------------
     def begin_reconstruction(self, reconstruction, triangulator_options=None):

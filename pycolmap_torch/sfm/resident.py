@@ -4,10 +4,15 @@ Port of ``pycolmap_tpu/sfm/resident.py`` (``ResidentBundleSolver``). The
 bucket structure AND the parameters stay on the device between solves:
 each ``solve()`` runs the LM loop on the resident tensors and reads back
 only its summary scalars; ``fetch_problem()`` downloads the parameters and
-writes the bucketed points back to their flat rows. ``MapperResidentBA``
-is the incremental mapper's cache of such solvers, keyed by a hash of the
-whole problem: a refinement round that re-solves an unchanged problem
-reuses the resident solver instead of rebuilding it.
+writes the bucketed points back to their flat rows. Given a
+:class:`~pycolmap_torch.parallel.device_ctx.ShardMesh`, each shard keeps
+its slice of every bucket's point columns and its point planes resident
+on its device, and the camera system lives on the mesh's first device
+(the reference's sharded point planes with replicated camera blocks).
+``MapperResidentBA`` is the incremental mapper's cache of such solvers,
+keyed by a hash of the whole problem and the mesh's content: a refinement
+round that re-solves an unchanged problem reuses the resident solver
+instead of rebuilding it.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from pycolmap_torch import resolve_device
+from pycolmap_torch.parallel.device_ctx import mesh_device
 from pycolmap_torch.ops.camera_models import solver_num_params
 from pycolmap_torch.sfm import ba_kernels as bk
 from pycolmap_torch.sfm.bundle_adjustment import BASummary, BundleProblem
@@ -59,7 +65,9 @@ class ResidentBundleSolver:
     device: None = the card (raises on a host without CUDA), or ``"cpu"``
     for the plain PyTorch versions of the kernels. cg_bf16: run the CG
     matvecs from J packed to bf16; None = bf16 on the card, f32 on the CPU
-    (``ba_kernels.cg_bf16_default``).
+    (``ba_kernels.cg_bf16_default``). mesh: a ShardMesh to shard the points
+    over (its devices take the place of ``device``; one that disagrees
+    raises ValueError), or None for one device.
 
     After each solve, ``last_result`` holds the loop's counters
     (``host_syncs``: condition reads of the LM and CG loops, plus the one
@@ -67,8 +75,9 @@ class ResidentBundleSolver:
     """
 
     def __init__(self, problem: BundleProblem, options, cg_iters: int = 30,
-                 device=None, cg_bf16=None):
-        self.device = resolve_device(device)
+                 device=None, cg_bf16=None, mesh=None):
+        self.device = mesh_device(mesh, device)
+        self.mesh = mesh
         self.cg_bf16 = bk.cg_bf16_default(self.device, cg_bf16)
         check_kernel_dtype(problem, self.device)
         if problem.num_obs == 0:
@@ -76,15 +85,26 @@ class ResidentBundleSolver:
         self._problem = problem
         self._options = options
         self._cg_iters = int(cg_iters)
-        host = bk.bucketize(problem)
-        if not host:
+        # one tuple of buckets per local shard, on its device (one shard
+        # without a mesh); every bucket's point rows and the columns holding
+        # a point, for the write-back
+        if mesh is None:
+            shards = [bk.bucketize(problem)]
+            # padded columns repeat row 0 and are fully masked: harmless to
+            # solve, excluded from the write-back
+            self._rows_sel = [(b.point_rows,
+                               (b.mask[0] > 0) | (b.point_free > 0))
+                              for b in shards[0]]
+        else:
+            shards = bk.shard_buckets(problem, mesh)
+            self._rows_sel = [(rows, sel) for rows, sel, _, _
+                              in bk.bucket_meta(problem)]
+        if not shards[0]:
             raise ValueError("no observation buckets")
-        self._rows_l = [b.point_rows for b in host]
-        # columns holding a real point (padded columns repeat row 0 and are
-        # fully masked: harmless to solve, excluded from write-back)
-        self._sel_l = [(b.mask[0] > 0) | (b.point_free > 0) for b in host]
-        self._buckets = [bk.bucket_to(b, self.device) for b in host]
-        self._pts = [b.points for b in self._buckets]
+        devs = (self.device,) if mesh is None else mesh.devices
+        self._buckets = [[bk.bucket_to(b, d) for b in bl]
+                         for bl, d in zip(shards, devs)]
+        self._pts = [[b.points for b in bl] for bl in self._buckets]
 
         def put(a):
             return torch.as_tensor(
@@ -101,7 +121,7 @@ class ResidentBundleSolver:
 
     def perturb_points(self, eps: float) -> None:
         """Add eps to every point coordinate ON DEVICE (no host transfer)."""
-        self._pts = [p + eps for p in self._pts]
+        self._pts = [[p + eps for p in sl] for sl in self._pts]
 
     def solve(self, max_iterations: int = None) -> BASummary:
         """One LM solve from the current device-resident parameters."""
@@ -110,14 +130,15 @@ class ResidentBundleSolver:
             options.max_num_iterations
             if max_iterations is None else max_iterations
         )
-        buckets = [b._replace(points=p)
-                   for b, p in zip(self._buckets, self._pts)]
+        buckets = [[b._replace(points=p) for b, p in zip(bl, sl)]
+                   for bl, sl in zip(self._buckets, self._pts)]
         r = bk._lm_solve_bucketed(
             buckets, self._quat, self._trans, self._intr, self._pose_free,
             self._intr_free, self._problem.model_id,
             int(options.loss_function_type),
             float(options.loss_function_scale), self._cg_iters, max_iters,
             eta=float(getattr(options, "eta", 0.1)), cg_bf16=self.cg_bf16,
+            mesh=self.mesh,
         )
         self._quat, self._trans = r.quat, r.trans
         # the solver runs NP-narrow intrinsics; columns >= NP are untouched
@@ -135,7 +156,7 @@ class ResidentBundleSolver:
         tensors), writing the bucketed points back to their flat rows."""
         problem = self._problem
         points = bk._np(problem.points).astype(np.float32, copy=True)
-        for pts, rows, sel in zip(self._pts, self._rows_l, self._sel_l):
+        for pts, rows, sel in self._point_planes():
             vals = pts.detach().cpu().numpy().T  # [P, 3]
             points[rows[sel]] = vals[sel]
         return problem._replace(
@@ -144,6 +165,24 @@ class ResidentBundleSolver:
             intrinsics=self._intr.cpu(),
             points=torch.from_numpy(points),
         )
+
+    def _point_planes(self):
+        """(points [3, P], point rows [P], columns holding a point [P]) per
+        bucket. The local shards hold contiguous columns in order, so their
+        concatenation is this process's block; across processes each
+        block is placed in a zero-filled full-width plane and the planes
+        are summed by an ``all_reduce`` (exact: each column has one nonzero
+        term, and gloo reduces CUDA tensors in ``all_reduce``), so every
+        rank holds every point."""
+        mesh = self.mesh
+        for j, (rows, sel) in enumerate(self._rows_sel):
+            plane = torch.cat([sl[j].to(self.device) for sl in self._pts], 1)
+            if mesh is not None and mesh.group is not None:
+                full = torch.zeros((3, len(rows)), device=self.device)
+                c0 = mesh.rank * plane.shape[1]
+                full[:, c0:c0 + plane.shape[1]] = plane
+                plane = mesh.reduce([full])
+            yield plane, rows, sel
 
 
 def _problem_fingerprint(problem: BundleProblem) -> bytes:
@@ -195,23 +234,25 @@ class MapperResidentBA:
         self.lm_steps = 0
         self.cg_iterations = 0
 
-    def solve(self, problem: BundleProblem, options, cg_iters: int = 30):
-        """Same contract as solve_bundle: (new_problem, summary)."""
+    def solve(self, problem: BundleProblem, options, cg_iters: int = 30,
+              mesh=None):
+        """Same contract as solve_bundle: (new_problem, summary). mesh: a
+        ShardMesh to shard the points over, or None; a cached solver is
+        reused only on a mesh of the same content (``ShardMesh.key``)."""
         if problem.num_obs == 0 or float(bk._np(problem.obs_mask).sum()) == 0:
             return problem, BASummary(0.0, 0.0, 0, 0)
-        key = _problem_fingerprint(problem)
+        mesh_key = None if mesh is None else mesh.key()
+        key = (_problem_fingerprint(problem), mesh_key)
         solver = self._entries.pop(key, None)
         if solver is None:
             self.misses += 1
-            # only an empty problem is passed over: a kernel launch that
-            # fails raises from solve() below
-            try:
-                solver = ResidentBundleSolver(
-                    problem, options, cg_iters=cg_iters, device=self.device,
-                    cg_bf16=self.cg_bf16,
-                )
-            except ValueError:
-                return problem, BASummary(0.0, 0.0, 0, 0)
+            # only an empty problem is passed over (above): a mesh that
+            # cannot split the buckets, or a kernel launch that fails,
+            # raises
+            solver = ResidentBundleSolver(
+                problem, options, cg_iters=cg_iters, device=self.device,
+                cg_bf16=self.cg_bf16, mesh=mesh,
+            )
         else:
             self.hits += 1
             solver._options = options
@@ -224,5 +265,5 @@ class MapperResidentBA:
         # (which rebuilds from the scene we are about to write back) hits
         if len(self._entries) >= self._max:
             self._entries.pop(next(iter(self._entries)))
-        self._entries[_problem_fingerprint(new_problem)] = solver
+        self._entries[(_problem_fingerprint(new_problem), mesh_key)] = solver
         return new_problem, summary

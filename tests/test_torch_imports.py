@@ -61,7 +61,9 @@ def test_the_port_is_scanned():
                 "features/matcher.py", "__init__.py", "mvs/meshing.py",
                 "features/retrieval.py", "estimators/alignment.py",
                 "estimators/generalized_absolute_pose.py",
-                "parallel/graph_partition.py", "parallel/__init__.py"):
+                "parallel/graph_partition.py", "parallel/__init__.py",
+                "parallel/device_ctx.py", "parallel/sharded_ba.py",
+                "parallel/camera_sharding.py", "parallel/distributed.py"):
         assert f"pycolmap_torch/{mod}" in names
     assert len(FILES) > 20
 
@@ -103,9 +105,9 @@ def test_cold_import(first):
 
 
 def test_namespaces_match_the_reference():
-    """Every public name of the reference's top level is the port's, but
-    the multi-device modules' mesh selectors and the reference's private
-    module names; the estimators' names are all the port's. ``has_cuda``
+    """Every public name of the reference's top level is the port's, the
+    multi-device modules' mesh selectors among them, but the reference's
+    private module names; the estimators' names are all the port's. ``has_cuda``
     says whether this host has the card, ``has_tpu`` is False."""
     import torch
 
@@ -114,9 +116,7 @@ def test_namespaces_match_the_reference():
     import pycolmap_tpu as jt
     import pycolmap_tpu.estimators as je
 
-    assert set(dir(jt)) - set(dir(pt)) == {
-        "_detect_tpu", "_os", "get_default_mesh", "resolve_mesh",
-        "set_default_mesh"}
+    assert set(dir(jt)) - set(dir(pt)) == {"_detect_tpu", "_os"}
     assert set(dir(je)) - set(dir(te)) == set()
     assert pt.has_cuda is torch.cuda.is_available()
     assert pt.has_tpu is False

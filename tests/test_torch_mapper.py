@@ -253,13 +253,11 @@ def test_adjust_local_bundle_matches(mapped, tmp_path, monkeypatch):
 
 
 def test_pipeline_options_convert():
-    """get_mapper / get_local_ba carry the same values in both packages
-    (the reference's mesh selector aside)."""
+    """get_mapper / get_local_ba carry the same values in both packages,
+    the mesh selector ``devices`` among them."""
     jo, to = _options()
     assert to.get_mapper().todict() == jo.get_mapper().todict()
-    jd = jo.get_local_ba().todict()
-    jd.pop("devices")
-    assert to.get_local_ba().todict() == jd
+    assert to.get_local_ba().todict() == jo.get_local_ba().todict()
 
 
 @pytest.mark.parametrize("mode", ["reprojection", "proj_center"])
