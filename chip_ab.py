@@ -19,11 +19,13 @@ version's scaled error against the float64 plain version.
 
 With ``--unsharded`` each checkout instead runs, once and in the order A,
 B, its unsharded BA paths: phase 4's bf16 bench solve and phase 20's
-timed ``incremental_mapping`` of the 30-image orbit. Each run prints one
-line ``UNSHARDED {json}`` with the launch counts, the LM steps and CG
-iterations, and SHA-1 digests of the solved points and quaternions and
-of the registered poses, so the two compare launch for launch and bit
-for bit.
+timed ``incremental_mapping`` of the 30-image orbit, the latter on the
+implicit PCG (``dense_schur_max_d=0``, passed where the checkout's
+``incremental_mapping`` takes it: a checkout without the dense reduced
+system has only that path). Each run prints one line ``UNSHARDED
+{json}`` with the launch counts, the LM steps and CG iterations, and
+SHA-1 digests of the solved points and quaternions and of the registered
+poses, so the two compare launch for launch and bit for bit.
 
 Run from the root of checkout B on a host with the card, checkout A
 unpacked anywhere (e.g. ``git archive <commit> | tar -x -C build/parent``):
@@ -97,8 +99,10 @@ def _sha(a) -> str:
 
 
 def _unsharded(cs, tree: Path):
-    """Phase 4's bf16 bench solve and phase 20's timed mapping: their
-    launches, loop counts and result digests."""
+    """Phase 4's bf16 bench solve and phase 20's timed mapping on the
+    implicit PCG: their launches, loop counts and result digests."""
+    import inspect
+
     import numpy as np
 
     launches, _, solver, rate = cs.bench_solve(cg_bf16=True)
@@ -112,10 +116,14 @@ def _unsharded(cs, tree: Path):
         tmp = Path(tmp)
         gt = cs.write_orbit_database(tmp / "map.db", cs.MAP_IMAGES,
                                      cs.MAP_POINTS, cs.MAP_NOISE)
+        implicit = ({"dense_schur_max_d": 0} if "dense_schur_max_d" in
+                    inspect.signature(cs.psfm.incremental_mapping).parameters
+                    else {})
         cs.zero_counts()
         rec, dt, t = cs.map_and_check(tmp / "map.db", tmp / "m", gt,
                                       cs.mapping_options(), "cuda",
-                                      "chip_ab unsharded", cs.MAP_IMAGES)
+                                      "chip_ab unsharded", cs.MAP_IMAGES,
+                                      **implicit)
         counts, _ = cs.read_counts()
         poses = np.stack([rec.images[i].cam_from_world.rotation.quat
                           for i in sorted(rec.reg_image_ids)])

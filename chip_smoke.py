@@ -8,8 +8,9 @@ incremental mapper, the way from image files to a model (import,
 extraction, the pair matchers with batched verification, mapping), the
 meshers, vocabulary-tree retrieval with the matchers built on it,
 hierarchical mapping with alignment, the rig pose, mapping with two
-camera models, and multi-device bundle adjustment (point shards over a
-shard mesh, over gloo and NCCL process groups).
+camera models, multi-device bundle adjustment (point shards over a
+shard mesh, over gloo and NCCL process groups), and the dense reduced
+camera system of small bundles.
 
 Run from the repository root on a host with an H100 (or another sm_90a
 card) and the CUDA toolkit:
@@ -35,7 +36,8 @@ Phases (each raises on failure; the script then exits nonzero):
    time cost and finish with CUDA events, with each wrapper call's host
    wall and device ops;
 3. solve a 32-image / 8192-point problem on the card and on the CPU (plain
-   versions), 6 LM steps each with f32 CG matvecs, and compare the results;
+   versions), 6 LM steps each with f32 CG matvecs (both pinned to the
+   implicit PCG, ``dense_schur_max_d=0``), and compare the results;
 4. run the bench's resident solve (128 images, 100k points, ~600k
    observations; bench.py run_ba's sequence) through the kernels, with the
    launch counters zeroed just before the timed solves and read just after,
@@ -73,7 +75,8 @@ Phases (each raises on failure; the script then exits nonzero):
     128-image / 100k-point problem as a Reconstruction, written and read
     back as a COLMAP binary model, adjusted on the card with default
     options; then a 32-image model on the card and on the CPU, both with
-    the bf16 matvec, compared;
+    the bf16 matvec on the implicit PCG (``dense_schur_max_d=0``),
+    compared;
 12. ``triangulate_points`` on the card: a 128-image sequential database of
     100k points seen by about 6 images each, ground-truth poses;
 13. hold the PatchMatch cost kernel to its plain version at the main
@@ -103,8 +106,9 @@ Phases (each raises on failure; the script then exits nonzero):
     float64 through each camera plus 0.5 px noise, written and read back as
     a binary model, default options with the bf16 matvec, finish once per
     LM step and the cost once; compared with phase 11's single-model solve
-    of the same size; then a 32-image model on the card and on the CPU
-    (phase 16 runs before phase 15);
+    of the same size; then a 32-image model on the card and on the CPU at
+    the defaults, both solving the dense reduced system (phase 16 runs
+    before phase 15);
 17. hold the per-observation parameter gather to its plain version
     (exactly equal) at phase 16's bucket shapes and at a ragged shape, and
     time it beside ``index_select``;
@@ -131,7 +135,7 @@ Phases (each raises on failure; the script then exits nonzero):
     translation < 0.05) and ``refine_absolute_pose`` from a perturbed
     pose, (e) ``estimate_triangulation`` of a 10-view track with 2 outlier
     views (within 0.05); per case the card's host wall ms per call (median
-    of 5 after a warm-up), LO-RANSAC chunks, host synchronisations and
+    of 3 after a warm-up), LO-RANSAC chunks, host synchronisations and
     device ops of one call, and the CPU's wall ms;
 20. ``incremental_mapping`` at bench.py run_mapping's size: the
     30-image / 2,000-point orbit database of tests/test_incremental_mapping.py
@@ -140,10 +144,12 @@ Phases (each raises on failure; the script then exits nonzero):
     registered img/s and the stage split; 30/30 registered, mean
     reprojection error under
     1 px, median rotation error under 0.5 degrees after a similarity
-    alignment, more than half the points, the model read back; matvec16
-    launched once per CG iteration, prepare and finish once per LM step,
-    the cost once per solve (the mapper's resident-BA cache counts them),
-    no kernel off the BA path; resjac, cost, finish, prepare, the f32 and
+    alignment, more than half the points, the model read back; every BA
+    solve on the dense reduced system (D_ref <= 512), prepare and finish
+    once per LM step, the cost once per solve, matvec16 once per implicit
+    CG iteration (none: a dense step packs no J and launches no matvec;
+    the mapper's resident-BA cache counts them), no kernel off the BA
+    path; resjac, cost, finish, prepare, the f32 and
     the bf16 matvec held to their plain versions (phases 2 and 10) at the
     operands of one global step (the deepest buckets, recorded in the same
     call) and one local-window step, the global step's timed; the 8-image /
@@ -178,16 +184,16 @@ Phases (each raises on failure; the script then exits nonzero):
     200k subsample, the visibility votes, the native min-cut), by stage,
     at the same plane bound; ``sparse_delaunay_meshing`` of phase 21's
     model, faces > 0;
-23. retrieval at BASELINE.md C5's 1,000 images: a synthetic database of
-    200 places along a closed sequence, five images a place, the last 50
-    revisiting places 0-9, 4,096 uint8 descriptors an image (its place's
+23. retrieval at 500 of BASELINE.md C5's 1,000 images (cut for the
+    script's time): a synthetic database of 90 places along a closed
+    sequence, five images a place, the last 50 revisiting places 0-9, 4,096 uint8 descriptors an image (its place's
     pool plus noise, 512 from a pool all places share); ``build_visual_index``
     with defaults on the card (200k training rows, 4,096 words), seconds
     for read, train per level, quantize and index, quantize and query ms
     per image; ``retrieve_ranked_pairs`` with a same-place image in the top
     5 for >= 95% of queries, ``detect_loops`` (period 10) with the planted
     revisit first for >= 90% of the planted loop queries; the card against
-    the CPU on the first 100 images (centers within 1e-4, words equal on
+    the CPU on the first 50 images (centers within 1e-4, words equal on
     >= 99.9%, the same ranked lists); on copies of phase 21's database
     (matches cleared) ``match_vocabtree`` (10 images) and
     ``match_sequential`` (overlap 2, loop detection every 5th image), each
@@ -204,7 +210,8 @@ Phases (each raises on failure; the script then exits nonzero):
     ``compare_reconstructions(..., "proj_center")`` (within 0.01 of each
     other), ``check()``, the model read back; per part its images,
     registered img/s and stage split, the partition and merge seconds; the
-    BA kernels as in phase 20, summed over the parts, nothing else; then
+    BA kernels as in phase 20, summed over the parts (windows of at most
+    32 images solve densely, larger solves implicitly), nothing else; then
     ``align_reconstruction_to_locations`` of the merged model onto its
     images' true centers under a known Sim3 (scale 2, a 0.3 rad turn, a
     shift) with 0.01 noise and 10% gross outliers (``max_error`` 0.1):
@@ -216,7 +223,7 @@ Phases (each raises on failure; the script then exits nonzero):
     left, right, 0.2 apart; PINHOLE 960x1280, f 1000) on 2,000
     correspondences with 30% outliers and 0.5 px noise, on the card and on
     the CPU, each within 0.5 degrees and 0.05 of the truth; the card's ms
-    per call (median of 5 after a warm-up), LO-RANSAC chunks, host
+    per call (median of 3 after a warm-up), LO-RANSAC chunks, host
     synchronisations and device ops of one call, the CPU's ms, and the
     share of minimal samples whose three observations share a camera; no
     kernel launched;
@@ -225,10 +232,11 @@ Phases (each raises on failure; the script then exits nonzero):
     600, 640x480), tests/test_mixed_models.py's options, every launch count
     zeroed just before and read just after: 29 of 30 registered, both
     models in the model, under 1 px, median rotation error under 0.5
-    degrees; the mixed resjac, cost and finish launched (the single-model
-    forms only for windows of one model), matvec16 once per CG iteration,
-    prepare once per LM step, finish of either form once per LM step and
-    the cost once per solve; the mixed kernels, prepare and both matvecs
+    degrees; every BA solve dense, the mixed resjac, cost and finish
+    launched (the single-model forms only for windows of one model),
+    matvec16 once per implicit CG iteration (none), prepare once per LM
+    step, finish of either form once per LM step and the cost once per
+    solve; the mixed kernels, prepare and both matvecs
     held to their plain versions (phases 15 and 10) and timed at the
     operands of one recorded global step;
 27. multi-device bundle adjustment on the one card, every launch count
@@ -245,10 +253,28 @@ Phases (each raises on failure; the script then exits nonzero):
     within 1e-5) and rank 0 equals (a)'s two-shard solve within 1e-6; (d)
     phase 20's mapping with ``options.devices`` the two-shard mesh: at
     least 29 of 30 registered under 1 px, the median rotation against
-    phase 20's model under 0.1 degrees and the reprojection error within
-    0.05 px of it; (c) one NCCL rank: a one-shard mesh over its group
-    equals the unsharded solve within 1e-6. The card's host has one card,
-    so no shard runs on a second card here.
+    phase 28 (b)'s unsharded implicit model under 0.1 degrees and the
+    reprojection error within 0.05 px of it (a mesh solves implicitly
+    only, so this measures sharding alone); (c) one NCCL rank: a
+    one-shard mesh over its group equals the unsharded solve within 1e-6.
+    The card's host has one card, so no shard runs on a second card here;
+28. the dense reduced camera system (run before phase 27): (a) at the
+    recorded steps of phase 20 (one global, one local-window), phase 21
+    (the last global step with the deepest bucket) and phase 26 (a
+    two-camera global step), each rebuilt on the card from its recorded
+    operands: S built on the card against the same build on the CPU
+    (1e-5 scaled), S v against the f32 matvec kernel's implicit product
+    (1e-4 scaled), x of the dense and of the implicit PCG, each run to
+    eta 1e-6 (1e-3 scaled) where f32 can solve the system (its free
+    block's Jacobi-scaled condition under 1 / eps(f32); an indefinite or
+    worse one is reported instead); the S build timed with CUDA events, the dense
+    PCG and a dense step's solve (build and PCG, cap max(cg_iters, 64))
+    at the default eta and the implicit step's (bf16 pack, table and PCG,
+    cap cg_iters) at the same operands, host wall, with their iterations;
+    (b) phase 20's orbit mapped with ``dense_schur_max_d=0``, every launch
+    count zeroed just before and read just after: phase 20's checks, no
+    dense solve, matvec16 once per CG iteration; registered img/s, LM
+    steps and CG iterations beside phase 20's dense run.
 
 The last lines are one JSON object describing every kernel, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -267,6 +293,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -439,7 +466,7 @@ MVS_RADIAL_K = -0.03
 # 4,000 matches (a SIFT pair at that size matches a few thousand
 # keypoints), 2,000 2D-3D correspondences, a 10-view track
 EST_F, EST_MATCHES, EST_PNP, EST_VIEWS = 1000.0, 4000, 2000, 10
-EST_REPS = 5
+EST_REPS = 3  # 5 before the cuts for the script's time (PERF.md §4)
 # phase 20's databases: bench.py run_mapping's (30 images of 2,000 points,
 # 0.4 px noise) and tests/test_incremental_mapping.py's (8 of 300)
 MAP_IMAGES, MAP_POINTS, MAP_NOISE = 30, 2000, 0.4
@@ -448,15 +475,18 @@ MAP_PARITY_IMAGES, MAP_PARITY_POINTS = 8, 300
 # (30 images, 435 pairs), and tests/test_full_pipeline.py's small scene
 E2E_IMAGES = 30
 E2E_SMALL_IMAGES, E2E_SMALL_H, E2E_SMALL_W = 6, 384, 512
-# phase 22: PoissonMeshingOptions' default depth 13 gives a 256^3 grid
-POISSON_N = 256
-# phase 23's place database: BASELINE.md C5's 1,000 images along a closed
-# sequence of 200 places, five consecutive images a place, the last 50
-# revisiting places 0-9; 4,096 descriptors an image (phase 21 averaged
-# 3,536 keypoints), 512 of them from a pool all places share
-RET_IMAGES, RET_PER_PLACE, RET_REVISITS = 1000, 5, 50
+# phase 22: PoissonMeshingOptions' default depth 13 gives a 256^3 grid;
+# the card against the CPU at 128^3 (the CPU's 256^3 solve took 21.7 s:
+# cut for the script's time, PERF.md §4)
+POISSON_N, POISSON_PARITY_N = 256, 128
+# phase 23's place database: BASELINE.md C5's shape at 500 of its 1,000
+# images (cut for the script's time: PERF.md §4), along a closed sequence
+# of 90 places, five consecutive images a place, the last 50 revisiting
+# places 0-9; 4,096 descriptors an image (phase 21 averaged 3,536
+# keypoints), 512 of them from a pool all places share
+RET_IMAGES, RET_PER_PLACE, RET_REVISITS = 500, 5, 50
 RET_DESCS, RET_SHARED, RET_NOISE = 4096, 512, 4
-RET_PARITY_IMAGES = 100
+RET_PARITY_IMAGES = 50  # 100 before the cuts for the script's time
 # phase 24's database: write_sequential_database's scene (C4's sequential
 # shape, BASELINE.md) at 90 images of 12,000 points, mapped in 3 parts
 HIER_IMAGES, HIER_POINTS, HIER_NOISE = 90, 12_000, 0.4
@@ -915,13 +945,15 @@ def options(iters):
 
 def medium_parity():
     """Phase 3: the f32 kernels' solve, card vs CPU (phase 11 compares the
-    bf16 setting through the entry point)."""
+    bf16 setting through the entry point). Both sides are pinned to the
+    implicit PCG (``dense_schur_max_d=0``): at 32 images both would
+    otherwise solve the dense system, which runs no matvec."""
     problem = make_synthetic_bundle(32, 8192, 6, refine_intrinsics=True)
     out = {}
     for dev in ("cuda", "cpu"):
         solver = ResidentBundleSolver(problem, options(MEDIUM_LM_ITERS),
                                       cg_iters=CG_ITERS, device=dev,
-                                      cg_bf16=False)
+                                      cg_bf16=False, dense_schur_max_d=0)
         t0 = time.perf_counter()
         s = solver.solve()
         if dev == "cuda":
@@ -1857,9 +1889,13 @@ def model_bundle_adjustment(tmp):
 
 def model_ba_parity(tmp, rec=None, tag="phase 11 medium 32/8192 bf16",
                     kwargs=(("cuda", {}),
-                            ("cpu", dict(device="cpu", cg_bf16=True)))):
+                            ("cpu", dict(device="cpu", cg_bf16=True))),
+                    dense_schur_max_d=0):
     """32 images (`rec`, default phase 11's scene): the card (bf16, its
-    default) vs the CPU with the bf16 setting through the plain versions."""
+    default) vs the CPU with the bf16 setting through the plain versions,
+    both with `dense_schur_max_d` (0: the implicit PCG, whose matvecs the
+    bf16 setting changes; None: the defaults, which solve 32 images
+    densely on both)."""
     if rec is None:
         rec = reconstruction_from_bundle(
             make_synthetic_bundle(32, 8192, 6, refine_intrinsics=True))
@@ -1868,7 +1904,8 @@ def model_ba_parity(tmp, rec=None, tag="phase 11 medium 32/8192 bf16",
     got = {}
     for dev, kw in kwargs:
         r = Reconstruction(tmp / "medium")
-        got[dev] = (psfm.bundle_adjustment(r, opts, **kw), r)
+        got[dev] = (psfm.bundle_adjustment(
+            r, opts, dense_schur_max_d=dense_schur_max_d, **kw), r)
     (sg, rg), (sc, rc) = got["cuda"], got["cpu"]
     rel = abs(sg.final_cost - sc.final_cost) / max(abs(sc.final_cost), 1e-20)
     d_trans = max(float(np.abs(rg.images[i].cam_from_world.translation
@@ -1877,7 +1914,7 @@ def model_ba_parity(tmp, rec=None, tag="phase 11 medium 32/8192 bf16",
     log(f"{tag}: card {sg}, CPU {sc}; final cost rel diff {rel:.3e} (tol "
         f"1e-3), translation max abs diff {d_trans:.3e} (tol 1e-3)")
     if not (rel <= 1e-3 and d_trans <= 1e-3 and sg.final_cost < sg.initial_cost):
-        raise AssertionError(f"{tag}: card and CPU bf16 solves disagree")
+        raise AssertionError(f"{tag}: card and CPU solves disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -2066,32 +2103,44 @@ def plane_hits(center, dirs):
     return t_hit, plane
 
 
+_RAYS = {}  # (H, W) -> undistorted camera rays, shared by phases 14 and 21
+
+
 def render_dense_scene(root, num_images, H, W, seed=0, num_points=2000):
     """Two textured planes seen by a SIMPLE_RADIAL camera (small k) along
     render_scene's arc, written as .ppm images, and the ground-truth sparse
     model: every camera, and `num_points` surface points with the tracks of
-    the images that see them (unoccluded, inside the frame)."""
+    the images that see them (unoccluded, inside the frame). The images
+    render in threads (numpy's loops release the interpreter lock), the
+    same values in any order."""
     rng = np.random.default_rng(seed)
     f = 450.0 * W / 512
     cam = Camera(1, "SIMPLE_RADIAL", W, H, [f, W / 2, H / 2, MVS_RADIAL_K])
     textures = [noise_texture(rng) for _ in MVS_PLANES]
     poses = dense_poses(num_images)
-    yy, xx = np.mgrid[0:H, 0:W]
-    pix = np.stack([xx.ravel() + 0.5, yy.ravel() + 0.5], axis=1)
-    uv = cam.cam_from_img(pix)  # undistorted rays through each pixel
-    d_cam = np.concatenate([uv, np.ones((len(uv), 1))], axis=1)
+    if (H, W) not in _RAYS:  # the camera is a function of (H, W)
+        yy, xx = np.mgrid[0:H, 0:W]
+        pix = np.stack([xx.ravel() + 0.5, yy.ravel() + 0.5], axis=1)
+        uv = cam.cam_from_img(pix)  # undistorted rays through each pixel
+        _RAYS[H, W] = np.concatenate([uv, np.ones((len(uv), 1))], axis=1)
+    d_cam = _RAYS[H, W]
     (root / "images").mkdir(parents=True)
-    for i, pose in enumerate(poses):
+
+    def render(pose):
         inv = pose.inverse()
         t, plane = plane_hits(inv.translation, d_cam @ inv.rotation.matrix().T)
         hit = d_cam @ inv.rotation.matrix().T * t[:, None] + inv.translation
-        img = np.full(len(uv), 0.5)
+        img = np.full(len(d_cam), 0.5)
         for k in range(len(MVS_PLANES)):
             sel = plane == k
             img[sel] = sample_texture(textures[k], hit[sel, 0], hit[sel, 1])
-        u8 = (img.reshape(H, W) * 255).round().astype(np.uint8)
-        write_image(root / "images" / f"view{i:02d}.ppm",
-                    np.stack([u8, u8, (u8 * 0.9).astype(np.uint8)], axis=-1))
+        return (img.reshape(H, W) * 255).round().astype(np.uint8)
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        for i, u8 in enumerate(pool.map(render, poses)):
+            write_image(root / "images" / f"view{i:02d}.ppm",
+                        np.stack([u8, u8, (u8 * 0.9).astype(np.uint8)],
+                                 axis=-1))
 
     n0 = num_points // 2
     pts = np.stack([
@@ -3154,17 +3203,18 @@ def pose_errors(rec, gt):
     return np.degrees(np.arccos(cos)), centers
 
 
-def map_and_check(db, out, gt, opts, device, tag, min_reg):
-    """incremental_mapping of `db` into `out` on `device`, timed, with the
-    outcome checks: at least `min_reg` images registered, mean reprojection
-    error under 1 px, median rotation error under 0.5 degrees, the model
-    written and read back. Returns (model, seconds, timings)."""
+def map_and_check(db, out, gt, opts, device, tag, min_reg, **kw):
+    """incremental_mapping of `db` into `out` on `device` (`kw`: its other
+    arguments), timed, with the outcome checks: at least `min_reg` images
+    registered, mean reprojection error under 1 px, median rotation error
+    under 0.5 degrees, the model written and read back. Returns (model,
+    seconds, timings)."""
     timings = {}
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     recs = psfm.incremental_mapping(db, out, out / "sparse", opts,
-                                    device=device, timings=timings)
+                                    device=device, timings=timings, **kw)
     dt = time.perf_counter() - t0
     if not recs:
         raise AssertionError(f"[{tag}] no model")
@@ -3189,32 +3239,49 @@ def map_and_check(db, out, gt, opts, device, tag, min_reg):
 
 class ResJacRecorder:
     """Keeps the operands of bundle adjustment's residual and Jacobian calls
-    on the main path (through the module attribute the LM loop calls):
+    on the main path (through the module attributes the LM loop calls):
     those of the last global step (TRIVIAL loss) with the deepest bucket,
-    and of the last local-window step (SOFT_L1). The LM loop replaces its
-    tensors rather than writing into them, so references suffice."""
+    and of the last local-window step (SOFT_L1); and where that step
+    solved the dense reduced system, that system's other operands (lam,
+    pose_free, intr_free, img2cam) in ``global_dense`` / ``local_dense``
+    (None for an implicit step). The LM loop replaces its tensors rather
+    than writing into them, so references suffice."""
 
     def __init__(self):
         self.global_args = self.local_args = None
+        self.global_dense = self.local_dense = None
         self._deepest = 0
+        self._pending = None
 
     def __enter__(self):
         self._wrapped = ck.res_and_jac
+        self._dense = bk.dense_schur_system
         ck.res_and_jac = self._record
+        bk.dense_schur_system = self._record_dense
         return self
 
     def __exit__(self, *exc):
         ck.res_and_jac = self._wrapped
+        bk.dense_schur_system = self._dense
 
     def _record(self, *args):
         b_l, loss_type = args[0], args[7]
         T = max(b.mask.shape[0] for b in b_l)
+        self._pending = None
         if loss_type == 0:
             if T >= self._deepest:
                 self._deepest, self.global_args = T, args
+                self.global_dense, self._pending = None, "global"
         else:
             self.local_args = args
+            self.local_dense, self._pending = None, "local"
         return self._wrapped(*args)
+
+    def _record_dense(self, *args):
+        if self._pending is not None:  # the recorded step's own system
+            setattr(self, f"{self._pending}_dense", args[3:7])
+            self._pending = None
+        return self._dense(*args)
 
 
 def mapping_case(args, seed):
@@ -3261,6 +3328,40 @@ def launch_check(phase, launches, plain_on_cuda, want, used):
                              f"{plain_on_cuda}")
 
 
+BA_COUNTERS = ("ba_solves", "ba_lm_steps", "ba_cg_iterations",
+               "ba_dense_solves", "ba_dense_lm_steps", "ba_dense_cg_iterations")
+
+
+def ba_rule(t):
+    """The BA part of a mapping run's launch rule from its counters `t`
+    (``incremental_mapping``'s timings): prepare and finish once per LM
+    step, the cost once per solve, matvec16 once per CG iteration of the
+    implicit steps. A step of the dense reduced system launches resjac,
+    prepare and finish, and no matvec (nor packs J): its PCG iterations
+    (``ba_dense_cg_iterations``) launch nothing. Returns (want, used)."""
+    want = {"matvec16": t["ba_cg_iterations"], "prepare": t["ba_lm_steps"],
+            "finish": t["ba_lm_steps"], "cost": t["ba_solves"]}
+    used = ("resjac", "prepare", "finish", "cost") + (
+        ("matvec16",) if t["ba_cg_iterations"] else ())
+    return want, used
+
+
+def ba_counts(t):
+    """The BA counters of a mapping run, for its log line."""
+    return (f"{t['ba_solves']} BA solves ({t['ba_dense_solves']} dense), "
+            f"{t['ba_lm_steps']} LM steps ({t['ba_dense_lm_steps']} dense), "
+            f"{t['ba_cg_iterations']} implicit CG iterations (matvecs), "
+            f"{t['ba_dense_cg_iterations']} dense PCG iterations")
+
+
+def all_dense(phase, t):
+    """Raise unless every BA solve of the run solved the dense system (every
+    solve of a mapping of at most 32 images on the card: D_ref <= 512)."""
+    if not t["ba_dense_solves"] == t["ba_solves"] > 0:
+        raise AssertionError(f"{phase}: {ba_counts(t)}; every solve should "
+                             f"be dense")
+
+
 def mapping_phase(tmp):
     """Phase 20: incremental_mapping on the card at bench.py run_mapping's
     size, checked against the truth and launch by launch; the BA kernels at
@@ -3300,17 +3401,14 @@ def mapping_phase(tmp):
         + ", ".join(f"{k} {t.get(k, 0.0):.3f} s" for k in stages)
         + "; detail " + json.dumps({k: round(v, 4) for k, v in t.items()
                                     if k not in stages}))
-    # (d) launch counts of the timed run
+    # (d) launch counts of the timed run: every solve dense
     solves, steps, cg = (t["ba_solves"], t["ba_lm_steps"],
                          t["ba_cg_iterations"])
-    log(f"phase 20 launches: {launches}; {solves} BA solves "
+    log(f"phase 20 launches: {launches}; {ba_counts(t)} "
         f"({t['ba_cache_hits']} resident-cache hits, "
-        f"{t['ba_cache_misses']} misses), {steps} LM steps, {cg} CG "
-        f"iterations")
-    launch_check("phase 20", launches, plain_on_cuda,
-                 {"matvec16": cg, "prepare": steps, "finish": steps,
-                  "cost": solves},
-                 ("resjac", "prepare", "finish", "cost", "matvec16"))
+        f"{t['ba_cache_misses']} misses)")
+    all_dense("phase 20", t)
+    launch_check("phase 20", launches, plain_on_cuda, *ba_rule(t))
 
     # (e) the kernels at the mapper's operands: one global step (the
     # deepest buckets) checked and timed, one local-window step checked
@@ -3318,6 +3416,9 @@ def mapping_phase(tmp):
         raise AssertionError("phase 20: no global or local step recorded")
     case_g = mapping_case(rec_ops.global_args, 201)
     case_l = mapping_case(rec_ops.local_args, 202)
+    # the same two steps' operands for phase 28's dense system
+    steps28 = {"phase 20 global": (rec_ops.global_args, rec_ops.global_dense),
+               "phase 20 local": (rec_ops.local_args, rec_ops.local_dense)}
     del rec_ops
     kern, schur = {}, {"prepare": {}, "matvec": {}, "matvec16": {}}
     for tag, case, res in (("mapping global", case_g, kern),
@@ -3348,10 +3449,12 @@ def mapping_phase(tmp):
                              "different image counts")
     total = time.perf_counter() - t20
     log(f"phase 20: {total:.2f} s")
-    return dict(launches=launches, kernels=kern, seconds=total, model=rec,
+    return dict(launches=launches, kernels=kern, seconds=total,
                 img_per_s=rec.num_reg_images / dt,
                 timings=t, lm_steps=steps, cg_iterations=cg, solves=solves,
-                cpu_8=dict(cuda=out8["cuda"][1], cpu=out8["cpu"][1]))
+                dense_cg_iterations=t["ba_dense_cg_iterations"],
+                cpu_8=dict(cuda=out8["cuda"][1], cpu=out8["cpu"][1]),
+                steps=steps28)
 
 
 # ---------------------------------------------------------------------------
@@ -3573,8 +3676,10 @@ def images_to_model_phase(tmp):
     stages["match"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     timings = {}
-    recs = psfm.incremental_mapping(db, images, root / "model",
-                                    e2e_options(6), timings=timings)
+    # the last global step's operands, for phase 28
+    with ResJacRecorder() as rec_ops:
+        recs = psfm.incremental_mapping(db, images, root / "model",
+                                        e2e_options(6), timings=timings)
     stages["map"] = time.perf_counter() - t0
     total = time.perf_counter() - t_start
     launches, plain_on_cuda = read_counts()
@@ -3601,8 +3706,7 @@ def images_to_model_phase(tmp):
         verify_block_peak_mb=rm.peak_bytes / 2**20,
         mapping={k: timings.get(k) for k in (
             "load", "initial_pair", "register", "triangulate", "local_ba",
-            "global_ba", "pose_graph", "write", "ba_solves", "ba_lm_steps",
-            "ba_cg_iterations")},
+            "global_ba", "pose_graph", "write", *BA_COUNTERS)},
         model=model)
     log(f"phase 21 images to model ({E2E_IMAGES} images, {SIFT_H}x{SIFT_W}, "
         f"default options): {json.dumps(numbers)}")
@@ -3612,19 +3716,21 @@ def images_to_model_phase(tmp):
 
     solves, steps, cg = (timings["ba_solves"], timings["ba_lm_steps"],
                          timings["ba_cg_iterations"])
-    want = {"window_sampler": 2 * octaves * E2E_IMAGES,
-            "top2": 2 * rm.buckets, "prepare": steps, "finish": steps,
-            "matvec16": cg, "cost": solves}
+    want, used = ba_rule(timings)
+    want.update(window_sampler=2 * octaves * E2E_IMAGES, top2=2 * rm.buckets)
     log(f"phase 21 launches: {json.dumps(launches)}; expected "
         f"{json.dumps(want)} (the sampler 2 per octave x {octaves} octaves "
         f"per extract over {E2E_IMAGES} extracts, top-2 2 per shape bucket "
         f"over {rm.buckets} buckets of {rm.matched} pairs, prepare and "
-        f"finish once per LM step ({steps}), matvec16 once per CG iteration "
-        f"({cg}), the cost once per solve ({solves})); resjac "
-        f"{launches['resjac'] / max(steps, 1):.3f} per LM step")
+        f"finish once per LM step ({steps}), matvec16 once per implicit CG "
+        f"iteration ({cg}), the cost once per solve ({solves})); resjac "
+        f"{launches['resjac'] / max(steps, 1):.3f} per LM step; "
+        f"{ba_counts(timings)}")
+    all_dense("phase 21", timings)
     launch_check("phase 21", launches, plain_on_cuda, want,
-                 ("window_sampler", "top2", "resjac", "prepare", "finish",
-                  "cost", "matvec16"))
+                 ("window_sampler", "top2") + used)
+    steps28 = {"phase 21 global": (rec_ops.global_args, rec_ops.global_dense)}
+    del rec_ops
 
     # (b) the small scene on the card and on the CPU, then the other
     # matchers on the card
@@ -3639,7 +3745,7 @@ def images_to_model_phase(tmp):
     numbers["small"] = small
     numbers["phase_s"] = time.perf_counter() - t21
     log(f"phase 21: {numbers['phase_s']:.2f} s")
-    return dict(launches=launches, numbers=numbers)
+    return dict(launches=launches, numbers=numbers, steps=steps28)
 
 
 def read_mesh_ply(path):
@@ -3691,7 +3797,7 @@ def meshing_phase(dense, model, out):
     fields, nverts, secs = {}, {}, {}
     for name in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        f = meshing.poisson_field(xyz, normals, POISSON_N,
+        f = meshing.poisson_field(xyz, normals, POISSON_PARITY_N,
                                   meshing.resolve_device(name))
         v, _ = meshing.marching_tetrahedra(
             f["chi"], f["iso"], f["lo"] + 0.5 * f["spacing"], f["spacing"])
@@ -3795,8 +3901,8 @@ def clear_matches(path):
 
 
 def retrieval_phase(tmp, e2e_db):
-    """Phase 23: vocabulary-tree retrieval at C5's 1,000 images on the card,
-    its recall, the card against the CPU on the first 100 images, and the
+    """Phase 23: vocabulary-tree retrieval at 500 of C5's images on the card,
+    its recall, the card against the CPU on the first 50 images, and the
     retrieval-driven matchers on a copy of phase 21's database."""
     t23 = time.perf_counter()
     numbers = {}
@@ -3850,7 +3956,7 @@ def retrieval_phase(tmp, e2e_db):
                                  f"(need 0.95), planted loops found {found} "
                                  "(need 0.9)")
 
-        # (c) the card against the CPU on the first 100 images
+        # (c) the card against the CPU on the first RET_PARITY_IMAGES
         sub = ids[:RET_PARITY_IMAGES]
         trees, indexes, words, secs = {}, {}, {}, {}
         unit = _to_unit_float(np.concatenate(
@@ -4034,9 +4140,7 @@ def hierarchical_phase(tmp):
             f"({p['registered'] / p['seconds']:.4f} registered img/s); "
             + ", ".join(f"{s} {p['timings'].get(s, 0.0):.3f} s"
                         for s in stages)
-            + f"; {p['timings']['ba_solves']} BA solves, "
-            f"{p['timings']['ba_lm_steps']} LM steps, "
-            f"{p['timings']['ba_cg_iterations']} CG iterations")
+            + f"; {ba_counts(p['timings'])}")
     numbers = dict(
         seconds=dt, registered=rec.num_reg_images, models=len(recs),
         img_per_s=rec.num_reg_images / dt, points3D=rec.num_points3D,
@@ -4054,15 +4158,11 @@ def hierarchical_phase(tmp):
         f"reprojection error {err:.4f} px, median rotation error {rot:.4f} "
         f"deg (compare_reconstructions {rot_cmp:.4f}); partition "
         f"{timings['partition']:.3f} s, merge {timings['merge']:.3f} s")
-    # the BA kernels as in phase 20, summed over the parts
-    solves, steps, cg = (sum(p["timings"][k] for p in parts) for k in
-                         ("ba_solves", "ba_lm_steps", "ba_cg_iterations"))
-    log(f"phase 24 launches: {launches}; {solves} BA solves, {steps} LM "
-        f"steps, {cg} CG iterations")
-    launch_check("phase 24", launches, plain_on_cuda,
-                 {"matvec16": cg, "prepare": steps, "finish": steps,
-                  "cost": solves},
-                 ("resjac", "prepare", "finish", "cost", "matvec16"))
+    # the BA kernels as in phase 20, summed over the parts (windows of at
+    # most 32 images solve densely, larger solves implicitly)
+    ba = {k: sum(p["timings"][k] for p in parts) for k in BA_COUNTERS}
+    log(f"phase 24 launches: {launches}; {ba_counts(ba)}")
+    launch_check("phase 24", launches, plain_on_cuda, *ba_rule(ba))
     if not (rec.num_reg_images >= HIER_IMAGES - 4 and err < 1.0
             and rot < 0.5 and abs(rot - rot_cmp) < 0.01):
         raise AssertionError(f"phase 24: {rec.num_reg_images} registered "
@@ -4074,7 +4174,7 @@ def hierarchical_phase(tmp):
 
     numbers["locations"] = align_to_locations_check(rec, gt)
     numbers["phase_s"] = time.perf_counter() - t24
-    numbers.update(lm_steps=steps, cg_iterations=cg, solves=solves)
+    numbers.update({k[3:]: v for k, v in ba.items()})
     log(f"phase 24: {numbers['phase_s']:.2f} s")
     return dict(launches=launches, numbers=numbers)
 
@@ -4177,14 +4277,15 @@ def mixed_mapping_phase(tmp):
     if models != ["PINHOLE", "SIMPLE_RADIAL"]:
         raise AssertionError(f"phase 26: camera models {models}")
     solves, steps, cg = t["ba_solves"], t["ba_lm_steps"], t["ba_cg_iterations"]
-    log(f"phase 26 launches: {launches}; {solves} BA solves, {steps} LM "
-        f"steps, {cg} CG iterations; "
+    log(f"phase 26 launches: {launches}; {ba_counts(t)}; "
         f"{launches['resjac'] + launches['resjac_mixed']} resjac launches "
         f"({launches['resjac_mixed']} mixed)")
-    # the single-model forms serve windows of one camera model, if any
-    used = ("resjac_mixed", "cost_mixed", "finish_mixed", "prepare",
-            "matvec16") + tuple(k for k in ("resjac", "cost", "finish")
-                                if launches[k])
+    all_dense("phase 26", t)
+    # the single-model forms serve windows of one camera model, if any;
+    # matvec16 only on implicit steps
+    used = ("resjac_mixed", "cost_mixed", "finish_mixed", "prepare") + tuple(
+        k for k in ("resjac", "cost", "finish") if launches[k]) + (
+        ("matvec16",) if cg else ())
     launch_check("phase 26", launches, plain_on_cuda,
                  {"matvec16": cg, "prepare": steps,
                   "finish+finish_mixed": steps, "cost+cost_mixed": solves},
@@ -4192,6 +4293,7 @@ def mixed_mapping_phase(tmp):
     if rec_ops.global_args is None:
         raise AssertionError("phase 26: no global step recorded")
     case = mapping_case(rec_ops.global_args, 261)
+    steps28 = {"phase 26 global": (rec_ops.global_args, rec_ops.global_dense)}
     del rec_ops
     if not isinstance(case.model_id, tuple):
         raise AssertionError(f"phase 26: the recorded global step has model "
@@ -4214,7 +4316,8 @@ def mixed_mapping_phase(tmp):
                    rot=t["rot"], models=models, solves=solves, lm_steps=steps,
                    cg_iterations=cg, phase_s=time.perf_counter() - t26)
     log(f"phase 26: {numbers['phase_s']:.2f} s")
-    return dict(launches=launches, kernels=kern, numbers=numbers)
+    return dict(launches=launches, kernels=kern, numbers=numbers,
+                steps=steps28)
 
 
 def ba_kernel_registers(build_log):
@@ -4405,14 +4508,16 @@ def free_port():
         return s.getsockname()[1]
 
 
-def sharded_phase(tmp, model20):
+def sharded_phase(tmp, model_implicit):
     """Phase 27: multi-device bundle adjustment on the one card, every
     launch count zeroed just before and read just after each part: (a)
     the bench bundle through ``solve_bundle`` on a two-shard mesh of
     cuda:0 against the unsharded solve, then ``dryrun_multichip(2)``; (b)
     two gloo processes of one shard each against (a)'s two-shard solve;
     (d) phase 20's mapping with ``options.devices`` the two-shard mesh
-    against phase 20's model `model20`; (c) one NCCL rank's one-shard mesh
+    against `model_implicit`, phase 28 (b)'s unsharded mapping of the same
+    orbit on the implicit PCG, the only solver on a mesh (phase 20's own
+    run solves densely); (c) one NCCL rank's one-shard mesh
     against the unsharded solve. (b)'s processes run first and are joined
     before (a) starts, so (a) and (d) have the card to themselves. Returns
     the numbers and each part's launches."""
@@ -4441,7 +4546,7 @@ def sharded_phase(tmp, model20):
     numbers["a"], ref1, ref2, launches["a"] = shard_part_a(bench, mesh)
     numbers["b"], launches["b"] = shard_part_b(
         out, texts, [p.returncode for p in procs], ref2, b_seconds)
-    numbers["d"], launches["d"] = shard_part_d(tmp, mesh, model20)
+    numbers["d"], launches["d"] = shard_part_d(tmp, mesh, model_implicit)
     numbers["c"], launches["c"] = shard_part_c(bench, ref1)
     numbers["seconds"] = time.perf_counter() - t27
     log(f"phase 27: {numbers['seconds']:.2f} s (b "
@@ -4487,9 +4592,10 @@ def shard_part_a(bench, mesh):
             {k: v + dry_launches[k] for k, v in launches.items()})
 
 
-def shard_part_d(tmp, mesh, model20):
+def shard_part_d(tmp, mesh, model_implicit):
     """Phase 27 (d): phase 20's mapping with ``options.devices`` `mesh`,
-    against phase 20's model. Returns the numbers and the launches."""
+    against phase 28 (b)'s implicit unsharded model of the same orbit.
+    Returns the numbers and the launches."""
     db = tmp / "map.db"
     gt = write_orbit_database(db, MAP_IMAGES, MAP_POINTS, MAP_NOISE)
     opts = mapping_options()
@@ -4498,21 +4604,23 @@ def shard_part_d(tmp, mesh, model20):
         "phase 27 (d) incremental_mapping", 2,
         lambda: map_and_check(db, tmp / "map27", gt, opts, "cuda",
                               "phase 27 (d)", MAP_IMAGES - 1))
-    cmp = est.compare_reconstructions(rec, model20)
+    cmp = est.compare_reconstructions(rec, model_implicit)
     if cmp is None:
-        raise AssertionError("phase 27 (d): no alignment to phase 20's model")
+        raise AssertionError("phase 27 (d): no alignment to the implicit "
+                             "unsharded model")
     rot = float(np.median([e.rotation_error_deg for e in cmp["errors"]]))
-    err20 = model20.compute_mean_reprojection_error()
+    err20 = model_implicit.compute_mean_reprojection_error()
     d = dict(seconds=dt, img_per_s=rec.num_reg_images / dt,
-             registered=rec.num_reg_images, err=t["err"], err20=err20,
-             rot_vs_phase20=rot, lm_steps=t["ba_lm_steps"],
+             registered=rec.num_reg_images, err=t["err"],
+             err_implicit=err20, rot_vs_implicit=rot,
+             lm_steps=t["ba_lm_steps"],
              cg_iterations=t["ba_cg_iterations"], solves=t["ba_solves"],
              split={k: t.get(k, 0.0) for k in ("register", "local_ba",
                                                "global_ba")})
     log(f"phase 27 (d): {rec.num_reg_images} registered in {dt:.2f} s "
-        f"({d['img_per_s']:.4f} img/s), {t['err']:.4f} px against phase "
-        f"20's {err20:.4f}; median rotation against phase 20's model "
-        f"{rot:.4f} deg (tol 0.1); {json.dumps(d['split'])}")
+        f"({d['img_per_s']:.4f} img/s), {t['err']:.4f} px against the "
+        f"implicit unsharded model's {err20:.4f}; median rotation against "
+        f"it {rot:.4f} deg (tol 0.1); {json.dumps(d['split'])}")
     if not (rot < 0.1 and abs(t["err"] - err20) < 0.05):
         raise AssertionError(f"phase 27 (d): rotation {rot:.4f} deg, "
                              f"reprojection {t['err']:.4f} against "
@@ -4591,6 +4699,191 @@ def shard_part_c(bench, ref1):
         raise AssertionError("phase 27 (c): the NCCL rank's solve differs "
                              "from the unsharded one")
     return c, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the dense reduced camera system
+# ---------------------------------------------------------------------------
+
+MAPPER_CG_ITERS = 30  # the incremental mapper's cg_iters
+DENSE_ETA = 0.1  # BundleAdjustmentOptions' eta
+CHECK_ETA, CHECK_CAP = 1e-6, 1000  # both PCGs run far past the default
+
+
+def wall_ms(fn, reps=5):
+    """Median host wall ms of fn() (which ends in host reads) over `reps`
+    calls after one warm-up, the card synchronised around each; and the
+    last call's result."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def dense_step_check(tag, args, dense_ops):
+    """Phase 28 (a) at one recorded LM step (`args`: its res_and_jac
+    operands; `dense_ops`: lam, pose_free, intr_free and img2cam of its
+    dense system). Rebuilds the step's J, Vinv and reduced rows on the
+    card, then: S built on the card against the same build on the CPU
+    (1e-5 scaled); S v against the f32 matvec kernel's implicit product
+    (damping and free masks as in the LM loop; 1e-4 scaled); x of the
+    dense PCG and of the implicit PCG (f32 matvec kernel), each run to eta
+    1e-6, against each other (1e-3 scaled), where f32 can solve the
+    system: its free block's Jacobi-scaled condition number (float64
+    eigenvalues on the host) under 1 / eps(f32); there both PCGs must
+    reach eta 1e-6 within 1,000 iterations. An indefinite or
+    worse-conditioned system (a converged local window: lam ~1e-7, a few
+    points' f32 Vinv off their inverse) is reported, and its x are not
+    compared: neither PCG has a solution to converge to. Times the S build (CUDA
+    events), the dense PCG and a dense step's whole solve (S build and
+    PCG, cap max(cg_iters, 64)) at the default eta, and the implicit
+    step's solve at the same operands (the card's default: bf16 pack,
+    matvec16 table and PCG, cap cg_iters), host wall each."""
+    if dense_ops is None:
+        raise AssertionError(f"phase 28 {tag}: the recorded step did not "
+                             f"solve the dense system")
+    lam, pose_free, intr_free, img2cam = dense_ops
+    b_l, quat, intr = args[0], args[2], args[4]
+    I, C, NP = quat.shape[0], intr.shape[0], intr_free.shape[1]
+    res_l, J_l = ck.res_and_jac(*args)
+    Vinv_l, _, rhs_pose, rhs_intr, udp, udi, S_blocks = ck.schur_prepare(
+        b_l, J_l, res_l, lam, I, C)
+    rhs = (rhs_pose * pose_free, rhs_intr * intr_free)
+    # the solve's tables, built once as the LM loop builds them
+    sys_args = (b_l, J_l, Vinv_l, lam, pose_free, intr_free, img2cam,
+                bk.dense_schur_index(b_l, I, NP))
+    S = bk.dense_schur_system(*sys_args)
+    cpu_args = ([bk.Bucket(*(a.cpu() for a in b)) for b in b_l],
+                [J.cpu() for J in J_l], [V.cpu() for V in Vinv_l],
+                *(a.cpu() for a in sys_args[3:7]))
+    s_err = scaled_err(S, bk.dense_schur_system(*cpu_args))
+
+    jacobi = bk._schur_jacobi(pose_free, intr_free)
+    damp_pose, damp_intr, precond = jacobi(lam, udp, udi, S_blocks)
+    g = torch.Generator().manual_seed(28)
+    dev = pose_free.device
+    v_pose = torch.randn((I, 6), generator=g).to(dev) * pose_free
+    v_intr = torch.randn((C, NP), generator=g).to(dev) * intr_free
+    mp, mi = ck.schur_matvec(b_l, J_l, Vinv_l, v_pose, v_intr, I, C)
+    want = torch.cat([((damp_pose * v_pose + mp) * pose_free).reshape(-1),
+                      ((damp_intr * v_intr + mi) * intr_free).reshape(-1)])
+    mv_err = scaled_err(
+        S @ torch.cat([v_pose.reshape(-1), v_intr.reshape(-1)]), want)
+
+    def dense_solve(eta, cap, S=None):
+        if S is None:
+            S = bk.dense_schur_system(*sys_args)
+        return bk._dense_schur_solve(S, *rhs, pose_free, intr_free, cap,
+                                     eta)
+
+    def implicit_solve(kind, eta, cap):
+        Jk = ([ck.pack_j_bf16(J) for J in J_l] if kind == "matvec16"
+              else J_l)
+        launch = ck.matvec_launch(kind, b_l, Jk, Vinv_l, I, C)
+        damp_pose, damp_intr, precond = jacobi(lam, udp, udi, S_blocks)
+        mv = ck.schur_matvec16 if kind == "matvec16" else ck.schur_matvec
+
+        def matvec(x_pose, x_intr):
+            mp, mi = mv(b_l, Jk, Vinv_l, x_pose, x_intr, I, C, launch=launch)
+            return ((damp_pose * x_pose + mp) * pose_free,
+                    (damp_intr * x_intr + mi) * intr_free)
+
+        (x_pose, x_intr), k, _ = bk._pcg(matvec, precond, rhs, cap, eta)
+        return x_pose, x_intr, k
+
+    free = (torch.cat([pose_free.reshape(-1), intr_free.reshape(-1)])
+            > 0).cpu()
+    Sf = S.double().cpu()[free][:, free]
+    d = Sf.diagonal().abs().sqrt().clamp(min=1e-30)
+    ev = torch.linalg.eigvalsh(Sf / d[:, None] / d[None, :])
+    cond = float(ev[-1] / ev[0]) if ev[0] > 0 else math.inf
+    well_posed = cond < 1.0 / torch.finfo(torch.float32).eps
+    xd = dense_solve(CHECK_ETA, CHECK_CAP, S)
+    xi = implicit_solve("matvec", CHECK_ETA, CHECK_CAP)
+    x_err = scaled_err(torch.cat([xd[0].reshape(-1), xd[1].reshape(-1)]),
+                       torch.cat([xi[0].reshape(-1), xi[1].reshape(-1)]))
+    converged = xd[2] < CHECK_CAP and xi[2] < CHECK_CAP
+
+    cap = max(MAPPER_CG_ITERS, 64)
+    build_ms = time_gpu(lambda: bk.dense_schur_system(*sys_args))
+    pcg_ms, (_, _, k_dense, _) = wall_ms(
+        lambda: dense_solve(DENSE_ETA, cap, S))
+    dense_ms, _ = wall_ms(lambda: dense_solve(DENSE_ETA, cap))
+    impl_ms, (_, _, k_impl) = wall_ms(
+        lambda: implicit_solve("matvec16", DENSE_ETA, MAPPER_CG_ITERS))
+    cols = 3 * sum(J.shape[-1] for J in J_l)
+    D = 6 * I + NP * C
+    r = dict(I=I, C=C, NP=NP, D=D, D_ref=bk.dense_schur_dim(I, C, NP),
+             Z_columns=cols, ZZt_gflop=2.0 * D * D * cols / 1e9,
+             S_max_abs_err=s_err[0], S_scaled_err=s_err[1],
+             Sv_scaled_err=mv_err[1], scaled_condition=cond,
+             min_scaled_eigenvalue=float(ev[0]), well_posed=well_posed,
+             x_scaled_err=x_err[1],
+             check_iterations=dict(dense=xd[2], implicit=xi[2]),
+             build_ms=build_ms, dense_pcg_ms=pcg_ms,
+             dense_iterations=k_dense, dense_step_ms=dense_ms,
+             implicit_step_ms=impl_ms, implicit_iterations=k_impl)
+    log(f"phase 28 {tag}: {json.dumps(r)}")
+    x_ok = not well_posed or (converged and x_err[1] <= 1e-3)
+    if not (s_err[1] <= 1e-5 and mv_err[1] <= 1e-4 and x_ok):
+        raise AssertionError(f"phase 28 {tag}: S card vs CPU {s_err[1]:.2e} "
+                             f"(tol 1e-5), S v vs the matvec kernel "
+                             f"{mv_err[1]:.2e} (tol 1e-4), dense vs implicit "
+                             f"x {x_err[1]:.2e} (tol 1e-3) after {xd[2]} / "
+                             f"{xi[2]} iterations at scaled condition "
+                             f"{cond:.3e}")
+    return r
+
+
+def implicit_mapping(tmp, dense):
+    """Phase 28 (b): phase 20's orbit mapped on the card with every solve
+    pinned to the implicit PCG (``dense_schur_max_d=0``), every launch
+    count zeroed just before and read just after: phase 20's checks and
+    the implicit launch rule (matvec16 once per CG iteration, no dense
+    solve); registered img/s, LM steps and CG iterations beside phase 20's
+    dense run (`dense`, phase 20's numbers). Returns the model and the
+    numbers."""
+    db = tmp / "map.db"
+    gt = write_orbit_database(db, MAP_IMAGES, MAP_POINTS, MAP_NOISE)
+    zero_counts()
+    rec, dt, t = map_and_check(db, tmp / "map28", gt, mapping_options(),
+                               "cuda", "phase 28 (b) implicit", MAP_IMAGES,
+                               dense_schur_max_d=0)
+    launches, plain_on_cuda = read_counts()
+    if t["ba_dense_solves"] or not t["ba_cg_iterations"]:
+        raise AssertionError(f"phase 28 (b): {ba_counts(t)}; every solve "
+                             f"should be implicit")
+    launch_check("phase 28 (b)", launches, plain_on_cuda, *ba_rule(t))
+    split = ("local_ba_solve", "global_ba_solve", "local_ba", "global_ba")
+    b = dict(seconds=dt, img_per_s=rec.num_reg_images / dt, err=t["err"],
+             rot=t["rot"], solves=t["ba_solves"], lm_steps=t["ba_lm_steps"],
+             cg_iterations=t["ba_cg_iterations"],
+             **{k: t.get(k, 0.0) for k in split},
+             dense=dict(img_per_s=dense["img_per_s"],
+                        lm_steps=dense["lm_steps"],
+                        dense_cg_iterations=dense["dense_cg_iterations"],
+                        **{k: dense["timings"].get(k, 0.0) for k in split}))
+    log(f"phase 28 (b) implicit mapping beside phase 20's dense run: "
+        f"{json.dumps(b)}; {ba_counts(t)}")
+    return rec, b
+
+
+def dense_phase(tmp, steps, mapping):
+    """Phase 28: (a) the dense reduced system at the recorded steps
+    `steps` ({tag: (res_and_jac operands, dense operands)}) of phases 20,
+    21 and 26; (b) phase 20's orbit mapped with the implicit PCG. Returns
+    the numbers and (b)'s model."""
+    t28 = time.perf_counter()
+    numbers = {tag: dense_step_check(tag, *ops) for tag, ops in steps.items()}
+    model, numbers["b"] = implicit_mapping(tmp, mapping)
+    numbers["phase_s"] = time.perf_counter() - t28
+    log(f"phase 28: {numbers['phase_s']:.2f} s")
+    return numbers, model
 
 
 def main():
@@ -4717,7 +5010,8 @@ def main():
         mixed, captured_ba = mixed_model_bundle_adjustment(
             Path(tmp), known_pose["bundle_adjustment"])
         model_ba_parity(Path(tmp), mixed_reconstruction(32, 8192),
-                        tag="phase 16 medium 32/8192 mixed bf16")
+                        tag="phase 16 medium 32/8192 mixed dense",
+                        dense_schur_max_d=None)
         t15 = time.perf_counter()
         mixed_res = mixed_kernels(captured_ba)
         t17 = time.perf_counter()
@@ -4757,7 +5051,7 @@ def main():
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         mapping = mapping_phase(Path(tmp))
     summary = {k: v for k, v in mapping.items()
-               if k not in ("launches", "kernels", "model")}
+               if k not in ("launches", "kernels", "steps")}
     log(f"mapping summary: {json.dumps(summary)}")
 
     # --- phase 21: images to model ------------------------------------------
@@ -4801,9 +5095,19 @@ def main():
     late_map = {k: v + mixed_map["launches"][k]
                 for k, v in hier["launches"].items()}
 
+    # --- phase 28: the dense reduced camera system (its implicit mapping
+    # is phase 27 (d)'s reference) -------------------------------------------
+    steps28 = {**mapping.pop("steps"), **e2e.pop("steps"),
+               **mixed_map.pop("steps")}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        dense28, model_implicit = dense_phase(Path(tmp), steps28, mapping)
+    del steps28
+    torch.cuda.empty_cache()
+    log(f"dense system summary: {json.dumps(dense28)}")
+
     # --- phase 27: multi-device bundle adjustment ---------------------------
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        sharded = sharded_phase(Path(tmp), mapping.pop("model"))
+        sharded = sharded_phase(Path(tmp), model_implicit)
     log(f"sharded summary: {json.dumps(sharded['numbers'])}")
 
     kernels = []

@@ -252,11 +252,13 @@ def hierarchical_mapping(
     device=None,
     cg_bf16=None,
     timings: dict = None,
+    dense_schur_max_d=None,
 ):
     """Partition the scene, map each partition independently, merge.
 
     Each partition is one ``incremental_mapping`` on `device` (None = the
-    card) with ``cg_bf16``; the merges' robust Sim3 runs there too. Returns
+    card) with ``cg_bf16`` and ``dense_schur_max_d``; the merges' robust
+    Sim3 runs there too. Returns
     {model_idx: Reconstruction} like incremental_mapping; model 0 is the
     merged reconstruction. Given a ``timings`` dict, fills in ``partition``
     and ``merge`` seconds and ``parts``: per partition its ``images``,
@@ -308,6 +310,7 @@ def hierarchical_mapping(
         recs = incremental_mapping(
             database_path, image_path, out_root / f"part{k}", opts,
             device=device, cg_bf16=cg_bf16, timings=split,
+            dense_schur_max_d=dense_schur_max_d,
         )
         best = (max(recs.values(), key=lambda r: r.num_reg_images)
                 if recs else None)

@@ -16,6 +16,9 @@ host without CUDA and no device they raise. ``cg_bf16`` selects the CG
 matvec of the solve (see :func:`pycolmap_torch.sfm.ba_kernels.
 solve_bundle_fast`): None takes the device's default, bf16 on the card
 and f32 on the CPU, as the reference does on its accelerator and its CPU.
+``dense_schur_max_d`` is the cutoff of the dense reduced camera system:
+None takes the device's, 512 on the card and 2048 on the CPU, as the
+reference's; 0 keeps every solve on the implicit PCG.
 
 Given a ``timings`` dict, each entry point fills in the wall-time split of
 its call in seconds (the solve ends in a host read, so its time includes
@@ -402,19 +405,23 @@ def incremental_mapping(
     device=None,
     cg_bf16=None,
     timings: dict = None,
+    dense_schur_max_d=None,
 ):
     """Full incremental SfM (ref: pipeline/sfm.h:46-93).
 
     Returns dict {index: Reconstruction}; also writes models under
     output_path/<index>/ like the reference. The estimators, triangulation
     and bundle adjustment run on ``device`` (None = the card); ``cg_bf16``
-    selects the BA's CG matvec (None = the device's default). Given a
+    selects the BA's CG matvec (None = the device's default),
+    ``dense_schur_max_d`` its dense reduced system's cutoff. Given a
     ``timings`` dict, fills in wall seconds per stage (load, initial_pair,
     register, triangulate, local_ba, global_ba, pose_graph, extract_colors,
     write), the mapper's own split of its methods (``register_pnp``,
     ``local_ba_solve``, ``global_ba_solve``, ...) and its BA counters
     (``ba_solves``, ``ba_lm_steps``, ``ba_cg_iterations``,
-    ``ba_cache_hits``, ``ba_cache_misses``).
+    ``ba_cache_hits``, ``ba_cache_misses``, and of the dense solves apart
+    ``ba_dense_solves``, ``ba_dense_lm_steps``,
+    ``ba_dense_cg_iterations``).
     """
     device = resolve_device(device)
     if options is None:
@@ -441,7 +448,8 @@ def incremental_mapping(
         idx = manager.add()
         manager.get(idx).read(input_path)
 
-    mapper = IncrementalMapper(cache, device=device, cg_bf16=cg_bf16)
+    mapper = IncrementalMapper(cache, device=device, cg_bf16=cg_bf16,
+                               dense_schur_max_d=dense_schur_max_d)
 
     initial_models = len(manager)
     max_models = options.max_num_models if options.multiple_models else 1
@@ -515,12 +523,16 @@ def incremental_mapping(
         timings.update(mapper.timings)
         timings.update(ba_solves=ba.solves, ba_lm_steps=ba.lm_steps,
                        ba_cg_iterations=ba.cg_iterations,
-                       ba_cache_hits=ba.hits, ba_cache_misses=ba.misses)
+                       ba_cache_hits=ba.hits, ba_cache_misses=ba.misses,
+                       ba_dense_solves=ba.dense_solves,
+                       ba_dense_lm_steps=ba.dense_lm_steps,
+                       ba_dense_cg_iterations=ba.dense_cg_iterations)
     return {i: manager.get(i) for i in range(len(manager))}
 
 
 def bundle_adjustment(reconstruction, options: BundleAdjustmentOptions = None,
-                      device=None, cg_bf16=None, timings: dict = None):
+                      device=None, cg_bf16=None, timings: dict = None,
+                      dense_schur_max_d=None):
     """Global BA on an existing reconstruction (ref: pipeline/sfm.h:95-103).
 
     The first registered image's pose and the second's x translation are
@@ -540,7 +552,8 @@ def bundle_adjustment(reconstruction, options: BundleAdjustmentOptions = None,
     )
     t1 = time.perf_counter()
     new_problem, summary = solve_bundle(problem, options, device=device,
-                                        cg_bf16=cg_bf16)
+                                        cg_bf16=cg_bf16,
+                                        dense_schur_max_d=dense_schur_max_d)
     t2 = time.perf_counter()
     apply_bundle_solution(reconstruction, new_problem, mapping)
     t3 = time.perf_counter()
@@ -562,6 +575,7 @@ def triangulate_points(
     device=None,
     cg_bf16=None,
     timings: dict = None,
+    dense_schur_max_d=None,
 ):
     """Triangulate a model with known fixed poses (ref: pipeline/sfm.h:23-44).
 
@@ -608,7 +622,8 @@ def triangulate_points(
     if not refine_intrinsics:
         ba.refine_focal_length = False
         ba.refine_extra_params = False
-    bundle_adjustment(reconstruction, ba, device=device, cg_bf16=cg_bf16)
+    bundle_adjustment(reconstruction, ba, device=device, cg_bf16=cg_bf16,
+                      dense_schur_max_d=dense_schur_max_d)
     t3 = time.perf_counter()
     reconstruction.filter_points3D(
         options.mapper.filter_max_reproj_error, options.mapper.filter_min_tri_angle

@@ -20,6 +20,16 @@ The CG matvec reads J either in f32 or packed to bf16 once per LM step
 (``cg_bf16``). The default follows the device, as the reference's does
 (``PYCOLMAP_TPU_BA_CG_BF16``, default on, takes effect on its accelerator
 path only): bf16 on the card, f32 on the CPU.
+
+A small unsharded problem solves its reduced camera system densely
+instead (the reference's ``_dense_schur_solve``): S = U + damping -
+W V^-1 W^T built in float64 as one [D, D] matrix, D = 6 I + NP C, and
+rounded to f32 once, then PCG on it (plain PyTorch on the caller's
+device; no kernel of its own: the reference builds it in XLA).
+The choice is the reference's (:func:`dense_schur_selected`): its padded
+dimension at or under 512 on the card, where its kernels run, or 2048 on
+the CPU; ``dense_schur_max_d`` replaces the cutoff, 0 keeps every solve
+implicit (the reference's ``PYCOLMAP_TPU_DENSE_SCHUR_MAX_D``).
 """
 
 from __future__ import annotations
@@ -38,6 +48,9 @@ from pycolmap_torch.ops.camera_models import (
 from pycolmap_torch.sfm.bundle_adjustment import BASummary, BundleProblem
 
 _BUCKET_TS = (4, 8, 16, 32, 64)
+# the reference's dense-Schur cutoffs on its padded system dimension: with
+# its kernels on (the card's path) and on its CPU path
+_DENSE_SCHUR_MAX_D = {"cuda": 512, "cpu": 2048}
 
 
 class Bucket(NamedTuple):
@@ -394,6 +407,19 @@ def _sym3_apply(Vp, y):
     )
 
 
+def _chol3x3_planes(Vp):
+    """Closed-form Cholesky of packed SPD 3x3 planes [6, P]: the six
+    nonzero entries (l00, l10, l20, l11, l21, l22) of lower L, L L^T = V."""
+    a, b, c, d, e, f = Vp
+    l00 = torch.sqrt(torch.clamp(a, min=1e-20))
+    l10 = b / l00
+    l20 = c / l00
+    l11 = torch.sqrt(torch.clamp(d - l10 * l10, min=1e-20))
+    l21 = (e - l10 * l20) / l11
+    l22 = torch.sqrt(torch.clamp(f - l20 * l20 - l21 * l21, min=1e-20))
+    return l00, l10, l20, l11, l21, l22
+
+
 def _scatter_cam(values, idx, num_segments):
     """values [k, T, P] -> [num_segments, k], summed by idx [T, P]
     (the reference's one-hot MXU scatter, as ``index_add_``).
@@ -426,7 +452,9 @@ class LMResult(NamedTuple):
     final_cost: torch.Tensor  # 0-d
     iterations: int
     host_syncs: int  # device-to-host reads of loop conditions
-    cg_iterations: int  # matvecs over the whole solve
+    cg_iterations: int  # implicit matvecs over the whole solve
+    dense: bool  # every step solved the dense reduced system
+    dense_cg_iterations: int  # PCG iterations on the dense system
 
 
 def cg_bf16_default(device, cg_bf16=None) -> bool:
@@ -436,6 +464,31 @@ def cg_bf16_default(device, cg_bf16=None) -> bool:
     if cg_bf16 is None:
         return torch.device(device).type == "cuda"
     return bool(cg_bf16)
+
+
+def dense_schur_dim(I, C, NP) -> int:
+    """The reference's reduced-system dimension, from its padded counts:
+    6 _pad_4x(I, 8) + NP _pad_4x(C, 1) (its ba_kernels.py:1645-1646)."""
+    return 6 * _pad_4x(I, 8) + NP * _pad_4x(C, 1)
+
+
+def dense_schur_cutoff(device, dense_schur_max_d=None) -> int:
+    """``dense_schur_max_d`` if given, else the reference's cutoff on the
+    device's path: 512 on the card (its kernels on), 2048 on the CPU."""
+    if dense_schur_max_d is not None:
+        return int(dense_schur_max_d)
+    return _DENSE_SCHUR_MAX_D[torch.device(device).type]
+
+
+def dense_schur_selected(I, C, NP, device, dense_schur_max_d=None,
+                         mesh=None, img2cam=None) -> bool:
+    """Whether a solve takes the dense reduced system: unsharded, given an
+    image-to-camera map, and the reference's padded dimension at or under
+    the cutoff (its ba_kernels.py:900-910). The port pads nothing; it only
+    reads the reference's dimension, so both pick the same solver."""
+    return (mesh is None and img2cam is not None
+            and dense_schur_dim(I, C, NP)
+            <= dense_schur_cutoff(device, dense_schur_max_d))
 
 
 def _first(parts):
@@ -455,10 +508,219 @@ def _shards(shards, devs, mesh):
             yield k, bl, d
 
 
+def _dot(a, b):
+    """Sum of the elementwise products of two tuples of tensors."""
+    out = torch.sum(a[0] * b[0])
+    for u, v in zip(a[1:], b[1:]):
+        out = out + torch.sum(u * v)
+    return out
+
+
+def _pcg(matvec, precond, rhs, cg_iters, eta):
+    """PCG from x = 0 with the reference's forcing sequence (inexact
+    Newton, Ceres eta): stop when r.z drops below eta^2 times its initial
+    value, or after cg_iters matvecs. Vectors are tuples of tensors;
+    matvec and precond map one to another. Returns (x, iterations, host
+    syncs): the stop test is read on the host once per iteration."""
+    z = precond(*rhs)
+    rz = _dot(rhs, z)
+    stop = eta * eta * rz
+    x = tuple(torch.zeros_like(r) for r in rhs)
+    r, p = rhs, z
+    k = syncs = 0
+    while k < cg_iters:
+        syncs += 1
+        if not bool(rz > stop):
+            break
+        Ap = matvec(*p)
+        pAp = _dot(p, Ap)
+        alpha = rz / torch.where(torch.abs(pAp) < 1e-20,
+                                 torch.full_like(pAp, 1e-20), pAp)
+        x = tuple(xi + alpha * pi for xi, pi in zip(x, p))
+        r = tuple(ri - alpha * api for ri, api in zip(r, Ap))
+        z = precond(*r)
+        rz_new = _dot(r, z)
+        beta = rz_new / torch.where(torch.abs(rz) < 1e-20,
+                                    torch.full_like(rz, 1e-20), rz)
+        p = tuple(zi + beta * pi for zi, pi in zip(z, p))
+        rz = rz_new
+        k += 1
+    return x, k, syncs
+
+
+def _schur_jacobi(pose_free, intr_free):
+    """The implicit path's damping and SCHUR_JACOBI preconditioner, as a
+    function of one LM step's lam and prepare's reduced rows (udp [I, 6],
+    udi [C, NP], S_blocks [I, 21]) that returns (damp_pose, damp_intr,
+    precond)."""
+    dev = pose_free.device
+    I = pose_free.shape[0]
+    tri_i = torch.tensor([i for i, _ in _TRI], device=dev)
+    tri_j = torch.tensor([j for _, j in _TRI], device=dev)
+    eye6 = torch.eye(6, device=dev)
+
+    def step(lam, udp, udi, S_blocks):
+        damp_pose = lam * torch.clamp(udp, min=1e-6)
+        damp_intr = lam * torch.clamp(udi, min=1e-6)
+        S_full = torch.zeros((I, 6, 6), device=dev)
+        S_full[:, tri_i, tri_j] = S_blocks
+        S_full[:, tri_j, tri_i] = S_blocks
+        S_full = S_full + torch.diag_embed(damp_pose + 1e-8)
+        # inv_ex: no singularity check, so no host sync (the reference's
+        # jnp.linalg.inv returns inf/nan there too)
+        P_inv = torch.linalg.inv_ex(S_full + 1e-6 * eye6)[0]
+        denom = udi + damp_intr
+        denom = torch.where(denom < 1e-8, torch.ones_like(denom), denom)
+
+        def precond(r_pose, r_intr):
+            p_pose = torch.einsum("iab,ib->ia", P_inv, r_pose) * pose_free
+            return p_pose, r_intr / denom * intr_free
+
+        return damp_pose, damp_intr, precond
+
+    return step
+
+
+class DenseIndex(NamedTuple):
+    """Where each observation slot of one shard's buckets (their [T, P]
+    slots in bucket order, padding included) lands in the dense build."""
+    point: torch.Tensor  # [N] its point's column in the buckets' [., sum P]
+    image: torch.Tensor  # [N] int64
+    camera: torch.Tensor  # [N] int64
+    z: torch.Tensor  # [(6 + NP) 3 N] its W entries' flat positions in Z
+
+
+def dense_schur_index(buckets, I, NP) -> DenseIndex:
+    """The dense build's tables of `buckets` (one shard's) for I images and
+    NP intrinsics: fixed for a solve, so the LM loop builds them once. Z
+    is [D, 3 sum P]: row 6 i + k (pose k of image i) or 6 I + NP c + k
+    (intrinsic k of camera c), column a sum P + p (point p's axis a)."""
+    dev = buckets[0].mask.device
+    points, image, camera, off = [], [], [], 0
+    for b in buckets:
+        T, P = b.mask.shape
+        points.append((off + torch.arange(P, device=dev)).expand(T, P))
+        image.append(b.img_idx.reshape(-1))
+        camera.append(b.cam_idx.reshape(-1))
+        off += P
+    point = torch.cat([q.reshape(-1) for q in points])
+    image, camera = torch.cat(image).long(), torch.cat(camera).long()
+    rows = torch.cat([
+        6 * image + torch.arange(6, device=dev)[:, None],
+        6 * I + NP * camera + torch.arange(NP, device=dev)[:, None],
+    ])  # [nk, N]
+    cols = torch.arange(3, device=dev)[:, None] * off + point  # [3, N]
+    return DenseIndex(point, image, camera,
+                      (rows[:, None] * (3 * off) + cols[None]).reshape(-1))
+
+
+def dense_schur_system(buckets, J_l, Vinv_l, lam, pose_free, intr_free,
+                       img2cam, index=None):
+    """The damped, masked reduced camera system as one dense [D, D] f32
+    matrix, D = 6 I + NP C, rows [pose (i, k) at 6 i + k | intrinsics
+    (c, k) at 6 I + NP c + k] (the reference's ``_dense_schur_solve``,
+    ba_kernels.py:620-742, without its padded rows). lam: 0-d tensor;
+    img2cam [I]: each image's camera; index: the buckets'
+    :func:`dense_schur_index`, built here when None.
+
+    With L = chol(Vinv) and W = Jc^T Jp L per observation, Z[(i, k),
+    (a, p)] sums W over the observations of point p in image i (camera c
+    for the intrinsics rows): one ``index_add_`` over every bucket's
+    slots into Z [D, 3 sum P], and S -= Z Z^T is one product. The U blocks
+    (pose-pose, pose-intrinsics through ``img2cam``,
+    intrinsics-intrinsics) are one ``index_add_`` by image and one by
+    camera. All of it runs in float64 from the f32 J and Vinv, and S
+    rounds to f32 once: at the mapper's windows S's entries are ~1e-5 of
+    U's (a rotation row's U ~5e8), so an f32 difference U - Z Z^T (the
+    reference's CPU path; its TPU rounds Z to bf16) would keep few of S's
+    bits. Then the damping lam max(diag U, 1e-6), and the fixed
+    parameters' rows and columns replaced by the identity."""
+    I = pose_free.shape[0]
+    C, NP = intr_free.shape
+    D = 6 * I + NP * C
+    nk = 6 + NP
+    dev = pose_free.device
+    f64 = torch.float64
+    if index is None:
+        index = dense_schur_index(buckets, I, NP)
+    J = torch.cat([J.reshape(2, nk + 3, -1) for J in J_l], dim=2).to(f64)
+    Jn, Jp = J[:, :nk], J[:, nk:]  # [2, ., N]
+    Vinv = torch.cat(list(Vinv_l), dim=1).to(f64)  # [6, sum P]
+    l00, l10, l20, l11, l21, l22 = torch.stack(
+        _chol3x3_planes(Vinv))[:, index.point]  # [6, N]
+    JpL = torch.stack([
+        Jp[:, 0] * l00 + Jp[:, 1] * l10 + Jp[:, 2] * l20,
+        Jp[:, 1] * l11 + Jp[:, 2] * l21,
+        Jp[:, 2] * l22,
+    ], dim=1)  # [2, 3, N]
+    W = Jn[0][:, None] * JpL[0][None] + Jn[1][:, None] * JpL[1][None]
+    cols = 3 * Vinv.shape[1]
+    Z = torch.zeros(D * cols, dtype=f64, device=dev)
+    Z.index_add_(0, index.z, W.reshape(-1))
+    Z = Z.reshape(D, cols)
+    G = Jn[0][:, None] * Jn[0][None] + Jn[1][:, None] * Jn[1][None]
+    acc_i = torch.zeros((I, 6 * nk), dtype=f64, device=dev)
+    acc_i.index_add_(0, index.image, G[:6].reshape(6 * nk, -1).T)
+    acc_c = torch.zeros((C, NP * NP), dtype=f64, device=dev)
+    acc_c.index_add_(0, index.camera, G[6:, 6:].reshape(NP * NP, -1).T)
+    lam = lam.to(f64)
+    U_pp = acc_i.reshape(I, 6, nk)[:, :, :6]
+    U_pi = acc_i.reshape(I, 6, nk)[:, :, 6:]
+    U_ii = acc_c.reshape(C, NP, NP)
+    U_pp = U_pp + torch.diag_embed(
+        lam * torch.clamp(torch.diagonal(U_pp, dim1=1, dim2=2), min=1e-6))
+    U_ii = U_ii + torch.diag_embed(
+        lam * torch.clamp(torch.diagonal(U_ii, dim1=1, dim2=2), min=1e-6))
+    k6 = torch.arange(6, device=dev)
+    kNP = torch.arange(NP, device=dev)
+    arI = torch.arange(I, device=dev)
+    rows_p = (6 * arI[:, None, None] + k6[None, :, None]).expand(I, 6, 6)
+    cols_i = (6 * I + NP * img2cam.long()[:, None, None]
+              + kNP[None, None, :]).expand(I, 6, NP)
+    rows_pi = rows_p[:, :, :1].expand(I, 6, NP)
+    arC = torch.arange(C, device=dev)
+    rows_c = (6 * I + NP * arC[:, None, None] + kNP[None, :, None]).expand(
+        C, NP, NP)
+    U = torch.zeros((D, D), dtype=f64, device=dev)
+    U[rows_p, rows_p.transpose(1, 2)] = U_pp
+    U[rows_pi, cols_i] = U_pi
+    U[cols_i, rows_pi] = U_pi
+    U[rows_c, rows_c.transpose(1, 2)] = U_ii
+    S = (U - Z @ Z.T).to(torch.float32)
+    free = torch.cat([pose_free.reshape(-1), intr_free.reshape(-1)])
+    return S * free[:, None] * free[None, :] + torch.diag(1.0 - free)
+
+
+def _dense_schur_solve(S, rhs_pose, rhs_intr, pose_free, intr_free,
+                       cg_iters, eta):
+    """PCG on the dense system S (:func:`dense_schur_system`) with a
+    block-Jacobi preconditioner from its 6x6 pose blocks and its
+    intrinsics diagonal (the reference's ba_kernels.py:744-821). Returns
+    (x_pose [I, 6], x_intr [C, NP], iterations, host syncs)."""
+    I = pose_free.shape[0]
+    C, NP = intr_free.shape
+    dev = S.device
+    arI = torch.arange(I, device=dev)
+    blk = S[:6 * I, :6 * I].reshape(I, 6, I, 6)[arI, :, arI, :]  # [I, 6, 6]
+    P_inv = torch.linalg.inv_ex(blk + 1e-6 * torch.eye(6, device=dev))[0]
+    dint = torch.diagonal(S)[6 * I:]
+    dint = torch.where(torch.abs(dint) < 1e-8, torch.ones_like(dint), dint)
+    free = torch.cat([pose_free.reshape(-1), intr_free.reshape(-1)])
+
+    def precond(r):
+        zp = torch.einsum("iab,ib->ia", P_inv, r[:6 * I].reshape(I, 6))
+        return (torch.cat([zp.reshape(-1), r[6 * I:] / dint]) * free,)
+
+    rhs = torch.cat([rhs_pose.reshape(-1), rhs_intr.reshape(-1)])
+    (x,), k, syncs = _pcg(lambda p: (S @ p,), precond, (rhs,), cg_iters, eta)
+    return (x[:6 * I].reshape(I, 6) * pose_free,
+            x[6 * I:].reshape(C, NP) * intr_free, k, syncs)
+
+
 def _lm_solve_bucketed(
     buckets, quat0, trans0, intr0, pose_free, intr_free, model_id,
     loss_type, loss_scale, cg_iters, max_iterations, eta=0.1, cg_bf16=False,
-    mesh=None,
+    mesh=None, img2cam=None, dense_schur_max_d=None,
 ):
     """LM over device-resident buckets.
 
@@ -467,6 +729,13 @@ def _lm_solve_bucketed(
     The bucket ``points`` fields are the starting point positions.
     cg_bf16: run every CG matvec from J packed to bf16 (the reference's
     ba_kernels.py:1064-1102). Returns an :class:`LMResult`.
+
+    img2cam: [I] each image's camera, or None. With it, no mesh, and the
+    reference's padded dimension within ``dense_schur_max_d`` (None: the
+    device's cutoff; :func:`dense_schur_selected`), every step solves the
+    dense reduced system (:func:`dense_schur_system`) by PCG capped at
+    max(cg_iters, 64) iterations, as the reference's; prepare and finish
+    still launch once a step, the matvec kernels and the bf16 pack never.
 
     buckets: one tuple of buckets per local shard, each on its shard's
     device; the result's ``points`` are one list per shard likewise.
@@ -497,30 +766,13 @@ def _lm_solve_bucketed(
     intr0 = intr0[:, :NP].contiguous()
     intr_free = intr_free[:, :NP].contiguous()
     free_l = [intr_free.to(d) for d in devs]
-    tri_i = torch.tensor([i for i, _ in _TRI], device=dev)
-    tri_j = torch.tensor([j for _, j in _TRI], device=dev)
-    eye6 = torch.eye(6, device=dev)
+    dense = dense_schur_selected(I, C, NP, dev, dense_schur_max_d, mesh,
+                                 img2cam)
+    index = dense_schur_index(shards[0], I, NP) if dense else None
+    jacobi = _schur_jacobi(pose_free, intr_free)
     syncs = 0
     cg_total = 0
-
-    def precond_factory(lam, udp, udi, S_blocks):
-        damp_pose = lam * torch.clamp(udp, min=1e-6)
-        damp_intr = lam * torch.clamp(udi, min=1e-6)
-        S_full = torch.zeros((I, 6, 6), device=dev)
-        S_full[:, tri_i, tri_j] = S_blocks
-        S_full[:, tri_j, tri_i] = S_blocks
-        S_full = S_full + torch.diag_embed(damp_pose + 1e-8)
-        # inv_ex: no singularity check, so no host sync (the reference's
-        # jnp.linalg.inv returns inf/nan there too)
-        P_inv = torch.linalg.inv_ex(S_full + 1e-6 * eye6)[0]
-        denom = udi + damp_intr
-        denom = torch.where(denom < 1e-8, torch.ones_like(denom), denom)
-
-        def precond(r_pose, r_intr):
-            p_pose = torch.einsum("iab,ib->ia", P_inv, r_pose) * pose_free
-            return p_pose, r_intr / denom * intr_free
-
-        return damp_pose, damp_intr, precond
+    dense_cg = 0
 
     pts = [[b.points for b in bl] for bl in shards]
     cost0 = reduce([
@@ -549,68 +801,49 @@ def _lm_solve_bucketed(
         rhs_pose, rhs_intr, udp, udi, S_blocks = reduce(cam_l)
         rhs_pose = rhs_pose * pose_free
         rhs_intr = rhs_intr * intr_free
-        damp_pose, damp_intr, precond = precond_factory(lam, udp, udi,
-                                                        S_blocks)
-        # one pack (bf16) and one kernel table per LM step and shard, for
-        # the matvecs and for finish
+        if not dense:
+            damp_pose, damp_intr, precond = jacobi(lam, udp, udi, S_blocks)
+        # one kernel table per LM step and shard for finish; on an implicit
+        # step also one pack (bf16) and one table for the matvecs
         J16_l, mv_l, fin_l = [], [], []
         for s, bl, d in each():
-            if cg_bf16:
+            if not dense and cg_bf16:
                 J16_l.append([ck.pack_j_bf16(J) for J in J_l[s]])
                 mv_l.append(ck.matvec_launch("matvec16", bl, J16_l[s],
                                              Vinv_l[s], I, C))
-            else:
+            elif not dense:
                 mv_l.append(ck.matvec_launch("matvec", bl, J_l[s],
                                              Vinv_l[s], I, C))
             fin_l.append(ck.finish_launch(bl, pts[s], J_l[s], Vinv_l[s],
                                           g_pt_l[s]))
 
-        def matvec(x_pose, x_intr):
-            parts = []
-            for s, bl, d in each():
-                if cg_bf16:
-                    parts.append(ck.schur_matvec16(
-                        bl, J16_l[s], Vinv_l[s], x_pose.to(d),
-                        x_intr.to(d), I, C, launch=mv_l[s]))
-                else:
-                    parts.append(ck.schur_matvec(
-                        bl, J_l[s], Vinv_l[s], x_pose.to(d), x_intr.to(d),
-                        I, C, launch=mv_l[s]))
-            mp, mi = reduce(parts)
-            return ((damp_pose * x_pose + mp) * pose_free,
-                    (damp_intr * x_intr + mi) * intr_free)
+        if dense:  # one shard: the dense path never runs on a mesh
+            S = dense_schur_system(shards[0], J_l[0], Vinv_l[0], lam,
+                                   pose_free, intr_free, img2cam, index)
+            x_pose, x_intr, k, n_sync = _dense_schur_solve(
+                S, rhs_pose, rhs_intr, pose_free, intr_free,
+                max(cg_iters, 64), eta)
+            dense_cg += k
+        else:
+            def matvec(x_pose, x_intr):
+                parts = []
+                for s, bl, d in each():
+                    if cg_bf16:
+                        parts.append(ck.schur_matvec16(
+                            bl, J16_l[s], Vinv_l[s], x_pose.to(d),
+                            x_intr.to(d), I, C, launch=mv_l[s]))
+                    else:
+                        parts.append(ck.schur_matvec(
+                            bl, J_l[s], Vinv_l[s], x_pose.to(d),
+                            x_intr.to(d), I, C, launch=mv_l[s]))
+                mp, mi = reduce(parts)
+                return ((damp_pose * x_pose + mp) * pose_free,
+                        (damp_intr * x_intr + mi) * intr_free)
 
-        # --- PCG with forcing sequence (inexact Newton, Ceres eta):
-        # stop when r.z drops below eta^2 x its initial value; cg_iters caps
-        z_pose, z_intr = precond(rhs_pose, rhs_intr)
-        rz = torch.sum(rhs_pose * z_pose) + torch.sum(rhs_intr * z_intr)
-        stop = eta * eta * rz
-        x_pose = torch.zeros_like(rhs_pose)
-        x_intr = torch.zeros_like(rhs_intr)
-        r_pose, r_intr = rhs_pose, rhs_intr
-        p_pose, p_intr = z_pose, z_intr
-        k = 0
-        while k < cg_iters:
-            syncs += 1
-            if not bool(rz > stop):
-                break
-            Ap_pose, Ap_intr = matvec(p_pose, p_intr)
-            pAp = torch.sum(p_pose * Ap_pose) + torch.sum(p_intr * Ap_intr)
-            alpha = rz / torch.where(torch.abs(pAp) < 1e-20,
-                                     torch.full_like(pAp, 1e-20), pAp)
-            x_pose = x_pose + alpha * p_pose
-            x_intr = x_intr + alpha * p_intr
-            r_pose = r_pose - alpha * Ap_pose
-            r_intr = r_intr - alpha * Ap_intr
-            z_pose, z_intr = precond(r_pose, r_intr)
-            rz_new = torch.sum(r_pose * z_pose) + torch.sum(r_intr * z_intr)
-            beta = rz_new / torch.where(torch.abs(rz) < 1e-20,
-                                        torch.full_like(rz, 1e-20), rz)
-            p_pose = z_pose + beta * p_pose
-            p_intr = z_intr + beta * p_intr
-            rz = rz_new
-            k += 1
-        cg_total += k
+            (x_pose, x_intr), k, n_sync = _pcg(
+                matvec, precond, (rhs_pose, rhs_intr), cg_iters, eta)
+            cg_total += k
+        syncs += n_sync
 
         # --- apply the step, back-substitute points, cost at the update --
         nq = bm.quat_boxplus_cf(
@@ -653,11 +886,12 @@ def _lm_solve_bucketed(
             if bool(done):
                 break
     return LMResult(quat, trans, intr, pts, cost0, cost, it, syncs,
-                    cg_total)
+                    cg_total, dense, dense_cg)
 
 
 def solve_bundle_fast(problem: BundleProblem, options, cg_iters: int = 30,
-                      device=None, cg_bf16=None, mesh=None):
+                      device=None, cg_bf16=None, mesh=None,
+                      dense_schur_max_d=None):
     """Bucketed solver; same contract as bundle_adjustment.solve_bundle.
 
     Runs one solve of a :class:`~pycolmap_torch.sfm.resident.
@@ -667,7 +901,10 @@ def solve_bundle_fast(problem: BundleProblem, options, cg_iters: int = 30,
     False is the reference's ``PYCOLMAP_TPU_BA_CG_BF16=0``. ``mesh``: a
     :class:`~pycolmap_torch.parallel.device_ctx.ShardMesh` to shard the
     points over (its devices take the place of ``device``; one that
-    disagrees raises), or None for one device.
+    disagrees raises), or None for one device. ``dense_schur_max_d``: the
+    dense reduced system's cutoff (:func:`dense_schur_selected`), None =
+    the device's (512 on the card, 2048 on the CPU), 0 = always implicit
+    (the reference's ``PYCOLMAP_TPU_DENSE_SCHUR_MAX_D=0``).
     """
     from pycolmap_torch.parallel.device_ctx import mesh_device
     from pycolmap_torch.sfm.resident import ResidentBundleSolver
@@ -676,6 +913,7 @@ def solve_bundle_fast(problem: BundleProblem, options, cg_iters: int = 30,
     if problem.num_obs == 0 or float(_np(problem.obs_mask).sum()) == 0:
         return problem, BASummary(0.0, 0.0, 0, 0)
     solver = ResidentBundleSolver(problem, options, cg_iters=cg_iters,
-                                  device=device, cg_bf16=cg_bf16, mesh=mesh)
+                                  device=device, cg_bf16=cg_bf16, mesh=mesh,
+                                  dense_schur_max_d=dense_schur_max_d)
     summary = solver.solve()
     return solver.fetch_problem(), summary

@@ -146,13 +146,17 @@ def _robust_cost(sq_norm, loss_type: int, scale: float):
 
 
 def solve_bundle(problem: BundleProblem, options: BundleAdjustmentOptions,
-                 cg_iters: int = 30, device=None, cg_bf16=None, mesh=None):
+                 cg_iters: int = 30, device=None, cg_bf16=None, mesh=None,
+                 dense_schur_max_d=None):
     """Run LM to convergence. Returns (new BundleProblem, BASummary).
 
     Dispatches to the bucketed solver (sfm/ba_kernels.py). ``device``:
     None = the card (raises on a host without CUDA), or ``"cpu"`` for the
     plain PyTorch versions of the kernels. ``cg_bf16``: the CG matvec's J
-    type, None = bf16 on the card, f32 on the CPU. ``mesh``: a ShardMesh,
+    type, None = bf16 on the card, f32 on the CPU. ``dense_schur_max_d``:
+    the dense reduced system's cutoff, None = the device's (512 on the
+    card, 2048 on the CPU), 0 = always the implicit PCG (see
+    ``ba_kernels.dense_schur_selected``). ``mesh``: a ShardMesh,
     or None to resolve one from ``options.devices`` (for ``device``, see
     ``parallel/device_ctx.resolve_mesh``); a mesh's devices take the place
     of ``device``, and ones that disagree with it raise ValueError.
@@ -163,4 +167,5 @@ def solve_bundle(problem: BundleProblem, options: BundleAdjustmentOptions,
     if mesh is None:
         mesh = resolve_mesh(getattr(options, "devices", "auto"), device)
     return solve_bundle_fast(problem, options, cg_iters=cg_iters,
-                             device=device, cg_bf16=cg_bf16, mesh=mesh)
+                             device=device, cg_bf16=cg_bf16, mesh=mesh,
+                             dense_schur_max_d=dense_schur_max_d)

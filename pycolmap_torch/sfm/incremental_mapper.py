@@ -114,12 +114,14 @@ class VisibilityPyramid:
 class IncrementalMapper:
     """Grows a reconstruction image-by-image over a correspondence graph."""
 
-    def __init__(self, database_cache, device=None, cg_bf16=None):
+    def __init__(self, database_cache, device=None, cg_bf16=None,
+                 dense_schur_max_d=None):
         """database_cache: DatabaseCache (scene data + correspondence graph).
         device: where the estimators, the seed triangulation and bundle
         adjustment run (None = the card, raises on a host without CUDA;
         ``"cpu"``: the plain versions). cg_bf16: the BA's CG matvec type
-        (None = the device's default)."""
+        (None = the device's default). dense_schur_max_d: the BA's dense
+        reduced-system cutoff (None = the device's, 0 = always implicit)."""
         self.cache = database_cache
         self.device = resolve_device(device)
         self.reconstruction = None
@@ -138,8 +140,9 @@ class IncrementalMapper:
         # an unchanged problem skip the rebuild + re-transfer (ref
         # pipeline/sfm.h:95-103 — Ceres keeps its Program resident within
         # one BundleAdjuster)
-        self.resident_ba = MapperResidentBA(device=self.device,
-                                            cg_bf16=cg_bf16)
+        self.resident_ba = MapperResidentBA(
+            device=self.device, cg_bf16=cg_bf16,
+            dense_schur_max_d=dense_schur_max_d)
         # wall seconds per step of the mapper's own methods, summed over
         # calls (the pipeline adds its own split beside them)
         self.timings = defaultdict(float)

@@ -67,18 +67,26 @@ class ResidentBundleSolver:
     matvecs from J packed to bf16; None = bf16 on the card, f32 on the CPU
     (``ba_kernels.cg_bf16_default``). mesh: a ShardMesh to shard the points
     over (its devices take the place of ``device``; one that disagrees
-    raises ValueError), or None for one device.
+    raises ValueError), or None for one device. dense_schur_max_d: the
+    dense reduced system's cutoff, None = the device's
+    (``ba_kernels.dense_schur_selected``); without a mesh the solver maps
+    each image to its camera from the valid observations, as the
+    reference's does, so a small problem solves densely.
 
     After each solve, ``last_result`` holds the loop's counters
     (``host_syncs``: condition reads of the LM and CG loops, plus the one
-    summary read; ``cg_iterations``: matvecs).
+    summary read; ``cg_iterations``: implicit matvecs; ``dense``: the
+    dense system was solved, ``dense_cg_iterations`` times its PCG
+    iterated).
     """
 
     def __init__(self, problem: BundleProblem, options, cg_iters: int = 30,
-                 device=None, cg_bf16=None, mesh=None):
+                 device=None, cg_bf16=None, mesh=None,
+                 dense_schur_max_d=None):
         self.device = mesh_device(mesh, device)
         self.mesh = mesh
         self.cg_bf16 = bk.cg_bf16_default(self.device, cg_bf16)
+        self.dense_schur_max_d = dense_schur_max_d
         check_kernel_dtype(problem, self.device)
         if problem.num_obs == 0:
             raise ValueError("empty problem")
@@ -117,6 +125,16 @@ class ResidentBundleSolver:
         self._pose_free = put(problem.pose_free)
         self._intr_free = put(problem.intr_free)
         self._NP = solver_num_params(problem.model_id)
+        # each image's camera (the last valid observation's), for the dense
+        # system's pose-intrinsics blocks; the dense path never runs on a
+        # mesh (the reference's resident.py:135-159)
+        self._img2cam = None
+        if mesh is None:
+            img2cam = np.zeros(problem.num_images, np.int64)
+            valid = bk._np(problem.obs_mask) > 0
+            img2cam[bk._np(problem.obs_image_idx)[valid]] = bk._np(
+                problem.obs_camera_idx)[valid]
+            self._img2cam = torch.from_numpy(img2cam).to(self.device)
         self.last_result = None
 
     def perturb_points(self, eps: float) -> None:
@@ -138,7 +156,8 @@ class ResidentBundleSolver:
             int(options.loss_function_type),
             float(options.loss_function_scale), self._cg_iters, max_iters,
             eta=float(getattr(options, "eta", 0.1)), cg_bf16=self.cg_bf16,
-            mesh=self.mesh,
+            mesh=self.mesh, img2cam=self._img2cam,
+            dense_schur_max_d=self.dense_schur_max_d,
         )
         self._quat, self._trans = r.quat, r.trans
         # the solver runs NP-narrow intrinsics; columns >= NP are untouched
@@ -217,15 +236,21 @@ class MapperResidentBA:
     rebuild, no upload. On a miss it builds a fresh resident solver and
     caches it.
 
-    device / cg_bf16: as :class:`ResidentBundleSolver`. The counters
-    ``hits``, ``misses``, ``solves``, ``lm_steps`` and ``cg_iterations``
-    add up over the cache's solves (an LM step is one prepare and one
-    finish launch, a CG iteration one matvec launch).
+    device / cg_bf16 / dense_schur_max_d: as :class:`ResidentBundleSolver`
+    (a cached solver is reused only under the same ``dense_schur_max_d``).
+    The counters ``hits``, ``misses``, ``solves``, ``lm_steps`` and
+    ``cg_iterations`` add up over the cache's solves (an LM step is one
+    prepare and one finish launch, a CG iteration one matvec launch);
+    ``dense_solves``, ``dense_lm_steps`` and ``dense_cg_iterations`` count
+    the solves of the dense reduced system apart (their steps are in
+    ``lm_steps`` too; their PCG iterations launch no matvec).
     """
 
-    def __init__(self, max_entries: int = 3, device=None, cg_bf16=None):
+    def __init__(self, max_entries: int = 3, device=None, cg_bf16=None,
+                 dense_schur_max_d=None):
         self.device = resolve_device(device)
         self.cg_bf16 = cg_bf16
+        self.dense_schur_max_d = dense_schur_max_d
         self._entries = {}  # fingerprint -> ResidentBundleSolver
         self._max = max_entries
         self.hits = 0
@@ -233,6 +258,9 @@ class MapperResidentBA:
         self.solves = 0
         self.lm_steps = 0
         self.cg_iterations = 0
+        self.dense_solves = 0
+        self.dense_lm_steps = 0
+        self.dense_cg_iterations = 0
 
     def solve(self, problem: BundleProblem, options, cg_iters: int = 30,
               mesh=None):
@@ -241,8 +269,9 @@ class MapperResidentBA:
         reused only on a mesh of the same content (``ShardMesh.key``)."""
         if problem.num_obs == 0 or float(bk._np(problem.obs_mask).sum()) == 0:
             return problem, BASummary(0.0, 0.0, 0, 0)
-        mesh_key = None if mesh is None else mesh.key()
-        key = (_problem_fingerprint(problem), mesh_key)
+        setting = (None if mesh is None else mesh.key(),
+                   self.dense_schur_max_d)
+        key = (_problem_fingerprint(problem), setting)
         solver = self._entries.pop(key, None)
         if solver is None:
             self.misses += 1
@@ -252,18 +281,24 @@ class MapperResidentBA:
             solver = ResidentBundleSolver(
                 problem, options, cg_iters=cg_iters, device=self.device,
                 cg_bf16=self.cg_bf16, mesh=mesh,
+                dense_schur_max_d=self.dense_schur_max_d,
             )
         else:
             self.hits += 1
             solver._options = options
         summary = solver.solve()
         self.solves += 1
-        self.lm_steps += solver.last_result.iterations
-        self.cg_iterations += solver.last_result.cg_iterations
+        r = solver.last_result
+        self.lm_steps += r.iterations
+        self.cg_iterations += r.cg_iterations
+        if r.dense:
+            self.dense_solves += 1
+            self.dense_lm_steps += r.iterations
+            self.dense_cg_iterations += r.dense_cg_iterations
         new_problem = solver.fetch_problem()
         # re-key under the POST-solve state so the next refinement round
         # (which rebuilds from the scene we are about to write back) hits
         if len(self._entries) >= self._max:
             self._entries.pop(next(iter(self._entries)))
-        self._entries[(_problem_fingerprint(new_problem), mesh_key)] = solver
+        self._entries[(_problem_fingerprint(new_problem), setting)] = solver
         return new_problem, summary

@@ -2,9 +2,11 @@
 reference on the CPU.
 
 Both packages read the same database (tests/test_incremental_mapping.py's
-6-image / 200-point orbit) and the same binary models. The reference is
-pinned to its implicit Schur-PCG path, the port's only one
-(PYCOLMAP_TPU_DENSE_SCHUR_MAX_D=0). Rankings, tie-breaks and filters are
+6-image / 200-point orbit) and the same binary models. Both are pinned to
+the implicit Schur-PCG path (the reference by
+PYCOLMAP_TPU_DENSE_SCHUR_MAX_D=0, the port by dense_schur_max_d=0; both
+solve these small bundles densely by default, which
+tests/test_torch_dense_schur.py compares). Rankings, tie-breaks and filters are
 host numpy in both packages and compare exactly; bundle adjustment compares
 within 1e-5 (initial cost) and 1e-4 (final cost) relative; whole mappings
 compare on outcomes, since the estimators' random streams differ
@@ -67,7 +69,8 @@ def mapped(tmp_path_factory):
         jrecs = j_mapping(db, root, root / "sparse_j", jo)
     timings = {}
     trecs = incremental_mapping(db, root, root / "sparse_t", to,
-                                device="cpu", timings=timings)
+                                device="cpu", timings=timings,
+                                dense_schur_max_d=0)
     return dict(root=root, db=db, gt=gt, jrecs=jrecs, trecs=trecs,
                 timings=timings)
 
@@ -114,6 +117,9 @@ def test_timings_and_counters(mapped):
     assert t["ba_solves"] == t["ba_cache_hits"] + t["ba_cache_misses"]
     assert t["ba_lm_steps"] >= t["ba_solves"] > 0
     assert t["ba_cg_iterations"] >= t["ba_lm_steps"]
+    # pinned to the implicit path: no dense solve
+    assert (t["ba_dense_solves"], t["ba_dense_lm_steps"],
+            t["ba_dense_cg_iterations"]) == (0, 0, 0)
     # converged refinement rounds re-solve unchanged problems
     assert t["ba_cache_hits"] > 0
 
@@ -139,7 +145,8 @@ def test_visibility_pyramid_score_matches():
 
 def _mappers(db):
     return (JMapper(JCache.load(db)),
-            IncrementalMapper(DatabaseCache.load(db), device="cpu"))
+            IncrementalMapper(DatabaseCache.load(db), device="cpu",
+                              dense_schur_max_d=0))
 
 
 def test_find_initial_image_pair_matches(mapped):

@@ -9,8 +9,10 @@ finish kernels against the reference's Pallas kernels in interpret mode,
 the parameter gather, the bundle problem, both solvers and the two
 known-pose entry points. Tolerances are the reference's own
 (tests/test_mixed_models.py, tests/test_cg_kernel_fused.py,
-tests/test_torch_solver.py). The reference is pinned to its implicit
-Schur-PCG path (PYCOLMAP_TPU_DENSE_SCHUR_MAX_D=0), the port's only one.
+tests/test_torch_solver.py). Both packages are pinned to the implicit
+Schur-PCG path (the reference by PYCOLMAP_TPU_DENSE_SCHUR_MAX_D=0, the
+port by dense_schur_max_d=0); tests/test_torch_dense_schur.py holds their
+default dense path on a two-model bundle.
 """
 
 import numpy as np
@@ -552,7 +554,8 @@ def test_solve_bundle_fast_mixed_matches_reference():
                                        np.asarray(getattr(jp, f)), atol=1e-5)
     jo, to = _solver_options()
     jr, js = jbk.solve_bundle_fast(jp, jo, cg_iters=20)
-    tr, ts = tbk.solve_bundle_fast(tp, to, cg_iters=20, device="cpu")
+    tr, ts = tbk.solve_bundle_fast(tp, to, cg_iters=20, device="cpu",
+                                   dense_schur_max_d=0)
     assert ts.initial_cost == pytest.approx(js.initial_cost, rel=1e-5)
     assert ts.final_cost == pytest.approx(js.final_cost, rel=1e-3)
     assert ts.final_cost < ts.initial_cost / 20
@@ -567,7 +570,8 @@ def test_resident_solver_mixed_matches_reference():
     tp = _port_mixed_problem(seed=6)
     jo, to = _solver_options()
     js_ = jres.ResidentBundleSolver(jp, jo, cg_iters=20)
-    ts_ = tres.ResidentBundleSolver(tp, to, cg_iters=20, device="cpu")
+    ts_ = tres.ResidentBundleSolver(tp, to, cg_iters=20, device="cpu",
+                                    dense_schur_max_d=0)
     for step in ("solve", "perturb", "solve"):
         if step == "perturb":
             js_.perturb_points(1e-3)
@@ -590,7 +594,7 @@ def test_bundle_adjustment_mixed_matches_reference(tmp_path):
     err_before = trec.compute_mean_reprojection_error()
     jo, to = _solver_options()
     js = j_bundle_adjustment(jrec, jo)
-    ts = bundle_adjustment(trec, to, device="cpu")
+    ts = bundle_adjustment(trec, to, device="cpu", dense_schur_max_d=0)
     assert trec.compute_mean_reprojection_error() < err_before
     assert ts.final_cost < ts.initial_cost
     assert ts.initial_cost == pytest.approx(js.initial_cost, rel=1e-5)
@@ -620,7 +624,8 @@ def test_triangulate_points_mixed_matches_reference(tmp_path):
                          clear_points=True, options=jo, refine_intrinsics=True)
     out = triangulate_points(trec, db, tmp_path, tmp_path / "tri_t",
                              clear_points=True, options=to,
-                             refine_intrinsics=True, device="cpu")
+                             refine_intrinsics=True, device="cpu",
+                             dense_schur_max_d=0)
     assert out.num_points3D > 100
     assert out.compute_mean_reprojection_error() < 1.5
     out.check()
@@ -637,7 +642,7 @@ def test_resident_cache_keys_each_model_set(tmp_path):
     own entry, and a repeated solve hits it."""
     _write_mixed_model(tmp_path, ("SIMPLE_RADIAL", "OPENCV"))
     trec = Reconstruction(tmp_path)
-    cache = tres.MapperResidentBA(device="cpu")
+    cache = tres.MapperResidentBA(device="cpu", dense_schur_max_d=0)
     opts = convert.ba_options_from_dict({})
     one, _ = t_build(trec, opts, image_ids=[1, 3, 5],
                      constant_pose_ids=[1])
@@ -681,7 +686,8 @@ def test_incremental_mapping_mixed_cameras(tmp_path):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tres.MapperResidentBA, "solve", record)
         recs = incremental_mapping(tmp_path / "db.db", tmp_path,
-                                   tmp_path / "sparse", options, device="cpu")
+                                   tmp_path / "sparse", options, device="cpu",
+                                   dense_schur_max_d=0)
     rec = recs[0]
     assert rec.num_reg_images >= 7
     assert {c.model for c in rec.cameras.values()} == {"SIMPLE_RADIAL",

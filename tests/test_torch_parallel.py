@@ -6,8 +6,10 @@ meshes (``ShardMesh(["cpu"] * n)``) of a 16-image / 1,536-point bundle
 solver body), held to the port's unsharded solve and to the reference's
 single-device solve. 1,536 points fill a 2,048-column bucket, so every
 shard of two holds points and one of four holds none. The reference runs its
-virtual-device meshes (tests/conftest.py) and is pinned to its implicit
-PCG path (PYCOLMAP_TPU_DENSE_SCHUR_MAX_D=0), the port's only one."""
+virtual-device meshes (tests/conftest.py). Every unsharded solve of both
+packages is pinned to the implicit PCG path, the only one on a mesh (the
+reference by PYCOLMAP_TPU_DENSE_SCHUR_MAX_D=0, the port by
+dense_schur_max_d=0)."""
 
 import numpy as np
 import pytest
@@ -89,7 +91,8 @@ def solves():
         jp, tp = _problems()
         jo, to = _options()
         jr, js = j_solve_bundle(jp, jo, cg_iters=CG_ITERS)
-        tr, ts = solve_bundle(tp, to, cg_iters=CG_ITERS, device="cpu")
+        tr, ts = solve_bundle(tp, to, cg_iters=CG_ITERS, device="cpu",
+                              dense_schur_max_d=0)
     finally:
         torch.set_num_threads(n)
         mp.undo()
@@ -375,7 +378,8 @@ def test_public_bundle_adjustment_on_mesh(tmp_path):
                                          max_num_iterations=30,
                                          devices="none")
     s_mesh = bundle_adjustment(rec_mesh, opt_mesh, device="cpu")
-    s_single = bundle_adjustment(rec_single, opt_single, device="cpu")
+    s_single = bundle_adjustment(rec_single, opt_single, device="cpu",
+                                 dense_schur_max_d=0)
     assert s_mesh is not None and s_single is not None
     e_mesh = rec_mesh.compute_mean_reprojection_error()
     e_single = rec_single.compute_mean_reprojection_error()

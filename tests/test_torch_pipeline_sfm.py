@@ -2,10 +2,10 @@
 ``bundle_adjustment`` on the 5-image / 120-point model of
 tests/test_pipeline_entry_points.py:43 and ``triangulate_points`` on its
 6-image / 200-point database (:23). Both packages read the same model files
-and database and run under identical options (pycolmap_torch.convert). The
-reference is pinned to its implicit Schur-PCG path, the port's only one
-(PYCOLMAP_TPU_DENSE_SCHUR_MAX_D=0: its CPU path would otherwise solve
-D <= 2048 densely)."""
+and database and run under identical options (pycolmap_torch.convert). Both
+are pinned to the implicit Schur-PCG path (the reference by
+PYCOLMAP_TPU_DENSE_SCHUR_MAX_D=0, the port by dense_schur_max_d=0: on the
+CPU both would otherwise solve D <= 2048 densely)."""
 
 import numpy as np
 import pytest
@@ -49,7 +49,7 @@ def test_bundle_adjustment_matches_reference(tmp_path):
     jo.devices = "none"
     to = convert.ba_options_from_dict(jo.todict())
     js = j_bundle_adjustment(jrec, jo)
-    ts = bundle_adjustment(trec, to, device="cpu")
+    ts = bundle_adjustment(trec, to, device="cpu", dense_schur_max_d=0)
     assert jrec.compute_mean_reprojection_error() < err_before
     assert trec.compute_mean_reprojection_error() < err_before
     assert ts.final_cost < ts.initial_cost
@@ -80,7 +80,8 @@ def test_triangulate_points_matches_reference(tmp_path):
     j_triangulate_points(jrec, db, tmp_path, tmp_path / "tri_j",
                          clear_points=True, options=jo)
     out = triangulate_points(trec, db, tmp_path, tmp_path / "tri_t",
-                             clear_points=True, options=to, device="cpu")
+                             clear_points=True, options=to, device="cpu",
+                             dense_schur_max_d=0)
     # the reference test's outcome asserts, on the port
     assert out is trec
     assert out.num_points3D > 100

@@ -1,8 +1,10 @@
 """The port's bucketed LM solver vs the reference on the CPU: one
 16-image / 512-point problem solved by both packages' solve_bundle_fast and
-ResidentBundleSolver (solve, perturb, re-solve, fetch). The reference is
-forced onto its implicit Schur-PCG path (the path the CUDA kernels
-replace) by PYCOLMAP_TPU_DENSE_SCHUR_MAX_D=0."""
+ResidentBundleSolver (solve, perturb, re-solve, fetch). Both packages are
+pinned to the implicit Schur-PCG path (the path the CUDA kernels
+replace): the reference by PYCOLMAP_TPU_DENSE_SCHUR_MAX_D=0, the port by
+dense_schur_max_d=0 (tests/test_torch_dense_schur.py holds their default
+dense path on these problems)."""
 
 import numpy as np
 import pytest
@@ -62,7 +64,8 @@ def test_solve_bundle_fast_matches(robust):
     jp, tp = _problems()
     jo, to = _options(robust)
     jr, js = jbk.solve_bundle_fast(jp, jo, cg_iters=CG_ITERS)
-    tr, ts = tbk.solve_bundle_fast(tp, to, cg_iters=CG_ITERS, device="cpu")
+    tr, ts = tbk.solve_bundle_fast(tp, to, cg_iters=CG_ITERS, device="cpu",
+                                   dense_schur_max_d=0)
     assert ts.initial_cost == pytest.approx(js.initial_cost, rel=1e-5)
     assert ts.final_cost == pytest.approx(js.final_cost, rel=1e-3)
     assert ts.final_cost < ts.initial_cost / 50
@@ -74,7 +77,8 @@ def test_resident_solver_matches():
     jp, tp = _problems()
     jo, to = _options(False)
     js_ = jres.ResidentBundleSolver(jp, jo, cg_iters=CG_ITERS)
-    ts_ = tres.ResidentBundleSolver(tp, to, cg_iters=CG_ITERS, device="cpu")
+    ts_ = tres.ResidentBundleSolver(tp, to, cg_iters=CG_ITERS, device="cpu",
+                                    dense_schur_max_d=0)
     for step in ("solve", "perturb", "solve"):
         if step == "perturb":
             js_.perturb_points(1e-3)
@@ -111,7 +115,8 @@ def test_bf16_setting_converges_on_the_cpu():
     out = {}
     for bf16 in (True, False):
         _, out[bf16] = tbk.solve_bundle_fast(tp, to, cg_iters=15,
-                                             device="cpu", cg_bf16=bf16)
+                                             device="cpu", cg_bf16=bf16,
+                                             dense_schur_max_d=0)
     assert out[True].final_cost < 0.1 * out[True].initial_cost
     assert out[True].final_cost == pytest.approx(out[False].final_cost,
                                                  rel=1e-3)
@@ -174,7 +179,7 @@ def test_mapper_resident_cache_hits(_one_thread):
     from pycolmap_torch.sfm.bundle_adjustment import solve_bundle
 
     jp, tp, jo, to = _mapper_problem()
-    cache = tres.MapperResidentBA(device="cpu")
+    cache = tres.MapperResidentBA(device="cpu", dense_schur_max_d=0)
     p1, s1 = cache.solve(tp, to, cg_iters=15)
     assert (cache.misses, cache.hits) == (1, 0)
     p2, s2 = cache.solve(_round_trip(p1), to, cg_iters=15)
@@ -182,8 +187,10 @@ def test_mapper_resident_cache_hits(_one_thread):
     assert (cache.solves, cache.lm_steps) == (2, s1.num_iterations
                                               + s2.num_iterations)
     assert cache.cg_iterations >= cache.lm_steps
-    ref1, _ = solve_bundle(tp, to, cg_iters=15, device="cpu")
-    _, s2_ref = solve_bundle(ref1, to, cg_iters=15, device="cpu")
+    ref1, _ = solve_bundle(tp, to, cg_iters=15, device="cpu",
+                           dense_schur_max_d=0)
+    _, s2_ref = solve_bundle(ref1, to, cg_iters=15, device="cpu",
+                             dense_schur_max_d=0)
     assert s2.final_cost == pytest.approx(s2_ref.final_cost, rel=1e-3)
 
     jcache = jres.MapperResidentBA()
@@ -203,7 +210,7 @@ def test_mapper_resident_cache_miss_on_structure_change(_one_thread):
     observation misses."""
     _, tp, _, to = _mapper_problem()
     to.max_num_iterations = 2
-    cache = tres.MapperResidentBA(device="cpu")
+    cache = tres.MapperResidentBA(device="cpu", dense_schur_max_d=0)
     p1, _ = cache.solve(tp, to, cg_iters=10)
     mask = p1.obs_mask.clone()
     mask[0] = 0.0
@@ -220,7 +227,7 @@ def test_mapper_resident_cache_passes_over_only_empty_problems(
     ValueError raised by a solve (a failed kernel launch raises so)
     propagates."""
     _, tp, _, to = _mapper_problem()
-    cache = tres.MapperResidentBA(device="cpu")
+    cache = tres.MapperResidentBA(device="cpu", dense_schur_max_d=0)
     empty = tp._replace(obs_mask=torch.zeros_like(tp.obs_mask))
     out, s = cache.solve(empty, to)
     assert out is empty and s.num_iterations == 0 and cache.misses == 0
