@@ -22,28 +22,30 @@ Phases (each raises on failure; the script then exits nonzero):
 1. build every kernel of the port (``pycolmap_torch/*/csrc``) with nvcc,
    all sources in parallel, and print the build time, the card's name and
    power limit, and the registers, spills and resident blocks per SM of
-   the window sampler, the PatchMatch cost kernel and every cost and
-   finish instance, and the modes of the Schur kernels;
+   the window sampler, the PatchMatch cost kernel and every resjac, cost
+   and finish instance, and the modes of the Schur kernels;
 2. hold each bundle-adjustment kernel to its plain PyTorch version on the
    card, at the bench shapes and at an irregular shape (three cameras,
    several buckets, widths that are no multiple of 128, mask holes, points
    behind cameras, partly fixed intrinsics, all three losses, all 11 camera
    models; the Schur kernels' buckets padded to multiples of 8 columns),
    and at a ragged one (an empty [4, 128] bucket, tracks of lengths 1..T,
-   tiles of padding columns only); cost, finish, prepare and the f32
-   matvec one launch each for all buckets; the cost bit-equal over
-   repeated calls and to finish's at a zero step with every point fixed;
-   time cost and finish with CUDA events, with each wrapper call's host
-   wall and device ops;
+   tiles of padding columns only); resjac, cost, finish, prepare and the
+   f32 matvec one launch each for all buckets; resjac's residual and J
+   exactly zero at every masked slot; the cost bit-equal over repeated
+   calls and to finish's at a zero step with every point fixed; time
+   resjac, cost and finish with CUDA events, with each wrapper call's
+   host wall and device ops;
 3. solve a 32-image / 8192-point problem on the card and on the CPU (plain
    versions), 6 LM steps each with f32 CG matvecs (both pinned to the
    implicit PCG, ``dense_schur_max_d=0``), and compare the results;
+   resjac once per LM step on the card;
 4. run the bench's resident solve (128 images, 100k points, ~600k
    observations; bench.py run_ba's sequence) through the kernels, with the
    launch counters zeroed just before the timed solves and read just after,
    once with the card's default bf16 CG matvec and once with the f32 one;
-   prepare and finish launch once per LM step, either matvec once per CG
-   iteration and the cost once per solve, each for all buckets;
+   resjac, prepare and finish launch once per LM step, either matvec once
+   per CG iteration and the cost once per solve, each for all buckets;
 5. profile one more bench solve with torch.profiler: device time per
    kernel, device ops per LM step and the device's busy share;
 6. hold the window sampler (one launch per ``sample_windows`` call, its
@@ -74,9 +76,9 @@ Phases (each raises on failure; the script then exits nonzero):
 11. ``bundle_adjustment(reconstruction)`` at full width: the bench's
     128-image / 100k-point problem as a Reconstruction, written and read
     back as a COLMAP binary model, adjusted on the card with default
-    options; then a 32-image model on the card and on the CPU, both with
-    the bf16 matvec on the implicit PCG (``dense_schur_max_d=0``),
-    compared;
+    options, resjac once per LM step; then a 32-image model on the card
+    and on the CPU, both with the bf16 matvec on the implicit PCG
+    (``dense_schur_max_d=0``), compared;
 12. ``triangulate_points`` on the card: a 128-image sequential database of
     100k points seen by about 6 images each, ground-truth poses;
 13. hold the PatchMatch cost kernel to its plain version at the main
@@ -104,11 +106,11 @@ Phases (each raises on failure; the script then exits nonzero):
     128-image / 100k-point ring, even images through a SIMPLE_RADIAL camera
     and odd ones through an OPENCV camera, observations projected in
     float64 through each camera plus 0.5 px noise, written and read back as
-    a binary model, default options with the bf16 matvec, finish once per
-    LM step and the cost once; compared with phase 11's single-model solve
-    of the same size; then a 32-image model on the card and on the CPU at
-    the defaults, both solving the dense reduced system (phase 16 runs
-    before phase 15);
+    a binary model, default options with the bf16 matvec, resjac and
+    finish once per LM step and the cost once; compared with phase 11's
+    single-model solve of the same size; then a 32-image model on the card
+    and on the CPU at the defaults, both solving the dense reduced system
+    (phase 16 runs before phase 15);
 17. hold the per-observation parameter gather to its plain version
     (exactly equal) at phase 16's bucket shapes and at a ragged shape, and
     time it beside ``index_select``;
@@ -119,8 +121,9 @@ Phases (each raises on failure; the script then exits nonzero):
     at bench_a_sized's [1024, 512], the flat gather at 2,097,152 from
     2,457,600 and the bilinear baseline beside ``F.grid_sample``; then each
     form bit for bit at ragged shapes and with negative, out-of-range and
-    int32-extreme indices. Nothing on a user path calls the probe: its
-    launch counts over phases 2-17 are 0;
+    int32-extreme indices; an empty launch timed with CUDA events, the
+    floor beside the forms' byte bounds. Nothing on a user path calls the
+    probe: its launch counts over phases 2-17 are 0;
 19. the estimators (plain PyTorch, no kernel of their own) on the card and
     on the CPU at a user's scale, each result held to ground truth: (a)
     ``estimate_calibrated_two_view_geometry`` with the relative pose on
@@ -145,12 +148,12 @@ Phases (each raises on failure; the script then exits nonzero):
     reprojection error under
     1 px, median rotation error under 0.5 degrees after a similarity
     alignment, more than half the points, the model read back; every BA
-    solve on the dense reduced system (D_ref <= 512), prepare and finish
-    once per LM step, the cost once per solve, matvec16 once per implicit
-    CG iteration (none: a dense step packs no J and launches no matvec;
-    the mapper's resident-BA cache counts them), no kernel off the BA
-    path; resjac, cost, finish, prepare, the f32 and
-    the bf16 matvec held to their plain versions (phases 2 and 10) at the
+    solve on the dense reduced system (D_ref <= 512), resjac, prepare and
+    finish once per LM step, the cost once per solve, matvec16 once per
+    implicit CG iteration (none: a dense step packs no J and launches no
+    matvec; the mapper's resident-BA cache counts them), no kernel off the
+    BA path; resjac, cost, finish, prepare, the f32 and the bf16 matvec
+    held to their plain versions (phases 2 and 10) at the
     operands of one global step (the deepest buckets, recorded in the same
     call) and one local-window step, the global step's timed; the 8-image /
     300-point database on the card and on the CPU, both checked; the native
@@ -235,8 +238,8 @@ Phases (each raises on failure; the script then exits nonzero):
     degrees; every BA solve dense, the mixed resjac, cost and finish
     launched (the single-model forms only for windows of one model),
     matvec16 once per implicit CG iteration (none), prepare once per LM
-    step, finish of either form once per LM step and the cost once per
-    solve; the mixed kernels, prepare and both matvecs
+    step, resjac and finish of either form once per LM step and the cost
+    once per solve; the mixed kernels, prepare and both matvecs
     held to their plain versions (phases 15 and 10) and timed at the
     operands of one recorded global step;
 27. multi-device bundle adjustment on the one card, every launch count
@@ -244,9 +247,9 @@ Phases (each raises on failure; the script then exits nonzero):
     (5 LM steps, ``cg_iters`` 15, the bf16 matvec) through
     ``solve_bundle(..., mesh=make_obs_mesh(["cuda:0", "cuda:0"]))`` and
     unsharded: the same iteration count, the initial cost within 1e-4, the
-    final within 1e-3, camera translations within 1e-3; per shard prepare
-    and finish once per LM step, matvec16 once per CG iteration, the cost
-    once per solve; then ``dryrun_multichip(2)`` (a solve and two chained
+    final within 1e-3, camera translations within 1e-3; per shard resjac,
+    prepare and finish once per LM step, matvec16 once per CG iteration,
+    the cost once per solve; then ``dryrun_multichip(2)`` (a solve and two chained
     resident solves on the mesh); (b) two processes of this script
     (``--phase27-rank``) joined over gloo, one shard each on cuda:0: the
     ranks agree (iterations, cost within 1e-5, a quaternion and a point
@@ -590,7 +593,8 @@ def check_case(case, tag, results=None):
     def kname(name):
         return ck._kernel_name(name, m) if name in ck.KERNELS[:3] else name
 
-    res_k, J_k = k_resjac()
+    res_k, J_k = _one_launch(kname("resjac"), tag, k_resjac)
+    resjac_zeros(tag, b_l, res_k, J_k)
     c_k = _one_launch(kname("cost"), tag, lambda: ck.total_cost(
         b_l, pts, case.quat, case.trans, case.intr, m, lt, ls))
     # the Schur kernels, one launch each for all buckets, take widths that
@@ -672,12 +676,17 @@ def check_case(case, tag, results=None):
     cost_bits(case, tag, J_k, Vinv_l, g_l, c_k)
 
     if results is not None:
-        # cost and finish as the LM step calls them: NP-narrow intrinsics,
-        # finish's table built once for its calls
+        # resjac, cost and finish as the LM step calls them: NP-narrow
+        # intrinsics, resjac's table built once per solve and finish's once
+        # per LM step, each for all its calls
         intr_np = case.intr[:, :NP].contiguous()
+        free_np = case.intr_free[:, :NP].contiguous()
+        rl = ck.resjac_launch(b_l, m)
         fl = ck.finish_launch(b_l, pts, J_k, Vinv_l, g_l)
         kern = {
-            "resjac": k_resjac,
+            "resjac": lambda: ck.res_and_jac(
+                b_l, pts, case.quat, case.trans, intr_np, free_np, m, lt, ls,
+                launch=rl),
             "cost": lambda: ck.total_cost(
                 b_l, pts, case.quat, case.trans, intr_np, m, lt, ls),
             "prepare": lambda: ck.schur_prepare(b8, J8, r8, lam, I, C),
@@ -698,18 +707,32 @@ def check_case(case, tag, results=None):
                 max_abs_err=errs[kname(name)][0],
                 scaled_err=errs[kname(name)][1], **bound(name, case),
             )
-        for name in ("cost", "finish"):
+        for name in ("resjac", "cost", "finish"):
             r = results[kname(name)]
             r.update(call_host_ms=host_ms(kern[name]),
                      device_ops=device_ops(kern[name]))
-            # no sum, add or fill beside the kernel
+            # no sum, add, fill or copy beside the kernel
             if (r["device_ops"] or 0) > 1:
                 raise AssertionError(f"[{tag}] {kname(name)}: "
                                      f"{r['device_ops']} device ops in one "
                                      f"call, expected 1")
         results[kname("finish")]["build_host_ms"] = host_ms(
             lambda: ck.finish_launch(b_l, pts, J_k, Vinv_l, g_l))
+        results[kname("resjac")]["build_host_ms"] = host_ms(
+            lambda: ck.resjac_launch(b_l, m))
+        # the host wall of a call that builds its own table (the parent's
+        # form, and every caller outside the LM loop)
+        results[kname("resjac")]["call_host_ms_table"] = host_ms(k_resjac)
     return errs
+
+
+def resjac_zeros(tag, buckets, res_l, J_l):
+    """Raise unless res and J are exactly zero at every masked slot."""
+    for i, (b, r, J) in enumerate(zip(buckets, res_l, J_l)):
+        dead = b.mask == 0
+        if bool(r[:, dead].any()) or bool(J[:, :, dead].any()):
+            raise AssertionError(f"[{tag}] resjac: bucket {i} nonzero at a "
+                                 f"masked slot")
 
 
 def cost_bits(case, tag, J_l, Vinv_l, g_l, c_k):
@@ -750,15 +773,17 @@ def cost_bits(case, tag, J_l, Vinv_l, g_l, c_k):
 
 
 def cost_note(r):
-    """Cost and finish's extra numbers for a log line (else '')."""
+    """resjac, cost and finish's extra numbers for a log line (else '')."""
     if "bound_ms_full" not in r:
         return ""
     return (f"; every slot {r['bound_ms_full']:.4f} ms "
             f"({r['bytes_full'] / 1e6:.1f} MB); host wall per call "
             f"{r['call_host_ms']:.4f} ms, device ops per call "
             f"{r['device_ops'] or 'not recorded'}"
-            + (f"; table per LM step {r['build_host_ms']:.4f} ms"
-               if "build_host_ms" in r else ""))
+            + (f"; table {r['build_host_ms']:.4f} ms"
+               if "build_host_ms" in r else "")
+            + (f"; a call building its table {r['call_host_ms_table']:.4f} "
+               f"ms" if "call_host_ms_table" in r else ""))
 
 
 def device_ops(fn, tries=3):
@@ -786,11 +811,12 @@ def bound(name, case):
     """Least time for the kernel's work on this case: the larger of its
     bytes (each input read once, each output written once) over HBM rate
     and its f32 operations over the f32 rate. Operations count only the
-    observations this data holds (masked slots are skipped or zero). Cost
-    and finish: the bytes this data needs (every mask, the indices, xy and
-    J of the live slots, the points of the columns with a live slot, and
-    finish's per-column values and new points); `bound_ms_full` counts
-    every slot, as before."""
+    observations this data holds (masked slots are skipped or zero).
+    resjac, cost and finish: the bytes this data needs (every mask, the
+    indices and xy of the live slots, the points of the columns with a
+    live slot; resjac's residual and J of every slot written, cost's
+    nothing, finish's J of the live slots read, its per-column values and
+    new points); `bound_ms_full` counts every slot's inputs."""
     NP, I, C = case.NP, case.I, case.C
     nj, nk = 9 + NP, 6 + NP
     f = 4  # bytes per f32 / i32
@@ -805,6 +831,9 @@ def bound(name, case):
         j_bytes = 2 * nj * TP * f
         if name == "resjac":
             nbytes += idx + 3 * TP * f + 4 * P * f + 2 * TP * f + j_bytes
+            live_cols = float((b.mask != 0).any(0).sum())
+            live_bytes += (TP * f + 4 * n_obs * f + 4 * live_cols * f
+                           + 2 * TP * f + j_bytes)
             ops += n_obs * (120 + 40 * nj)
         elif name == "cost":
             nbytes += idx + 3 * TP * f + 3 * P * f
@@ -832,7 +861,7 @@ def bound(name, case):
         live_bytes += tables
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS * 1e3
-    if name not in ("cost", "finish"):
+    if name not in ("resjac", "cost", "finish"):
         return dict(bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     bytes=nbytes)
@@ -954,12 +983,21 @@ def medium_parity():
         solver = ResidentBundleSolver(problem, options(MEDIUM_LM_ITERS),
                                       cg_iters=CG_ITERS, device=dev,
                                       cg_bf16=False, dense_schur_max_d=0)
+        ck.reset_counts()
         t0 = time.perf_counter()
         s = solver.solve()
         if dev == "cuda":
             torch.cuda.synchronize()
+            resjac = ck.LAUNCHES["resjac"]
         out[dev] = (s, solver.fetch_problem(), time.perf_counter() - t0)
         log(f"medium 32/8192 on {dev}: {s} in {out[dev][2]:.2f} s")
+    # resjac once per LM step, for all buckets
+    lm = out["cuda"][0].num_iterations
+    log(f"medium 32/8192 on cuda: resjac {resjac} launches over {lm} LM "
+        f"steps")
+    if resjac != lm:
+        raise AssertionError(f"phase 3: resjac launched {resjac} times in "
+                             f"{lm} LM steps")
     (sg, pg, _), (sc, pc, _) = out["cuda"], out["cpu"]
     d_trans = float((pg.cam_trans - pc.cam_trans).abs().max())
     rel = abs(sg.final_cost - sc.final_cost) / max(abs(sc.final_cost), 1e-20)
@@ -1028,14 +1066,16 @@ def bench_solve(cg_bf16):
         raise AssertionError(f"{tag}: kernels never launched on the main "
                              f"path: {missing}; {unused} launched "
                              f"{launches[unused]} times")
-    # prepare and finish launch once per LM step, either matvec once per
-    # CG iteration and the cost once per solve, each for all buckets
+    # resjac, prepare and finish launch once per LM step, either matvec
+    # once per CG iteration and the cost once per solve, each for all
+    # buckets
     cg_total = sum(r[2].cg_iterations for r in runs + ones)
     name = "matvec16" if cg_bf16 else "matvec"
-    want = {name: cg_total, "prepare": lm_steps, "finish": lm_steps,
-            "cost": len(runs + ones)}
+    want = {name: cg_total, "resjac": lm_steps, "prepare": lm_steps,
+            "finish": lm_steps, "cost": len(runs + ones)}
     log(f"bench {tag}: {name} launches {launches[name]} over {cg_total} CG "
-        f"iterations, prepare {launches['prepare']} and finish "
+        f"iterations, resjac {launches['resjac']}, prepare "
+        f"{launches['prepare']} and finish "
         f"{launches['finish']} over {lm_steps} LM steps, cost "
         f"{launches['cost']} over {len(runs + ones)} solves, "
         f"{len(solver._buckets[0])} buckets (expected {want})")
@@ -1883,6 +1923,10 @@ def model_bundle_adjustment(tmp):
     if missing or launches["matvec"]:
         raise AssertionError(f"phase 11: kernels never launched {missing}; "
                              f"f32 matvec launched {launches['matvec']}")
+    if launches["resjac"] != summary.num_iterations:  # once per LM step
+        raise AssertionError(f"phase 11: resjac launched "
+                             f"{launches['resjac']} times in "
+                             f"{summary.num_iterations} LM steps")
     return dict(read_s=t3 - t2, entry_s=t5 - t4, lm=summary.num_iterations,
                 err0=err0, err1=err1, launches=launches, **split)
 
@@ -2596,10 +2640,10 @@ def mixed_model_bundle_adjustment(tmp, single):
     captured, problems = [], []
     res_and_jac, solve_bundle = ck.res_and_jac, psfm.solve_bundle
 
-    def record_resjac(*args):
+    def record_resjac(*args, **kw):
         if not captured:
             captured.append(args)
-        return res_and_jac(*args)
+        return res_and_jac(*args, **kw)
 
     def record_solve(problem, *args, **kw):
         out = solve_bundle(problem, *args, **kw)
@@ -2672,8 +2716,9 @@ def mixed_model_bundle_adjustment(tmp, single):
     if any(plain_on_cuda.values()):
         raise AssertionError(f"phase 16: plain versions ran on CUDA tensors: "
                              f"{plain_on_cuda}")
-    # finish once per LM step, the cost once per solve
-    want = {"finish_mixed": lm, "cost_mixed": len(problems)}
+    # resjac and finish once per LM step, the cost once per solve
+    want = {"resjac_mixed": lm, "finish_mixed": lm,
+            "cost_mixed": len(problems)}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"phase 16: launches "
                              f"{ {k: launches[k] for k in want} }, expected "
@@ -2841,6 +2886,13 @@ def gather_probe():
             f"(indices {pg.RAGGED[name][1]}) in range and with edge "
             f"indices, and at the probe's shape with edge indices; NaN "
             f"fills {nans}")
+    # the floor beside the forms' byte bounds: one empty launch (PyTorch's
+    # spin kernel at 0 cycles), its device time between CUDA events
+    res["empty_launch_ms"] = time_gpu(lambda: torch.cuda._sleep(0))
+    log(f"phase 18 empty launch: {res['empty_launch_ms']:.5f} ms between "
+        f"CUDA events; the forms' byte bounds "
+        + ", ".join(f"{k} {res[k]['bound_ms']:.6f}" for k in pg.KERNELS)
+        + " ms")
     return res, launches
 
 
@@ -3264,7 +3316,7 @@ class ResJacRecorder:
         ck.res_and_jac = self._wrapped
         bk.dense_schur_system = self._dense
 
-    def _record(self, *args):
+    def _record(self, *args, **kw):
         b_l, loss_type = args[0], args[7]
         T = max(b.mask.shape[0] for b in b_l)
         self._pending = None
@@ -3275,7 +3327,7 @@ class ResJacRecorder:
         else:
             self.local_args = args
             self.local_dense, self._pending = None, "local"
-        return self._wrapped(*args)
+        return self._wrapped(*args, **kw)
 
     def _record_dense(self, *args):
         if self._pending is not None:  # the recorded step's own system
@@ -3334,13 +3386,15 @@ BA_COUNTERS = ("ba_solves", "ba_lm_steps", "ba_cg_iterations",
 
 def ba_rule(t):
     """The BA part of a mapping run's launch rule from its counters `t`
-    (``incremental_mapping``'s timings): prepare and finish once per LM
-    step, the cost once per solve, matvec16 once per CG iteration of the
-    implicit steps. A step of the dense reduced system launches resjac,
-    prepare and finish, and no matvec (nor packs J): its PCG iterations
-    (``ba_dense_cg_iterations``) launch nothing. Returns (want, used)."""
-    want = {"matvec16": t["ba_cg_iterations"], "prepare": t["ba_lm_steps"],
-            "finish": t["ba_lm_steps"], "cost": t["ba_solves"]}
+    (``incremental_mapping``'s timings): resjac, prepare and finish once
+    per LM step, the cost once per solve, matvec16 once per CG iteration
+    of the implicit steps. A step of the dense reduced system launches
+    resjac, prepare and finish, and no matvec (nor packs J): its PCG
+    iterations (``ba_dense_cg_iterations``) launch nothing. Returns (want,
+    used)."""
+    want = {"matvec16": t["ba_cg_iterations"], "resjac": t["ba_lm_steps"],
+            "prepare": t["ba_lm_steps"], "finish": t["ba_lm_steps"],
+            "cost": t["ba_solves"]}
     used = ("resjac", "prepare", "finish", "cost") + (
         ("matvec16",) if t["ba_cg_iterations"] else ())
     return want, used
@@ -3406,7 +3460,8 @@ def mapping_phase(tmp):
                          t["ba_cg_iterations"])
     log(f"phase 20 launches: {launches}; {ba_counts(t)} "
         f"({t['ba_cache_hits']} resident-cache hits, "
-        f"{t['ba_cache_misses']} misses)")
+        f"{t['ba_cache_misses']} misses); resjac, prepare and finish once "
+        f"per LM step ({steps}), the cost once per solve ({solves})")
     all_dense("phase 20", t)
     launch_check("phase 20", launches, plain_on_cuda, *ba_rule(t))
 
@@ -3434,7 +3489,7 @@ def mapping_phase(tmp):
     for name, r in kern.items():
         log(f"phase 20 global step {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']})" + cost_note(r))
 
     # (f) the card against the CPU on the 8-image database
     db8 = tmp / "map8.db"
@@ -3721,10 +3776,9 @@ def images_to_model_phase(tmp):
     log(f"phase 21 launches: {json.dumps(launches)}; expected "
         f"{json.dumps(want)} (the sampler 2 per octave x {octaves} octaves "
         f"per extract over {E2E_IMAGES} extracts, top-2 2 per shape bucket "
-        f"over {rm.buckets} buckets of {rm.matched} pairs, prepare and "
-        f"finish once per LM step ({steps}), matvec16 once per implicit CG "
-        f"iteration ({cg}), the cost once per solve ({solves})); resjac "
-        f"{launches['resjac'] / max(steps, 1):.3f} per LM step; "
+        f"over {rm.buckets} buckets of {rm.matched} pairs, resjac, prepare "
+        f"and finish once per LM step ({steps}), matvec16 once per implicit "
+        f"CG iteration ({cg}), the cost once per solve ({solves})); "
         f"{ba_counts(timings)}")
     all_dense("phase 21", timings)
     launch_check("phase 21", launches, plain_on_cuda, want,
@@ -4288,6 +4342,7 @@ def mixed_mapping_phase(tmp):
         ("matvec16",) if cg else ())
     launch_check("phase 26", launches, plain_on_cuda,
                  {"matvec16": cg, "prepare": steps,
+                  "resjac+resjac_mixed": steps,
                   "finish+finish_mixed": steps, "cost+cost_mixed": solves},
                  used)
     if rec_ops.global_args is None:
@@ -4310,7 +4365,8 @@ def mixed_mapping_phase(tmp):
     for name, r in kern.items():
         log(f"phase 26 global step {name}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), max abs err {r['max_abs_err']:.3e}")
+            f"({r['bound_by']}), max abs err {r['max_abs_err']:.3e}"
+            + cost_note(r))
     numbers = dict(seconds=dt, registered=rec.num_reg_images,
                    img_per_s=rec.num_reg_images / dt, err=t["err"],
                    rot=t["rot"], models=models, solves=solves, lm_steps=steps,
@@ -4320,35 +4376,17 @@ def mixed_mapping_phase(tmp):
                 steps=steps28)
 
 
-def ba_kernel_registers(build_log):
-    """ptxas register counts of the resjac / cost / finish instances, by
-    kernel and camera policy (Single<model id> or Mixed<width>)."""
+def policy_resources(source, kinds):
+    """ptxas registers and spill bytes of every instance of the kernels
+    `kinds` (names before ``_kernel``) of a BA source, by (kernel, camera
+    policy, model id or width)."""
     import re
 
     out, name = {}, None
-    for ln in build_log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(resjac|cost|finish)"
-                      r"_kernelI\d+(Single|Mixed)ILi(\d+)E", ln)
-        if m:
-            name = f"{m[1]} {m[2]}<{m[3]}>"
-        elif "Compiling entry function" in ln:
-            name = None
-        elif name and "Used" in ln and "registers" in ln:
-            out[name] = int(ln.split("Used ")[1].split()[0])
-            name = None
-    return out
-
-
-def cost_resources():
-    """ptxas registers and spill bytes of every cost and finish instance
-    (sfm/csrc/cost.cu), by kernel and camera policy, with its resident
-    blocks per SM and dynamic shared memory."""
-    import re
-
-    out, name = {}, None
-    for ln in _cuda_build.source_log("sfm/csrc/cost.cu").splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(cost|finish)"
-                      r"_kernelI\d+(Single|Mixed)ILi(\d+)E", ln)
+    pat = (r"Compiling entry function '_Z\d+(" + "|".join(kinds)
+           + r")_kernelI\d+(Single|Mixed)ILi(\d+)E")
+    for ln in _cuda_build.source_log(source).splitlines():
+        m = re.search(pat, ln)
         if m:
             name = (m[1], m[2], int(m[3]))
             out[name] = {}
@@ -4359,8 +4397,23 @@ def cost_resources():
             out[name].update({f"spill_{k}": int(b) for b, k in v})
         elif name and "Used" in ln and "registers" in ln:
             out[name]["registers"] = int(ln.split("Used ")[1].split()[0])
+    return out
+
+
+def cost_resources():
+    """ptxas registers and spill bytes of every cost and finish instance
+    (sfm/csrc/cost.cu), by kernel and camera policy, with its resident
+    blocks per SM and dynamic shared memory."""
+    out = policy_resources("sfm/csrc/cost.cu", ("cost", "finish"))
     for (kind, pol, n), r in out.items():
         r.update(sfm_cuda.cost_config(kind == "finish", pol == "Mixed", n))
+    return {f"{k} {p}<{n}>": r for (k, p, n), r in out.items()}
+
+
+def resjac_resources():
+    """ptxas registers and spill bytes of every resjac instance
+    (sfm/csrc/resjac.cu), by camera policy."""
+    out = policy_resources("sfm/csrc/resjac.cu", ("resjac",))
     return {f"{k} {p}<{n}>": r for (k, p, n), r in out.items()}
 
 
@@ -4385,6 +4438,17 @@ def kernel_resources(source):
         elif name and "Used" in ln and "registers" in ln:
             out[name]["registers"] = int(ln.split("Used ")[1].split()[0])
     return out
+
+
+def resjac_row(r, resources, policy):
+    """resjac's extra fields of its JSON row: the every-slot bound, host
+    wall and device ops per call as the LM step calls it (its table built
+    once per solve), the table's host wall and a call's that builds its
+    own, and the instance's registers and spills."""
+    keys = ("bound_ms_full", "call_host_ms", "device_ops", "build_host_ms",
+            "call_host_ms_table")
+    return dict({k: r[k] for k in keys if k in r}, launches_per_call=1,
+                resources=resources[f"resjac {policy}"])
 
 
 def cost_row(r, resources, kind, policy):
@@ -4423,13 +4487,14 @@ class SolveRecorder:
         ResidentBundleSolver.solve = self._solve
 
     def want(self, shards):
-        """Per shard, the launches of phase 4's rule: prepare and finish
-        once per LM step, matvec16 once per CG iteration, the cost once per
-        solve."""
+        """Per shard, the launches of phase 4's rule: resjac, prepare and
+        finish once per LM step, matvec16 once per CG iteration, the cost
+        once per solve."""
         steps = sum(r.iterations for r in self.results)
         cg = sum(r.cg_iterations for r in self.results)
-        return {"matvec16": shards * cg, "prepare": shards * steps,
-                "finish": shards * steps, "cost": shards * len(self.results)}
+        return {"matvec16": shards * cg, "resjac": shards * steps,
+                "prepare": shards * steps, "finish": shards * steps,
+                "cost": shards * len(self.results)}
 
 
 def sharded_run(tag, shards, fn):
@@ -4910,8 +4975,6 @@ def main():
     log(f"phase 1: ptxas reports {len(regs)} kernels; max "
         f"{max((int(ln.split('Used ')[1].split()[0]) for ln in regs), default=0)}"
         f" registers")
-    log(f"phase 1: registers of the per-model BA kernels: "
-        f"{json.dumps(ba_kernel_registers(_cuda_build.build_log))}")
     resources = {
         "window_sampler": dict(
             kernels=kernel_resources("features/csrc/window_sampler.cu"),
@@ -4935,9 +4998,15 @@ def main():
                      **features_cuda.top2_resources(128)),
     }
     resources["cost"] = cost_resources()
+    resources["resjac"] = resjac_resources()
     log(f"phase 1: registers, spills and resident blocks per SM (nw 36) of "
         f"the sampler and the cost kernel, and the Schur and top-2 kernels, "
         f"and every cost and finish instance: {json.dumps(resources)}")
+    spilled = {k: v for k, v in resources["resjac"].items()
+               if v.get("spill_stores") or v.get("spill_loads")}
+    log(f"phase 1: registers and spills of every resjac instance: "
+        f"{json.dumps(resources['resjac'])}; spilling: "
+        f"{json.dumps(spilled) if spilled else 'none'}")
 
     # the probe's counts over phases 2-17, the user paths
     pg.reset_counts()
@@ -5135,6 +5204,8 @@ def main():
                          resources=resources[name])
         if name in ("cost", "finish"):
             extra = cost_row(r, resources["cost"], name, "Single<2>")
+        if name == "resjac":
+            extra = resjac_row(r, resources["resjac"], "Single<2>")
         # the f32 matvec runs in the f32-setting bench solve; every other
         # BA kernel's count is the default (bf16) solve's
         ln, ps = ((launches32, per_step32) if name == "matvec"
@@ -5146,7 +5217,9 @@ def main():
         extra.update(launches_mapping=mapping["launches"][name],
                      ms_mapping=m["ms"], plain_ms_mapping=m["plain_ms"],
                      bound_ms_mapping=m["bound_ms"],
-                     max_abs_err_mapping=m["max_abs_err"])
+                     max_abs_err_mapping=m["max_abs_err"],
+                     **({"call_host_ms_mapping": m["call_host_ms"]}
+                        if "call_host_ms" in m else {}))
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=ln[name], launches_per_lm_step=ps[name],
@@ -5228,7 +5301,8 @@ def main():
             bound_by=r["bound_by"], library_ms=None,
             library_note="no single PyTorch call computes this function",
             **(cost_row(r, resources["cost"], name[:-6], "Mixed<9>")
-               if name != "resjac_mixed" else {}),
+               if name != "resjac_mixed"
+               else resjac_row(r, resources["resjac"], "Mixed<9>")),
         ))
     # the gather has no caller on the main path (neither has the TPU
     # kernel's): its launches there are 0; phase 17 launches it itself
@@ -5254,7 +5328,8 @@ def main():
             launches_probe_run=probe_launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], library_note=r["library"])
+            library_ms=r["library_ms"], library_note=r["library"],
+            empty_launch_ms=probe["empty_launch_ms"])
         sized = {"take_along_last": "take_along_last sized",
                  "take_flat": "take_flat sized"}.get(name)
         if sized:
@@ -5288,7 +5363,9 @@ def main():
             row.update(ms_mixed_mapping=m["ms"],
                        plain_ms_mixed_mapping=m["plain_ms"],
                        bound_ms_mixed_mapping=m["bound_ms"],
-                       max_abs_err_mixed_mapping=m["max_abs_err"])
+                       max_abs_err_mixed_mapping=m["max_abs_err"],
+                       **({"call_host_ms_mixed_mapping": m["call_host_ms"]}
+                          if "call_host_ms" in m else {}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,8 @@ _F = ctypes.c_float
 # the mixed-model launchers take (width, model bit mask) where the
 # single-model ones take the model id; resjac also takes the first model
 _MIXED = [_I, _I]
-_RESJAC = [_P] * 9 + [_I, _I, _I, _F, _P, _P, _P]
+# table, quat, trans, intr, ifree, loss, scale, out, stream
+_RESJAC = [_P] * 5 + [_I, _F, _P, _P]
 # table, quat, trans, intr (finish: xpose, xintr), loss, scale, partials,
 # ticket, out, stream
 _COST = [_P] * 4 + [_I, _F] + [_P] * 4
@@ -60,12 +61,9 @@ def _call(source: str, fn: str, *args) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _resjac(fn, head, itab, intr, ifree, img_idx, cam_idx, xy, mask, pts,
-            pfree, loss, scale, res, J):
-    T, P = img_idx.shape
-    _call("resjac.cu", fn, *head, _ptr(itab), _ptr(intr), _ptr(ifree),
-          _i32(img_idx), _i32(cam_idx), _ptr(xy), _ptr(mask), _ptr(pts),
-          _ptr(pfree), T, P, loss, scale, _ptr(res), _ptr(J))
+def _resjac(fn, head, launch, quat, trans, intr, ifree, loss, scale, out):
+    _call("resjac.cu", fn, *head, ctypes.addressof(launch.table), _ptr(quat),
+          _ptr(trans), _ptr(intr), _ptr(ifree), loss, scale, _ptr(out))
 
 
 def _cost(fn, head, launch, quat, trans, intr, loss, scale, out):
@@ -82,6 +80,7 @@ def _finish(fn, head, launch, quat, trans, intr, xpose, xintr, loss, scale,
 
 
 def resjac(model, *args):
+    """One launch of resjac over a table (cg_kernel.ResJacLaunch)."""
     _resjac("ba_resjac", (model,), *args)
 
 
@@ -110,6 +109,42 @@ def cost_mixed(NP, models, *args):
 
 def finish_mixed(NP, models, *args):
     _finish("ba_finish_mixed", (NP, models), *args)
+
+
+class _ResJacBucket(ctypes.Structure):
+    """ResJacBucket in csrc/resjac.cu: one row of resjac's table."""
+    _fields_ = [("img", _P), ("cam", _P), ("xy", _P), ("mask", _P),
+                ("pts", _P), ("pfree", _P), ("res_off", ctypes.c_longlong),
+                ("J_off", ctypes.c_longlong), ("T", _I), ("P", _I),
+                ("runs", _I), ("first_block", _I)]
+
+
+class _ResJacTable(ctypes.Structure):
+    """ResJacTable in csrc/resjac.cu (kResJacMaxBuckets rows)."""
+    _fields_ = [("b", _ResJacBucket * 16), ("nb", _I), ("n_blocks", _I)]
+
+
+def resjac_table(rows, n_blocks, buckets):
+    """resjac's bucket table: each bucket's index, xy, mask and free-flag
+    pointers beside its row (T, P, runs, first_block, res_off, J_off) of
+    cg_kernel.resjac_table; the points' pointers are written per call
+    (set_points)."""
+    tab = _ResJacTable(nb=len(rows), n_blocks=n_blocks)
+    for i, ((T, P, runs, first, r_off, j_off), b) in enumerate(
+            zip(rows, buckets)):
+        tab.b[i] = _ResJacBucket(
+            _i32(b.img_idx), _i32(b.cam_idx), _ptr(b.xy), _ptr(b.mask),
+            None, _ptr(b.point_free), r_off, j_off, T, P, runs, first)
+    return tab
+
+
+def set_points(tab, pts_l):
+    """Write each bucket's points [3, P] into resjac's table."""
+    for i, (row, pts) in enumerate(zip(tab.b, pts_l)):
+        if pts.shape != (3, row.P):
+            raise ValueError(f"resjac: bucket {i} points of shape "
+                             f"{tuple(pts.shape)}, expected (3, {row.P})")
+        row.pts = _ptr(pts.contiguous())
 
 
 class _CostBucket(ctypes.Structure):

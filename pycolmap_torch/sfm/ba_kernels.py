@@ -775,6 +775,8 @@ def _lm_solve_bucketed(
     dense_cg = 0
 
     pts = [[b.points for b in bl] for bl in shards]
+    # resjac's table per shard, once per solve: only the points change
+    rj_l = [ck.resjac_launch(bl, model_id) for bl in shards]
     cost0 = reduce([
         ck.total_cost(bl, pts[s], quat0.to(d), trans0.to(d), intr0.to(d),
                       model_id, loss_type, loss_scale)
@@ -792,7 +794,7 @@ def _lm_solve_bucketed(
         for s, bl, d in each():
             res, J = ck.res_and_jac(bl, pts[s], quat.to(d), trans.to(d),
                                     intr.to(d), free_l[s], model_id,
-                                    loss_type, loss_scale)
+                                    loss_type, loss_scale, launch=rj_l[s])
             Vinv, g_pt, *cam = ck.schur_prepare(bl, J, res, lam.to(d), I, C)
             J_l.append(J)
             Vinv_l.append(Vinv)

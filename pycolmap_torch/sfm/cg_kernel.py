@@ -2,10 +2,10 @@
 
 Port of ``pycolmap_tpu/sfm/cg_kernel.py``. Each wrapper keeps the return
 contract of its reference twin and either launches the CUDA kernel
-(``sfm/csrc``, bound by ``sfm/_cuda.py``; once per bucket for resjac, once
-for all buckets for the others) for CUDA tensors or runs the plain PyTorch
-version beside it, per bucket, for CPU tensors. There is no
-fallback: a CUDA tensor goes to the kernel or the launch raises.
+(``sfm/csrc``, bound by ``sfm/_cuda.py``; one launch for all buckets of a
+call, except the gather, which takes one bucket) for CUDA tensors or runs
+the plain PyTorch version beside it, per bucket, for CPU tensors. There is
+no fallback: a CUDA tensor goes to the kernel or the launch raises.
 
 | wrapper              | CUDA kernel               | reference Pallas kernel          |
 |----------------------|---------------------------|----------------------------------|
@@ -29,6 +29,14 @@ kernels (``*_mixed``: one kernel per function and width, a runtime switch
 on each observation's selector into the same per-model device code); the
 Schur kernels read J at its width and need no variant. The plain versions
 where-select per observation, as the reference does.
+
+``res_and_jac`` is one launch for all buckets (up to 16, of any width),
+one thread per track slot, over a table of the buckets' operands and
+output offsets (``resjac_table``, in a :class:`ResJacLaunch`) that the LM
+solve builds once per solve and shard (``resjac_launch``): within a solve
+only the points change, and each call writes their pointers into the
+table. Every bucket's residual and Jacobian are contiguous views of one
+allocation per call.
 
 ``schur_matvec16`` reads J packed to bf16 by ``pack_j_bf16`` (the
 reference's layout and rounding), once per LM step; prepare, the f32
@@ -262,25 +270,36 @@ def _itab(quat, trans):
 
 
 def res_and_jac(buckets, pts_list, quat, trans, intr, intr_free, model_id,
-                loss_type, loss_scale):
+                loss_type, loss_scale, launch=None):
     """Robust-weighted residuals [2, T, P] and NP-narrow Jacobians
-    [2, 9+NP, T, P] of every bucket: (res_l, J_l)."""
+    [2, 9+NP, T, P] of every bucket: (res_l, J_l), zero at every masked
+    slot. On the card one launch covers every bucket, over `launch`
+    (resjac_launch of these buckets, built here when None); the outputs
+    are contiguous views of one allocation per call."""
     model, NP = _model(model_id)
-    itab = _itab(quat, trans)
     intr = intr[:, :NP].contiguous()
     ifree = intr_free[:, :NP].contiguous()
+    if buckets and _is_cuda(pts_list[0]):
+        if launch is None:
+            launch = ResJacLaunch(buckets, NP)
+        elif launch.NP != NP or len(launch.buckets) != len(buckets) \
+                or not all(a is b for a, b in zip(launch.buckets, buckets)):
+            raise ValueError("resjac: launch was built for other buckets")
+        if len(pts_list) != len(buckets):
+            raise ValueError(f"resjac: {len(pts_list)} point sets for "
+                             f"{len(buckets)} buckets")
+        _cuda.set_points(launch.table, pts_list)
+        out = torch.empty(launch.n_floats, device=pts_list[0].device)
+        if launch.n_blocks:
+            _launch("resjac", model, NP, launch, quat.contiguous(),
+                    trans.contiguous(), intr, ifree, int(loss_type),
+                    float(loss_scale), out)
+        return launch.outputs(out)
+    itab = _itab(quat, trans)
     res_l, J_l = [], []
     for b, pts in zip(buckets, pts_list):
-        if _is_cuda(pts):
-            T, P = b.mask.shape
-            res = torch.empty((2, T, P), device=pts.device)
-            J = torch.empty((2, 9 + NP, T, P), device=pts.device)
-            _launch("resjac", model, NP, itab, intr, ifree, b.img_idx,
-                    b.cam_idx, b.xy, b.mask, pts.contiguous(), b.point_free,
-                    int(loss_type), float(loss_scale), res, J)
-        else:
-            res, J = resjac_plain(b, pts, itab, intr, ifree, model,
-                                  int(loss_type), float(loss_scale))
+        res, J = resjac_plain(b, pts, itab, intr, ifree, model,
+                              int(loss_type), float(loss_scale))
         res_l.append(res)
         J_l.append(J)
     return res_l, J_l
@@ -431,6 +450,88 @@ def schur_matvec16(buckets, J16_l, Vinv_l, x_pose, x_intr, I, C,
     otherwise as schur_matvec (`launch`: matvec_launch("matvec16", ...))."""
     return _schur_matvec("matvec16", matvec16_plain, J16_l[0].shape[0] - 9,
                          buckets, J16_l, Vinv_l, x_pose, x_intr, I, C, launch)
+
+
+# ---------------------------------------------------------------------------
+# resjac's bucket table: one launch over every bucket, a thread per slot
+# ---------------------------------------------------------------------------
+
+RESJAC_MAX_BUCKETS = 16  # kResJacMaxBuckets in csrc/resjac.cu
+RESJAC_COLS = 256  # kResJacCols: columns of a block's run of one slot row
+RESJAC_ALIGN = 64  # floats (256 B) each output view starts on
+
+
+def resjac_table(shapes, NP):
+    """resjac's bucket table from the buckets' [T, P] at width NP: per
+    bucket (T, P, runs, first_block, res_off, J_off) in launch order, the
+    block count and the floats of the one output allocation. A bucket has
+    T blocks of `runs` = ceil(P / 256) runs each; its residual [2, T, P]
+    starts at float res_off, its Jacobian [2, 9+NP, T, P] at J_off, each
+    on a multiple of 64 floats. Any width P >= 0, up to 16 buckets."""
+    if not 1 <= len(shapes) <= RESJAC_MAX_BUCKETS:
+        raise ValueError(f"resjac takes 1..{RESJAC_MAX_BUCKETS} buckets, "
+                         f"got {len(shapes)}")
+    rows, first, off = [], 0, 0
+    for T, P in shapes:
+        if T < 1 or P < 0:
+            raise ValueError(f"resjac: bucket of shape [{T}, {P}]")
+        runs = -(-P // RESJAC_COLS)
+        r_off = off
+        j_off = r_off + -(-2 * T * P // RESJAC_ALIGN) * RESJAC_ALIGN
+        off = j_off + -(-2 * (9 + NP) * T * P // RESJAC_ALIGN) * RESJAC_ALIGN
+        rows.append((T, P, runs, first, r_off, j_off))
+        first += T * runs
+    return tuple(rows), first, off
+
+
+def resjac_views(rows, NP):
+    """Per bucket of a resjac_table, the (size, stride, offset) of its
+    residual [2, T, P] and of its Jacobian [2, 9+NP, T, P] in the output
+    allocation: two lists, for ``as_strided``."""
+    nj = 9 + NP
+    res, J = [], []
+    for T, P, _, _, r_off, j_off in rows:
+        TP = T * P
+        res.append(((2, T, P), (TP, P, 1), r_off))
+        J.append(((2, nj, T, P), (nj * TP, TP, P, 1), j_off))
+    return res, J
+
+
+class ResJacLaunch:
+    """What resjac on the card needs beside its per-call inputs, for one
+    list of buckets at width NP: the bucket table (a ctypes struct passed
+    by value, holding each bucket's index, xy, mask and free-flag pointers
+    and its output offsets) and the output views. The LM solve builds one
+    per solve and shard: its buckets do not change within a solve, and a
+    call writes only its points' pointers into the table."""
+
+    def __init__(self, buckets, NP):
+        self.NP = NP
+        self.buckets = list(buckets)
+        self.rows, self.n_blocks, self.n_floats = resjac_table(
+            [tuple(b.mask.shape) for b in buckets], NP)
+        for i, (b, (T, P, *_)) in enumerate(zip(buckets, self.rows)):
+            for t, shape in ((b.img_idx, (T, P)), (b.cam_idx, (T, P)),
+                             (b.xy, (2, T, P)), (b.point_free, (P,))):
+                if tuple(t.shape) != shape:
+                    raise ValueError(f"resjac: bucket {i} operand of shape "
+                                     f"{tuple(t.shape)}, expected {shape}")
+        self._res, self._J = resjac_views(self.rows, NP)
+        self.table = _cuda.resjac_table(self.rows, self.n_blocks, buckets)
+
+    def outputs(self, out):
+        """(res_l, J_l): each bucket's contiguous views of the output
+        allocation `out` (n_floats)."""
+        return ([out.as_strided(*v) for v in self._res],
+                [out.as_strided(*v) for v in self._J])
+
+
+def resjac_launch(buckets, model_id):
+    """The :class:`ResJacLaunch` of one LM solve's buckets for
+    res_and_jac; None off the card, where the plain version needs none."""
+    if not buckets or not _is_cuda(buckets[0].mask):
+        return None
+    return ResJacLaunch(buckets, _model(model_id)[1])
 
 
 # ---------------------------------------------------------------------------

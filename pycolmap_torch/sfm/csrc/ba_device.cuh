@@ -7,14 +7,15 @@
 //
 // Layouts (all row-major, f32 unless noted), shared with the plain PyTorch
 // versions in pycolmap_torch/sfm/cg_kernel.py:
-//   itab  [I, 7]   quat wxyz | trans          intr, ifree [C, NP]
+//   quat  [I, 4] wxyz   trans [I, 3]          intr, ifree [C, NP]
 //   img_idx, cam_idx [T, P] int32             xy [2, T, P]   mask [T, P]
 //   pts   [3, P]   pfree [P]                  res [2, T, P]
 //   J     [2, 9+NP, T, P]: 6 pose | NP intrinsics | 3 point columns
 //   vinv  [6, P] packed symmetric (00,01,02,11,12,22)   gpt [3, P]
-// In resjac.cu one thread owns one point column p and loops over its T
-// track slots, so every [.., T, P] plane is read coalesced along P; cost.cu
-// and schur.cu give each thread one or more slots of a tile of columns.
+// resjac.cu gives each thread one track slot of a run of 256 columns of one
+// slot row, so every [.., T, P] plane is read and written coalesced along
+// P; cost.cu and schur.cu give each thread one or more slots of a tile of
+// columns.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -192,12 +193,13 @@ __device__ __forceinline__ void distort(const S* k, S u, S v, S& du, S& dv) {
 // parameters, projection, robust losses
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void load_pose(const float* itab, int i, float q[4], float t[3]) {
-  const float* r = itab + 7 * i;
+// image i's pose from quat [I, 4] and trans [I, 3]
+__device__ __forceinline__ void load_qt(const float* quat, const float* trans, int i, float q[4],
+                                        float t[3]) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c) q[c] = __ldg(r + c);
+  for (int c = 0; c < 4; ++c) q[c] = __ldg(quat + 4 * i + c);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) t[c] = __ldg(r + 4 + c);
+  for (int c = 0; c < 3; ++c) t[c] = __ldg(trans + 3 * i + c);
 }
 
 // ops/ba_math.py quat_rotate_cf

@@ -202,14 +202,6 @@ __device__ __forceinline__ void stage_tile(const CostTable& tab, int tile, float
   }
 }
 
-__device__ __forceinline__ void load_qt(const float* quat, const float* trans, int i, float q[4],
-                                        float t[3]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) q[c] = __ldg(quat + 4 * i + c);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) t[c] = __ldg(trans + 3 * i + c);
-}
-
 // The robust cost of one live slot at point X and the given parameters
 // (quat [I, 4], trans [I, 3], intr [C, NP]); cost and finish share it, so
 // at the same inputs they give the same bits.

@@ -882,3 +882,190 @@ def test_finish_at_zero_step_is_the_cost():
     assert all(torch.equal(a, b) for a, b in zip(w_parts, f_parts))
     assert torch.equal(w_cost, w_fin)
     assert all(torch.equal(a, b) for a, b in zip(w_pts, pts))
+
+
+# ---------------------------------------------------------------------------
+# resjac over its table (csrc/resjac.cu: one launch over every bucket, one
+# thread per track slot, blocks of (bucket, slot row, run of 256 columns))
+# ---------------------------------------------------------------------------
+
+
+def test_resjac_table_rows():
+    """The incremental mapper's global-step buckets at NP 4: T blocks of
+    ceil(P / 256) runs per bucket, in bucket order; each bucket's residual
+    and then its Jacobian in one allocation, every view on 64 floats."""
+    rows, n_blocks, n_floats = tck.resjac_table(
+        [(4, 128), (8, 128), (16, 128), (32, 2048)], 4)
+    assert rows == ((4, 128, 1, 0, 0, 1024),
+                    (8, 128, 1, 4, 14336, 16384),
+                    (16, 128, 1, 12, 43008, 47104),
+                    (32, 2048, 8, 28, 100352, 231424))
+    assert n_blocks == 284 and n_floats == 1935360
+
+
+def test_resjac_table_ragged():
+    """An empty [4, 128] bucket (every slot masked) beside widths that are
+    no multiple of 256 and a bucket of no column: the views tile the
+    allocation in order without overlap, each on a multiple of 64 floats,
+    and the blocks cover every (bucket, slot row, run) once."""
+    shapes = [(4, 128), (8, 1000), (16, 77), (8, 0), (64, 5)]
+    NPm = 9
+    rows, n_blocks, n_floats = tck.resjac_table(shapes, NPm)
+    res_v, J_v = tck.resjac_views(rows, NPm)
+    end, first = 0, 0
+    for (T_, P_), row, rv, jv in zip(shapes, rows, res_v, J_v):
+        assert row[:4] == (T_, P_, -(-P_ // 256), first)
+        first += T_ * row[2]
+        for size, stride, off in (rv, jv):
+            assert off % 64 == 0 and off >= end
+            n = int(np.prod(size))
+            assert stride == tuple(int(np.prod(size[k + 1:]))
+                                   for k in range(len(size)))
+            end = off + n
+    assert n_blocks == first == 4 + 32 + 16 + 0 + 64 and end <= n_floats
+    assert n_floats - end < 64
+
+
+@pytest.mark.parametrize("shapes, why", [
+    ([], "no bucket"),
+    ([(4, 128)] * 17, "more buckets than the table holds"),
+    ([(0, 128)], "T = 0"),
+    ([(8, 256), (4, -1)], "a negative width"),
+])
+def test_resjac_table_rejects(shapes, why):
+    with pytest.raises(ValueError):
+        tck.resjac_table(shapes, 4)
+
+
+def test_resjac_launch_needs_the_card():
+    """Off the card the LM solve builds no table (the plain version needs
+    none), and a table of host tensors is refused."""
+    case = _case(70)
+    tb = _tb(case)
+    assert tck.resjac_launch([tb], MODEL_ID) is None
+    with pytest.raises(ValueError, match="CUDA"):
+        tck.ResJacLaunch([tb], NP)
+    with pytest.raises(ValueError, match="shape"):
+        tck.ResJacLaunch([tb._replace(xy=tb.xy[..., :64])], NP)
+
+
+def resjac_walk(rows, n_blocks, n_floats, buckets, pts_l, itab, intr, ifree,
+                model_id, loss_type, scale):
+    """resjac_kernel's walk of its table in plain PyTorch: block -> (bucket,
+    slot row t, run of 256 columns); each thread p < P of a block writes
+    its slot's residual and Jacobian (resjac_plain on that row's columns: a
+    dead slot gives zeros) into one allocation, which starts as NaN so that
+    a slot no block writes shows. Returns the views (res_l, J_l)."""
+    NPm = solver_num_params(model_id)
+    intr, ifree = intr[:, :NPm], ifree[:, :NPm]
+    out = torch.full((n_floats,), float("nan"), dtype=itab.dtype)
+    res_v, J_v = tck.resjac_views(rows, NPm)
+    res_l = [out.as_strided(*v) for v in res_v]
+    J_l = [out.as_strided(*v) for v in J_v]
+    starts = [r[3] for r in rows]
+    for blk in range(n_blocks):
+        bi = max(i for i, f in enumerate(starts)
+                 if f <= blk and rows[i][2])
+        Tn, Pn, runs, first = rows[bi][:4]
+        t, run = divmod(blk - first, runs)
+        cols = slice(run * 256, min((run + 1) * 256, Pn))
+        b = buckets[bi]
+        part = b._replace(img_idx=b.img_idx[t:t + 1, cols],
+                          cam_idx=b.cam_idx[t:t + 1, cols],
+                          xy=b.xy[:, t:t + 1, cols], mask=b.mask[t:t + 1, cols],
+                          point_free=b.point_free[cols])
+        r, J = tck.resjac_plain(part, pts_l[bi][:, cols], itab, intr, ifree,
+                                model_id, loss_type, scale)
+        res_l[bi][:, t:t + 1, cols] = r
+        J_l[bi][:, :, t:t + 1, cols] = J
+    return res_l, J_l
+
+
+def _resjac_buckets(seed, I_, C_):
+    """An empty [4, 128] bucket (every slot masked, index 0), a [8, 256] one
+    of tracks of lengths 1..8 and 55 padding columns, and a [4, 256] one
+    with ~30% mask holes and ~20% fixed points; numpy fields."""
+    rng = np.random.default_rng(seed)
+    empty, ragged = walk_buckets(seed, I_, C_)
+    holes = dict(
+        img_idx=rng.integers(0, I_, (4, 256)).astype(np.int32),
+        cam_idx=rng.integers(0, C_, (4, 256)).astype(np.int32),
+        xy=rng.normal(scale=200.0, size=(2, 4, 256)).astype(np.float32),
+        mask=(rng.uniform(size=(4, 256)) > 0.3).astype(np.float32),
+        points=rng.normal(size=(3, 256)).astype(np.float32),
+        point_free=(rng.uniform(size=256) > 0.2).astype(np.float32),
+        point_rows=np.arange(256, dtype=np.int32),
+    )
+    return [empty, ragged, holes]
+
+
+def _mixed_tables(seed, models, C_):
+    """Intrinsics [C, NP] of C cameras cycling through `models` (the
+    selector column last; the last camera's names no listed model) and
+    their free flags, 0 at the selector."""
+    from pycolmap_torch.ops.camera_models import CAMERA_MODEL_BY_ID
+
+    rng = np.random.default_rng(seed)
+    NPm = solver_num_params(models)
+    intr = np.zeros((C_, NPm), np.float32)
+    for c in range(C_):
+        info = CAMERA_MODEL_BY_ID[models[c % len(models)]]
+        for i in info.focal_idxs:
+            intr[c, i] = 400.0 + 30.0 * rng.normal()
+        intr[c, info.principal_idxs[0]] = 320.0
+        intr[c, info.principal_idxs[1]] = 240.0
+        for i in info.extra_idxs:
+            intr[c, i] = rng.uniform(-0.05, 0.05)
+        intr[c, NPm - 1] = info.model_id
+    intr[C_ - 1, NPm - 1] = min(set(range(11)) - set(models))
+    intr_free = (rng.uniform(size=(C_, NPm)) > 0.3).astype(np.float32)
+    intr_free[:, NPm - 1] = 0.0
+    return intr, intr_free
+
+
+@pytest.mark.parametrize("model_id", [MODEL_ID, (2, 4)],
+                         ids=["single", "mixed"])
+def test_resjac_buckets_match_pallas(model_id):
+    """res_and_jac over several buckets, one of them empty, against the
+    reference's res_and_jac (its Pallas resjac_bucket in interpret mode)
+    at 1e-5 scaled, single-model (SIMPLE_RADIAL) and mixed (SIMPLE_RADIAL
+    and OPENCV plus a camera naming no listed model, width 9); exact zeros
+    at every masked slot; and the kernel's walk of its table, which every
+    slot of every bucket reaches once, equal to it bit for bit."""
+    case = _case(80)
+    if isinstance(model_id, tuple):
+        C_ = 3
+        intr, intr_free = _mixed_tables(81, model_id, C_)
+    else:
+        C_ = C
+        intr, intr_free = case["intr"], case["intr_free"]
+    quat, trans = case["quat"], case["trans"]
+    b_np = _resjac_buckets(82, I, C_)
+    jb = [jbk.Bucket(**{k: jnp.asarray(v) for k, v in b.items()})
+          for b in b_np]
+    tb = [tbk.Bucket(**{k: torch.from_numpy(v) for k, v in b.items()})
+          for b in b_np]
+    ref_res, ref_J = jck.res_and_jac(
+        jb, [b.points for b in jb], _j(quat), _j(trans), _j(intr),
+        _j(intr_free), model_id, 1, jnp.float32(1.5), interpret=True)
+    tck.reset_counts()
+    got_res, got_J = tck.res_and_jac(
+        tb, [b.points for b in tb], _t(quat), _t(trans), _t(intr),
+        _t(intr_free), model_id, 1, 1.5)
+    assert not any(tck.LAUNCHES.values())
+    NPm = solver_num_params(model_id)
+    for b, gr, gJ, rr, rJ in zip(tb, got_res, got_J, ref_res, ref_J):
+        assert gJ.shape == (2, 9 + NPm) + tuple(b.mask.shape)
+        _close_scaled(gr, rr, 1e-5)
+        _close_scaled(gJ, rJ, 1e-5)
+        dead = b.mask == 0
+        assert not gr[:, dead].any() and not gJ[:, :, dead].any()
+    assert not got_J[0].any()  # the empty bucket
+    rows, n_blocks, n_floats = tck.resjac_table(
+        [tuple(b.mask.shape) for b in tb], NPm)
+    itab = torch.cat([_t(quat), _t(trans)], 1)
+    w_res, w_J = resjac_walk(rows, n_blocks, n_floats, tb,
+                             [b.points for b in tb], itab, _t(intr),
+                             _t(intr_free), model_id, 1, 1.5)
+    for a, b in zip(w_res + w_J, got_res + got_J):
+        assert torch.equal(a, b)

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of pycolmap_torch/, and neither
-chip_smoke.py nor example_torch.py, imports jax, jaxlib or the reference
+"""The port stands alone: no module of pycolmap_torch/, and none of
+chip_smoke.py, chip_ab.py, example_torch.py and the card scripts under
+scripts/ that drive the port, imports jax, jaxlib or the reference
 package, at any depth of the file (function-level imports included). And
 ``import pycolmap_torch`` works cold, in a fresh interpreter, and exposes
 the public names of the README's quick start."""
@@ -14,7 +15,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "pycolmap_tpu")
 FILES = sorted((ROOT / "pycolmap_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "example_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_ab.py", ROOT / "example_torch.py",
+    ROOT / "scripts" / "resjac_launch_bounds.py"]
 
 
 def _imports(path):

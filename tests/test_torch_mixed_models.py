@@ -343,8 +343,10 @@ def test_card_wrappers_take_the_mixed_launchers(monkeypatch):
     for name in ("resjac", "cost", "resjac_mixed", "cost_mixed"):
         monkeypatch.setattr(tck._cuda, name,
                             lambda *a, _n=name: calls.append((_n, a[:3])))
-    # the cost's bucket table holds device pointers: none here
+    # the bucket tables hold device pointers: none here
     monkeypatch.setattr(tck._cuda, "cost_table", lambda *a: None)
+    monkeypatch.setattr(tck._cuda, "resjac_table", lambda *a: None)
+    monkeypatch.setattr(tck._cuda, "set_points", lambda *a: None)
     monkeypatch.setattr(tck, "_is_cuda", lambda t: True)
     tck.reset_counts()
     models = (SIMPLE_PINHOLE, FULL_OPENCV, FOV)
